@@ -1,0 +1,71 @@
+"""The bench configuration, built without JAX.
+
+Mirrors bench.py:23-125 for the helmet scene: the DamagedHelmet-class
+textured sphere (~49k triangles, one 512^2 base-colour texture, metallic
+0.3 / roughness 0.45), the analytic HDR sky at cube size 128, env NEE + MIS
+with 2 bounces and the luminance clamp, and the bench camera.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from gltf_renderer_tpu_torch import camera
+from gltf_renderer_tpu_torch.env.environment import build_environment_pt
+from gltf_renderer_tpu_torch.render import pathtracer as pt
+from gltf_renderer_tpu_torch.render import settings as S
+from gltf_renderer_tpu_torch.scene import flatten
+from gltf_renderer_tpu_torch.scene.procedural import textured_sphere_scene
+
+FIDELITY_RES = (256, 144)  # bench.FIDELITY_RES
+FIDELITY_SPP = 32          # bench.FIDELITY_SPP: seeds 1..32 averaged
+
+
+def analytic_sky(h: int = 256, w: int = 512) -> np.ndarray:
+    """The bench's analytic HDR sky (sun hotspot + gradient), (h, w, 3) f32."""
+    v = (np.arange(h) + 0.5) / h
+    u = (np.arange(w) + 0.5) / w
+    uu, vv = np.meshgrid(u, v)
+    z = 1.0 - 2.0 * vv
+    phi = 2 * np.pi * uu
+    s = np.sqrt(np.maximum(1 - z * z, 0))
+    d3 = np.stack([s * np.cos(phi), s * np.sin(phi), z], -1)
+    sun = np.asarray([0.5, 0.3, 0.8])
+    sun /= np.linalg.norm(sun)
+    hotspot = 50.0 * np.maximum((d3 * sun).sum(-1), 0.0) ** 200
+    sky = 0.4 + 0.6 * np.maximum(d3[..., 2], 0)
+    return np.stack([hotspot + 0.8 * sky, hotspot + 0.85 * sky, hotspot + sky],
+                    -1).astype(np.float32)
+
+
+def world_from_scene(scene):
+    """Host flatten: (WorldGeometry, GpuLights) of a Scene."""
+    tf = flatten.compute_global_transforms(scene)
+    plan = flatten.build_instance_plan(scene)
+    tri_flags = flatten.plan_tri_flags(plan, scene.primitives)
+    world = flatten.build_world_geometry(scene.pools, plan, tf,
+                                         flatten.normal_transforms(tf), tri_flags)
+    return world, flatten.gather_lights(scene, tf)
+
+
+def bench_camera(width: int, height: int) -> np.ndarray:
+    """clip_to_world of the bench camera (eye (1.1, -1.1, 0.6) at origin)."""
+    return camera.clip_to_world(camera.look_at([1.1, -1.1, 0.6], [0.0, 0.0, 0.0]),
+                                y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
+
+
+def build_bench_scene(width: int, height: int, device="cpu", tex_size: int = 512,
+                      n_lat: int = 128, n_lon: int = 192, sky_hw=(256, 512),
+                      cube_size: int = 128):
+    """Bench scene + camera on `device`. The keyword sizes default to the
+    bench's; tests pass smaller ones. Returns
+    (ptscene, meta, settings, params, clip_to_world, n_tris)."""
+    scene = textured_sphere_scene(tex_size=tex_size, n_lat=n_lat, n_lon=n_lon,
+                                  metallic=0.3, roughness=0.45)
+    world, lights = world_from_scene(scene)
+    env = build_environment_pt(analytic_sky(*sky_hw), cube_size=cube_size, device=device)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    settings = S.PathTracerSettings(max_bounces=2, min_bounces=2, alpha_shadows=False)
+    return (ptscene, meta, settings, S.PathTracerParams(), bench_camera(width, height),
+            int(world.tri_vertex.shape[0]))

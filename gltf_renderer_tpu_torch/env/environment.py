@@ -1,0 +1,214 @@
+"""Environment map: equirect -> cube level 0 + luminance importance pyramid
++ alias table, and the path tracer's lookups.
+
+Port of the path-tracer subset of gltf_renderer_tpu/env/environment.py
+(EnvironmentMap.cpp and its compute shaders). The GGX and diffuse
+prefiltered cubes feed only the raster backend and are not built here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, NamedTuple
+
+import numpy as np
+import torch
+
+from gltf_renderer_tpu_torch.device import resolve
+from gltf_renderer_tpu_torch.ops import sampling
+from gltf_renderer_tpu_torch.utils.math import (
+    PI,
+    cubemap_to_direction,
+    direction_to_cubemap,
+    direction_to_equirectangular,
+    luminance,
+    sphere_to_square,
+    square_to_sphere,
+    unit_square_to_uv,
+    uv_to_unit_square,
+)
+
+IMPORTANCE_RESOLUTION = 1024  # EnvironmentMap.cpp:99
+
+
+class EnvMaps(NamedTuple):
+    """What the path tracer reads of one environment."""
+
+    cube: List[Any]        # [level 0] — (6, S, S, 3) f32
+    importance: List[Any]  # (S, S) luminance-sum pyramid; [-1] is (1, 1)
+    equirect: Any          # (H, W, 3) source
+    alias_rows: Any        # (S*S, 4) Walker alias rows
+
+
+def _bilerp(c00, c10, c01, c11, tx, ty):
+    return (c00 * (1 - tx) + c10 * tx) * (1 - ty) + (c01 * (1 - tx) + c11 * tx) * ty
+
+
+def sample_equirect(img, uv):
+    """Bilinear, wrap-x / clamp-y."""
+    h, w = img.shape[0], img.shape[1]
+    fx = uv[..., 0] * w - 0.5
+    fy = uv[..., 1] * h - 0.5
+    x0f = torch.floor(fx)
+    y0f = torch.floor(fy)
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    tx = (fx - x0f).unsqueeze(-1)
+    ty = (fy - y0f).unsqueeze(-1)
+
+    def fetch(xi, yi):
+        return img[torch.clamp(yi, 0, h - 1), torch.remainder(xi, w)]
+
+    return _bilerp(fetch(x0, y0), fetch(x0 + 1, y0), fetch(x0, y0 + 1),
+                   fetch(x0 + 1, y0 + 1), tx, ty)
+
+
+def _face_pixel_dirs(size: int, device) -> torch.Tensor:
+    uv = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size
+    v, u = torch.meshgrid(uv, uv, indexing="ij")  # u = x, v = y
+    uv2 = torch.stack([u, v], -1)
+    return torch.stack([
+        cubemap_to_direction(torch.full(u.shape, f, dtype=torch.int64, device=device), uv2)
+        for f in range(6)
+    ], 0)
+
+
+def build_cubemap(equirect, size: int):
+    """ConvertEquirectangularToCubemap.cs.hlsl: (6, S, S, 3) cube level 0."""
+    dirs = _face_pixel_dirs(size, equirect.device)
+    uv = direction_to_equirectangular(dirs)
+    uv = torch.stack([torch.remainder(uv[..., 0], 1.0), uv[..., 1]], -1)
+    return sample_equirect(equirect, uv)
+
+
+def build_cube_mips(cube0) -> List[Any]:
+    """GenerateMipLevelArray.cs.hlsl: 2x2 box filter down to 1x1."""
+    mips = [cube0]
+    cur = cube0
+    while cur.shape[1] > 1:
+        cur = 0.25 * (cur[:, 0::2, 0::2] + cur[:, 1::2, 0::2]
+                      + cur[:, 0::2, 1::2] + cur[:, 1::2, 1::2])
+        mips.append(cur)
+    return mips
+
+
+def _cube_level_ids(face, uv, s, base_off):
+    fx = uv[..., 0] * s - 0.5
+    fy = uv[..., 1] * s - 0.5
+    x0f = torch.floor(fx)
+    y0f = torch.floor(fy)
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    tx = (fx - x0f).unsqueeze(-1)
+    ty = (fy - y0f).unsqueeze(-1)
+    base = base_off + face * (s * s)
+
+    def clip(x):
+        return torch.minimum(torch.clamp(x, min=0), torch.as_tensor(s - 1, device=x.device))
+
+    def fi(xi, yi):
+        return base + clip(yi) * s + clip(xi)
+
+    ids = torch.stack([fi(x0, y0), fi(x0 + 1, y0), fi(x0, y0 + 1), fi(x0 + 1, y0 + 1)])
+    return ids, tx, ty
+
+
+def sample_cube_level(faces, direction):
+    """Bilinear within one cube level (faces (6, S, S, C)); face-clamped."""
+    face, uv = direction_to_cubemap(direction)
+    s = faces.shape[1]
+    ids, tx, ty = _cube_level_ids(face, uv, s, 0)
+    flat = faces.reshape(-1, faces.shape[-1])
+    c = flat[ids.reshape(-1)].reshape(ids.shape + (faces.shape[-1],))
+    return _bilerp(c[0], c[1], c[2], c[3], tx, ty)
+
+
+def sample_cube(mips: List[Any], direction, level):
+    """Trilinear across a cube mip list; `level` (R,) may be fractional."""
+    n = len(mips)
+    if n == 1:
+        return sample_cube_level(mips[0], direction)
+    dev = direction.device
+    level = torch.clamp(level, 0.0, n - 1)
+    l0 = torch.floor(level).to(torch.int64)
+    l1 = torch.clamp(l0 + 1, max=n - 1)
+    frac = (level - l0.to(torch.float32)).unsqueeze(-1)
+    sizes_py = [m.shape[1] for m in mips]
+    offs_py = [int(o) for o in np.cumsum([0] + [6 * s * s for s in sizes_py[:-1]])]
+    sizes = torch.as_tensor(sizes_py, dtype=torch.int64, device=dev)
+    offs = torch.as_tensor(offs_py, dtype=torch.int64, device=dev)
+    face, uv = direction_to_cubemap(direction)
+    flat = torch.cat([m.reshape(-1, m.shape[-1]) for m in mips])
+
+    def level_sample(li):
+        s = sizes[li]
+        ids, tx, ty = _cube_level_ids(face, uv, s, offs[li])
+        c = flat[ids.reshape(-1)].reshape(ids.shape + (flat.shape[-1],))
+        return _bilerp(c[0], c[1], c[2], c[3], tx, ty)
+
+    return level_sample(l0) * (1 - frac) + level_sample(l1) * frac
+
+
+def build_importance_map(cube_mips: List[Any]) -> List[Any]:
+    """GenerateEnvironmentImportanceMap(.Level): luminance of the
+    sphere-mapped cube at 1024^2, then a 2x2 SUM pyramid down to 1x1."""
+    dev = cube_mips[0].device
+    s = IMPORTANCE_RESOLUTION
+    uv = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
+    vy, ux = torch.meshgrid(uv, uv, indexing="ij")
+    d = square_to_sphere(uv_to_unit_square(torch.stack([ux, vy], -1)))
+    input_width = cube_mips[0].shape[1]
+    # GenerateEnvironmentImportanceMap.cs.hlsl:35: log2((6*size)/res) with
+    # UNSIGNED INTEGER division before the log2.
+    ratio = (6 * input_width) // s
+    mip = torch.clamp(torch.log2(torch.tensor(max(ratio, 1e-30), dtype=torch.float32)),
+                      0.0, len(cube_mips) - 1)
+    color = sample_cube(cube_mips, d, torch.full((s, s), float(mip), device=dev))
+    lum = luminance(color)
+    mips = [lum]
+    cur = lum
+    while cur.shape[0] > 1:
+        cur = cur[0::2, 0::2] + cur[1::2, 0::2] + cur[0::2, 1::2] + cur[1::2, 1::2]
+        mips.append(cur)
+    return mips
+
+
+def build_environment_pt(equirect, cube_size: int = None, device="cpu") -> EnvMaps:
+    """The path tracer's environment tables: cube level 0, the importance
+    pyramid, the alias rows (host-built) and the source equirect."""
+    dev = resolve(device)
+    eq = torch.as_tensor(np.asarray(equirect, np.float32), device=dev)
+    if cube_size is None:
+        w = eq.shape[1]
+        cs = int(max(2 ** int(np.floor(np.log2(max(w // 8, 1)))), 64))
+        cs = min(cs, 1024)
+    else:
+        cs = cube_size
+    cube_mips = build_cube_mips(build_cubemap(eq, cs))
+    importance = build_importance_map(cube_mips)
+    alias_rows = torch.as_tensor(
+        sampling.build_alias_rows(importance[0].cpu().numpy()), device=dev)
+    return EnvMaps(cube=[cube_mips[0]], importance=importance, equirect=eq,
+                   alias_rows=alias_rows)
+
+
+def env_radiance(env: EnvMaps, direction):
+    """Miss-shader env lookup: cube level 0 (Miss:1040-1042)."""
+    return sample_cube_level(env.cube[0], direction)
+
+
+def env_sample(env: EnvMaps, u4):
+    """SampleEnvironmentMap (:688-703) through the alias table. u4 (R, 4).
+    Returns (direction, radiance, pdf in solid angle)."""
+    size = env.importance[0].shape[0]
+    uv, pdf = sampling.sample_importance_alias(env.alias_rows, size,
+                                               env.importance[-1][0, 0], u4)
+    direction = square_to_sphere(uv_to_unit_square(uv))
+    color = sample_cube_level(env.cube[0], direction)
+    return direction, color, pdf / (4.0 * PI)
+
+
+def env_pdf(env: EnvMaps, direction):
+    """EnvironmentMapPdf (:705-710)."""
+    uv = unit_square_to_uv(sphere_to_square(direction))
+    return sampling.importance_map_pdf(env.importance[0].shape[0], env.importance[-1][0, 0],
+                                       uv, env.alias_rows) / (4.0 * PI)

@@ -1,0 +1,111 @@
+"""Texture helpers on the linear atlas.
+
+Port of the path tracer's subset of gltf_renderer_tpu/ops/texture.py:
+`decode_atlas_linear` (host, once per scene), `transform_uv`, `_wrap` and
+level-0 bilinear / nearest sampling of the flat linear atlas. No quad atlas
+and no mips: the path tracer samples level 0 (Material.hlsli:95).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gltf_renderer_tpu_torch.scene.types import WRAP_CLAMP, WRAP_MIRROR, WRAP_REPEAT
+
+
+def decode_atlas_linear(tex):
+    """u8 sRGB atlas -> flat (AH*AW, 4) f16 linear atlas (host numpy).
+
+    RGB of rects flagged sRGB are decoded; alpha and linear textures are
+    straight u8/255. f16 keeps the u8 precision."""
+    atlas = np.asarray(tex.atlas)
+    if atlas.size == 0:
+        return tex._replace(atlas_linear=np.zeros((0, 4), np.float16))
+    lin = atlas.astype(np.float32) / 255.0
+    xs, ys = np.asarray(tex.x), np.asarray(tex.y)
+    ws, hs = np.asarray(tex.width), np.asarray(tex.height)
+    srgb = np.asarray(tex.srgb)
+    a = 0.055
+
+    def dec(c):
+        return np.where(c <= 0.04045, c / 12.92, ((c + a) / (1 + a)) ** 2.4)
+
+    for i in np.nonzero(srgb == 1)[0]:
+        x, y, w, h = int(xs[i]), int(ys[i]), int(ws[i]), int(hs[i])
+        lin[y : y + h, x : x + w, :3] = dec(lin[y : y + h, x : x + w, :3])
+    return tex._replace(atlas_linear=lin.reshape(-1, atlas.shape[-1]).astype(np.float16))
+
+
+def transform_uv(uv, rotation, offset, scale):
+    """KHR_texture_transform (Material.hlsli TransformUv:68-88)."""
+    su = uv[..., 0] * scale[..., 0]
+    sv = uv[..., 1] * scale[..., 1]
+    c = torch.cos(rotation)
+    s = torch.sin(rotation)
+    ru = c * su + s * sv
+    rv = -s * su + c * sv
+    return torch.stack([ru + offset[..., 0], rv + offset[..., 1]], -1)
+
+
+def _wrap(coord, size, mode, modes=(WRAP_REPEAT, WRAP_CLAMP, WRAP_MIRROR)):
+    """Integer texel wrap; only the variants in `modes` are computed."""
+    def rep():
+        return torch.remainder(coord, size)
+
+    def clam():
+        return torch.minimum(torch.clamp(coord, min=0), size - 1)
+
+    def mir():
+        period = 2 * size
+        m = torch.remainder(coord, period)
+        return torch.where(m >= size, period - 1 - m, m)
+
+    variants = {WRAP_REPEAT: rep, WRAP_CLAMP: clam, WRAP_MIRROR: mir}
+    present = [m for m in (WRAP_REPEAT, WRAP_CLAMP, WRAP_MIRROR) if m in modes]
+    if len(present) == 1:
+        return variants[present[0]]()
+    out = variants[present[-1]]()
+    for m in reversed(present[:-1]):
+        out = torch.where(mode == m, variants[m](), out)
+    return out
+
+
+def sample_atlas(atlas_linear, atlas_w: int, atlas_h: int, trow, uv, wrap_modes=(0, 1, 2),
+                 any_nearest=True):
+    """Level-0 bilinear (or per-texture nearest) fetch from the flat linear
+    atlas. trow (..., 9) texture metadata rows, uv (..., 2) -> (..., 4)."""
+    ox = trow[..., 0].to(torch.int64)
+    oy = trow[..., 1].to(torch.int64)
+    w = trow[..., 2].to(torch.int64)
+    h = trow[..., 3].to(torch.int64)
+    ws = trow[..., 4].to(torch.int64)
+    wt = trow[..., 5].to(torch.int64)
+    nearest = trow[..., 6].to(torch.int64)
+    wf = w.to(torch.float32)
+    hf = h.to(torch.float32)
+    fx = uv[..., 0] * wf - 0.5
+    fy = uv[..., 1] * hf - 0.5
+    x0f = torch.floor(fx)
+    y0f = torch.floor(fy)
+    x0 = x0f.to(torch.int64)
+    y0 = y0f.to(torch.int64)
+    tx = (fx - x0f).unsqueeze(-1)
+    ty = (fy - y0f).unsqueeze(-1)
+    if any_nearest:
+        is_near = nearest == 1
+        x0 = torch.where(is_near, torch.floor(uv[..., 0] * wf).to(torch.int64), x0)
+        y0 = torch.where(is_near, torch.floor(uv[..., 1] * hf).to(torch.int64), y0)
+        tx = torch.where(is_near.unsqueeze(-1), torch.zeros_like(tx), tx)
+        ty = torch.where(is_near.unsqueeze(-1), torch.zeros_like(ty), ty)
+
+    def flat_idx(xi, yi):
+        xi = torch.clamp(_wrap(xi, w, ws, wrap_modes) + ox, 0, atlas_w - 1)
+        yi = torch.clamp(_wrap(yi, h, wt, wrap_modes) + oy, 0, atlas_h - 1)
+        return yi * atlas_w + xi
+
+    idx = torch.stack([flat_idx(x0, y0), flat_idx(x0 + 1, y0),
+                       flat_idx(x0, y0 + 1), flat_idx(x0 + 1, y0 + 1)])
+    texel = atlas_linear[idx.reshape(-1)].reshape(idx.shape + (-1,)).to(torch.float32)
+    c00, c10, c01, c11 = texel[0], texel[1], texel[2], texel[3]
+    return (c00 * (1 - tx) + c10 * tx) * (1 - ty) + (c01 * (1 - tx) + c11 * tx) * ty

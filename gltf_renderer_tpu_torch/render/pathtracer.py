@@ -1,0 +1,755 @@
+"""Wavefront path tracer on torch — port of gltf_renderer_tpu/render/pathtracer.py.
+
+All pixel rays advance bounce by bounce in lockstep. RNG streams match the
+reference exactly: pcg4d(pixel, seed, counter) with the counter advanced in
+the order GenerateNextRandom is called (PathTracer.lib.hlsl:144-148).
+Every ray the tracer casts goes through ops.traverse.traverse_wide: the CUDA
+kernel for tensors on the card, the plain version for tensors on the CPU.
+
+Ported here: the bench configuration's main path — environment NEE + MIS,
+the metallic-roughness BSDF (GGX + Lambert + Fresnel mix), Russian
+roulette, the merged bounce + shadow launch, the NaN/Inf scrub and the
+luminance clamp. Scenes that need what is not ported yet (sheen, clearcoat,
+transmission, alpha MASK/BLEND, punctual lights) and settings outside the
+bench's (debug channels, diffuse-white, non-MIS sampling) raise
+NotImplementedError rather than render wrong.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from gltf_renderer_tpu_torch.device import resolve
+from gltf_renderer_tpu_torch.env import environment as env_ops
+from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
+from gltf_renderer_tpu_torch.ops import rng, sampling
+from gltf_renderer_tpu_torch.ops.bsdf import SurfaceProperties, gltf_bsdf
+from gltf_renderer_tpu_torch.ops.material import compact_material_rows, get_surface_properties
+from gltf_renderer_tpu_torch.ops.texture import decode_atlas_linear
+from gltf_renderer_tpu_torch.ops.traverse import traverse_wide
+from gltf_renderer_tpu_torch.render import settings as S
+from gltf_renderer_tpu_torch.scene import types as T
+from gltf_renderer_tpu_torch.scene.flatten import (
+    TRI_HAS_COLOR,
+    TRI_HAS_TS,
+    TRI_HAS_UV0,
+    TRI_HAS_UV1,
+    WorldGeometry,
+)
+from gltf_renderer_tpu_torch.utils.math import (
+    cross,
+    dot,
+    luminance,
+    max_value,
+    normalize,
+    reflect,
+    sum_last,
+    to_local,
+    to_world,
+)
+
+# Rays per _trace_rays call: a memory bound only (the working set of one
+# call is a few hundred bytes per ray).
+RAY_CHUNK = 262144
+PACKET_TILE = 32  # pixels per tile side of the primary-ray emission order
+SEED_STRIDE = 0x9E3779B9  # per-sample seed step of trace_chunked(spp > 1)
+
+
+class PTScene(NamedTuple):
+    """Device-resident inputs for one frame (fields as the JAX PTScene)."""
+
+    world: WorldGeometry
+    bvh: bvh_ops.FlatBVH          # host topology
+    packed: bvh_ops.PackedBVH     # host binary tables
+    materials: Any                # MaterialTable with compact `rows` on device
+    textures: Any                 # TextureTable with `atlas_linear` on device
+    lights: Any
+    env: Any                      # env.environment.EnvMaps or None
+    sheen_table: Any = None       # sheen is not ported yet
+    wide_nodes: Any = None        # (N4, 24) f32
+    wide_maps: Any = None         # bvh.WideMaps (meta on device)
+    leaf_records: Any = None      # (L, REC_GEO) f32
+    leaf_words: Any = None        # (L, LEAF_SIZE) i32
+    occluder_idx: Any = None      # unused by the port
+
+
+class PTMeta(NamedTuple):
+    """Static scene facts (fields as the JAX PTMeta, plus the stack bound)."""
+
+    num_lights: int
+    has_masked: bool
+    has_env: bool
+    has_blend: bool = False
+    use_pallas: bool = False
+    used_slots: tuple = ()
+    has_sheen: bool = True
+    has_clearcoat: bool = True
+    has_transmission: bool = True
+    has_alpha_layer: bool = True
+    wide_root: int = 0
+    shadow_prepass: bool = False
+    leaf_hbm: int = 0
+    identity_uv: bool = False
+    wrap_modes: tuple = (0, 1, 2)
+    any_nearest: bool = True
+    stack_bound: int = 1          # ops.bvh.wide_stack_bound of the wide tree
+
+
+class Hit(NamedTuple):
+    t: Any    # (R,) f32 — t_max on a miss
+    tri: Any  # (R,) i64 — original triangle id, -1 on a miss
+    u: Any
+    v: Any
+
+
+def check_supported(meta: PTMeta) -> None:
+    """Raise NotImplementedError for scene features not ported yet."""
+    missing = [name for name in ("has_sheen", "has_clearcoat", "has_transmission",
+                                 "has_masked", "has_blend") if getattr(meta, name)]
+    if meta.num_lights > 0:
+        missing.append("punctual lights")
+    if missing:
+        raise NotImplementedError(f"the torch path tracer does not support {missing} yet")
+
+
+def slot_flag_words(world, materials, order: np.ndarray) -> np.ndarray:
+    """Packed id/flag words in BVH slot order (ops.bvh FLAG_* bits)."""
+    am = np.asarray(world.tri_alpha_mode)[order]
+    ds = np.asarray(world.tri_double_sided)[order]
+    tm = np.asarray(world.tri_material)[order]
+    transmissive = np.asarray(materials.transmission_factor)[tm] > 0.0
+    words = order.astype(np.int64).copy()
+    words |= np.where(am == T.ALPHA_MODE_MASK, bvh_ops.FLAG_MASKED, 0)
+    blend = (am == T.ALPHA_MODE_BLEND) | (transmissive & (am != T.ALPHA_MODE_MASK))
+    words |= np.where(blend, bvh_ops.FLAG_BLEND, 0)
+    words |= np.where(ds != 0, bvh_ops.FLAG_DOUBLE_SIDED, 0)
+    return words.astype(np.int32)
+
+
+def _scene_meta(world, materials, textures, lights, env) -> PTMeta:
+    """Static facts of a scene, as the reference derives them."""
+    am = np.asarray(world.tri_alpha_mode)
+    tm = np.asarray(world.tri_material)
+    tex_index = np.asarray(materials.tex_index)
+    transmissive = np.asarray(materials.transmission_factor)[tm] > 0.0
+    used_slots = tuple(int(s) for s in range(T.N_TEX_SLOTS) if bool((tex_index[:, s] >= 0).any()))
+    has_masked = bool((am == T.ALPHA_MODE_MASK).any())
+    has_blend_mode = bool((am == T.ALPHA_MODE_BLEND).any())
+    mrows = np.asarray(materials.rows)
+    tex_rows = None if textures.rows is None else np.asarray(textures.rows)
+    identity_uv = True
+    wrap_set = set()
+    any_nearest = False
+    for s in used_slots:
+        b = T.MATERIAL_ROW_FACTORS + T.MATERIAL_SLOT_STRIDE * s
+        tid = mrows[:, b].view(np.int32)
+        on = tid >= 0
+        if not on.any():
+            continue
+        identity_uv = identity_uv and bool(
+            (mrows[on, b + 2] == 0.0).all() and (mrows[on, b + 3:b + 5] == 0.0).all()
+            and (mrows[on, b + 5:b + 7] == 1.0).all())
+        if tex_rows is not None and tex_rows.shape[0]:
+            trs = tex_rows[np.clip(tid[on], 0, tex_rows.shape[0] - 1)]
+            wrap_set.update(int(v) for v in np.unique(trs[:, 4]))
+            wrap_set.update(int(v) for v in np.unique(trs[:, 5]))
+            any_nearest = any_nearest or bool((trs[:, 6] == 1.0).any())
+    return PTMeta(
+        num_lights=int(len(np.asarray(lights.type))),
+        has_masked=has_masked,
+        has_env=env is not None,
+        has_blend=bool(((am == T.ALPHA_MODE_BLEND)
+                        | (transmissive & (am != T.ALPHA_MODE_MASK))).any()),
+        used_slots=used_slots,
+        has_sheen=bool((np.asarray(materials.sheen_color_factor) > 0).any()
+                       or (tex_index[:, T.TEX_SHEEN_COLOR] >= 0).any()),
+        has_clearcoat=bool((np.asarray(materials.clearcoat_factor) > 0).any()
+                           or (tex_index[:, T.TEX_CLEARCOAT] >= 0).any()),
+        has_transmission=bool((np.asarray(materials.transmission_factor) > 0).any()
+                              or (tex_index[:, T.TEX_TRANSMISSION] >= 0).any()),
+        has_alpha_layer=has_masked or has_blend_mode,
+        identity_uv=identity_uv,
+        wrap_modes=tuple(sorted(wrap_set)) if wrap_set else (0,),
+        any_nearest=any_nearest,
+    )
+
+
+def _to_device(tup, dev):
+    """NamedTuple of host arrays -> the same with torch tensors on dev."""
+    return tup._replace(**{
+        k: torch.as_tensor(np.asarray(v), device=dev)
+        for k, v in tup._asdict().items() if isinstance(v, np.ndarray)
+    })
+
+
+def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
+                  device="cpu") -> "tuple[PTScene, PTMeta]":
+    """Build the BVH and the traversal / shading tables on the host, then
+    place them on `device`. Raises NotImplementedError for scenes using
+    features this slice does not port."""
+    dev = resolve(device)
+    meta = _scene_meta(world, materials, textures, lights, env)
+    check_supported(meta)
+
+    wpos = np.asarray(world.position)
+    tv = np.asarray(world.tri_vertex)
+    p0, p1, p2 = wpos[tv[:, 0]], wpos[tv[:, 1]], wpos[tv[:, 2]]
+    tree = bvh_ops.build(p0, p1, p2)
+    order = np.asarray(tree.tri_order)
+    packed = bvh_ops.pack(tree, p0[order], p1[order] - p0[order], p2[order] - p0[order],
+                          slot_flag_words(world, materials, order))
+    maps, wide_root = bvh_ops.build_wide_maps(tree)
+    meta = meta._replace(wide_root=wide_root,
+                         stack_bound=bvh_ops.wide_stack_bound(maps.meta, wide_root))
+
+    if textures.atlas_linear is None and np.asarray(textures.atlas).size:
+        textures = decode_atlas_linear(textures)
+    tex_rows = None if textures.rows is None else np.asarray(textures.rows)
+    materials = materials._replace(rows=torch.as_tensor(
+        compact_material_rows(np.asarray(materials.rows), meta.used_slots, tex_rows), device=dev))
+    scene = PTScene(
+        world=_to_device(world, dev),
+        bvh=tree,
+        packed=packed,
+        materials=materials,
+        textures=textures._replace(
+            rows=None if tex_rows is None else torch.as_tensor(tex_rows, device=dev),
+            atlas_linear=torch.as_tensor(np.asarray(textures.atlas_linear), device=dev)),
+        lights=lights,
+        env=env,
+        wide_nodes=torch.as_tensor(bvh_ops.assemble_wide(packed.nodes, maps.child_src),
+                                   device=dev),
+        wide_maps=maps._replace(meta=torch.as_tensor(maps.meta, device=dev)),
+        leaf_records=torch.as_tensor(np.asarray(packed.records)[maps.leaf_ids], device=dev),
+        leaf_words=torch.as_tensor(np.asarray(packed.words)[maps.leaf_ids], device=dev),
+    )
+    return scene, meta
+
+
+# ---------------------------------------------------------------------------
+# Camera rays (PathTracer.lib.hlsl:131-142) and ray offsetting
+# ---------------------------------------------------------------------------
+
+def generate_camera_rays(px, py, resolution, clip_to_world, jitter):
+    """px/py (R,) int; resolution (w, h); clip_to_world (4, 4) row-major."""
+    w, h = resolution
+    cs_x = ((px.to(torch.float32) + 0.5 + jitter[..., 0]) / w) * 2.0 - 1.0
+    cs_y = -(((py.to(torch.float32) + 0.5 + jitter[..., 1]) / h) * 2.0 - 1.0)
+    ones = torch.ones_like(cs_x)
+    zeros = torch.zeros_like(cs_x)
+    start = torch.stack([cs_x, cs_y, ones, ones], -1) @ clip_to_world.T
+    end = torch.stack([cs_x, cs_y, zeros, ones], -1) @ clip_to_world.T
+    origin = start[..., :3] / start[..., 3:4]
+    dest = end[..., :3] / end[..., 3:4]
+    return origin, dest - origin
+
+
+def offset_ray(position, geometric_normal):
+    """Ray Tracing Gems ch.6 origin offsetting (PathTracer.lib.hlsl:259-268)."""
+    origin_thresh = 1.0 / 32.0
+    float_scale = 1.0 / 65536.0
+    int_scale = 256.0
+    of_i = (int_scale * geometric_normal).to(torch.int32)
+    pos_i = position.contiguous().view(torch.int32)
+    p_i = (pos_i + torch.where(position < 0.0, -of_i, of_i)).view(torch.float32)
+    return torch.where(torch.abs(position) < origin_thresh,
+                       position + float_scale * geometric_normal, p_i)
+
+
+# ---------------------------------------------------------------------------
+# Hit attribute fetch (GetVertexAttributes, PathTracer.lib.hlsl:270-302)
+# ---------------------------------------------------------------------------
+
+class HitAttributes(NamedTuple):
+    position: Any
+    geometric_normal: Any   # normalized, backface-flipped
+    normal: Any
+    tangent: Any            # (R, 4)
+    bitangent: Any
+    color: Any              # (R, 4)
+    uv0: Any
+    uv1: Any
+    material: Any           # (R,) i32
+    back_face: Any          # (R,) bool
+
+
+def _generate_tangent(normal):
+    """PathTracer.lib.hlsl:166-174."""
+    use_y = torch.abs(normal[..., 0:1]) > torch.abs(normal[..., 1:2])
+    y_axis = torch.tensor([0.0, 1.0, 0.0], device=normal.device).expand(normal.shape)
+    x_axis = torch.tensor([1.0, 0.0, 0.0], device=normal.device).expand(normal.shape)
+    return normalize(cross(torch.where(use_y, y_axis, x_axis), normal))
+
+
+def fetch_hit_attributes(world: WorldGeometry, tri, u, v, ray_dir) -> HitAttributes:
+    """One (R, 64) tri-major row gather per hit; interpolate and flip back
+    faces as the reference's ClosestHit does (PathTracer.lib.hlsl:842-846)."""
+    row = world.tri_attr_rows[torch.clamp(tri, min=0).long()]
+    r0, r1, r2 = row[:, 0:20], row[:, 20:40], row[:, 40:60]
+    material = row[:, 60].contiguous().view(torch.int32)
+    fbits = row[:, 61].contiguous().view(torch.int32)
+    w0 = (1.0 - u - v).unsqueeze(-1)
+    w1 = u.unsqueeze(-1)
+    w2 = v.unsqueeze(-1)
+
+    def interp(a, b):
+        return w0 * r0[:, a:b] + w1 * r1[:, a:b] + w2 * r2[:, a:b]
+
+    p0, p1, p2 = r0[:, 0:3], r1[:, 0:3], r2[:, 0:3]
+    pos = w0 * p0 + w1 * p1 + w2 * p2
+    gn_raw = cross(p1 - p0, p2 - p0)
+    gn = normalize(gn_raw)
+    has_ts = ((fbits & TRI_HAS_TS) != 0).unsqueeze(-1)
+    normal = torch.where(has_ts, normalize(interp(3, 6)), gn)
+    tangent_xyz = torch.where(has_ts, normalize(interp(6, 9)), _generate_tangent(gn))
+    tangent_w = torch.where(has_ts[:, 0], r0[:, 9], torch.ones_like(u))
+
+    back = dot(gn_raw, ray_dir, keepdims=False) > 0.0
+    b3 = back.unsqueeze(-1)
+    gn = torch.where(b3, -gn, gn)
+    normal = torch.where(b3, -normal, normal)
+    tangent_xyz = torch.where(b3, -tangent_xyz, tangent_xyz)
+    tangent_w = torch.where(back, -tangent_w, tangent_w)
+    tangent = torch.cat([tangent_xyz, tangent_w.unsqueeze(-1)], -1)
+    bitangent = tangent[..., 3:4] * normalize(cross(normal, tangent[..., :3]))
+
+    has_col = ((fbits & TRI_HAS_COLOR) != 0).unsqueeze(-1)
+    col = torch.where(has_col, interp(14, 18), torch.ones_like(r0[:, 14:18]))
+    has_uv0 = ((fbits & TRI_HAS_UV0) != 0).unsqueeze(-1)
+    uv0 = torch.where(has_uv0, interp(10, 12), torch.zeros_like(r0[:, 10:12]))
+    has_uv1 = ((fbits & TRI_HAS_UV1) != 0).unsqueeze(-1)
+    uv1 = torch.where(has_uv1, interp(12, 14), torch.zeros_like(r0[:, 12:14]))
+    return HitAttributes(position=pos, geometric_normal=gn, normal=normal, tangent=tangent,
+                         bitangent=bitangent, color=col, uv0=uv0, uv1=uv1,
+                         material=material, back_face=back)
+
+
+# ---------------------------------------------------------------------------
+# Ray casts: every one goes through traverse_wide
+# ---------------------------------------------------------------------------
+
+def _traverse(scene: PTScene, meta: PTMeta, origin, direction, t_min, t_max, any_hit=False,
+              cull_sign=0, blend_mode=0, mode=None) -> Hit:
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                               device=origin.device), t_min.shape)
+    t, word, u, v = traverse_wide(
+        scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
+        origin, direction, t_min, t_max, meta.wide_root, any_hit, cull_sign, blend_mode,
+        mode, stack_bound=meta.stack_bound)
+    tri = torch.where(word >= 0, (word & bvh_ops.ID_MASK).to(torch.int64),
+                      torch.full_like(word, -1, dtype=torch.int64))
+    return Hit(t=t, tri=tri, u=u, v=v)
+
+
+def closest_hit(scene, meta, origin, direction, t_min, t_max, blend_mode=0, cull_sign=0) -> Hit:
+    return _traverse(scene, meta, origin, direction, t_min, t_max,
+                     cull_sign=cull_sign, blend_mode=blend_mode)
+
+
+def trace_closest(scene, meta, origin, direction, t_min, t_max, cull_sign=0) -> Hit:
+    """Closest hit. (Alpha-masked rejection is not ported: make_pt_scene
+    refuses scenes with MASK materials.)"""
+    return closest_hit(scene, meta, origin, direction, t_min, t_max, cull_sign=cull_sign)
+
+
+def trace_shadow(scene, meta, origin, direction, t_max, active=None):
+    """TraceShadowRay, binary mode (ACCEPT_FIRST_HIT, ShadowAnyHit:1053-1079):
+    any geometry occludes. Returns transmission (R,) exactly 0 or 1."""
+    t_min = torch.zeros(origin.shape[0], dtype=torch.float32, device=origin.device)
+    act_f = torch.ones_like(t_min) if active is None else active.to(torch.float32)
+    eff_tmin = t_min * act_f + (t_max + 1.0) * (1.0 - act_f)
+    hit = _traverse(scene, meta, origin, direction, eff_tmin, t_max, any_hit=True)
+    return (hit.tri < 0).to(torch.float32)
+
+
+def trace_bounce_and_shadow(scene, meta, o_b, d_b, tmin_b, tmax_b, o_s, d_s, tmin_s, tmax_s,
+                            cull_sign=0, trace_bounce=True):
+    """ONE merged launch for the next-bounce closest rays and the binary
+    shadow rays born at the same hit points (lane mode: closest lanes first,
+    any-hit lanes after). Returns (bounce Hit, shadow transmission)."""
+    r = o_b.shape[0]
+    if not trace_bounce:
+        hit = Hit(t=torch.broadcast_to(tmax_b, (r,)),
+                  tri=torch.full((r,), -1, dtype=torch.int64, device=o_b.device),
+                  u=torch.zeros(r, device=o_b.device), v=torch.zeros(r, device=o_b.device))
+        return hit, trace_shadow(scene, meta, o_s, d_s, tmax_s, active=tmin_s <= tmax_s)
+    s_n = o_s.shape[0]
+    dev = o_b.device
+    origin = torch.cat([o_b, o_s])
+    direction = torch.cat([d_b, d_s])
+    t_min = torch.cat([torch.broadcast_to(tmin_b, (r,)), torch.broadcast_to(tmin_s, (s_n,))])
+    t_max = torch.cat([torch.broadcast_to(tmax_b, (r,)), torch.broadcast_to(tmax_s, (s_n,))])
+    lane_mode = torch.cat([torch.zeros(r, dtype=torch.int32, device=dev),
+                           torch.ones(s_n, dtype=torch.int32, device=dev)])
+    hit2 = _traverse(scene, meta, origin, direction, t_min, t_max, any_hit="lane",
+                     cull_sign=cull_sign, mode=lane_mode)
+    hit = Hit(t=hit2.t[:r], tri=hit2.tri[:r], u=hit2.u[:r], v=hit2.v[:r])
+    return hit, (hit2.tri[r:] < 0).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Layered BSDF sampling (PathTracer.lib.hlsl:388-667)
+# ---------------------------------------------------------------------------
+
+def _sample_specular(sp: SurfaceProperties, v, u2):
+    t, b, n = sp.anisotropy_tangent, sp.anisotropy_bitangent, sp.shading_normal
+    h = to_world(t, b, n, sampling.sample_ggx_anisotropic_normal(sp.roughness_squared, u2))
+    return reflect(-v, h)
+
+
+def _specular_pdf(sp: SurfaceProperties, v, l):
+    t, b, n = sp.anisotropy_tangent, sp.anisotropy_bitangent, sp.shading_normal
+    h = normalize(v + l)
+    pdf = sampling.ggx_anisotropic_normal_pdf(sp.roughness_squared, to_local(t, b, n, h))
+    return pdf / (4.0 * dot(v, h, keepdims=False))
+
+
+def layer_probabilities(sp: SurfaceProperties, v, meta: PTMeta):
+    """LayerProbabilities (PathTracer.lib.hlsl:535-553). Layers the scene
+    statically lacks get probability 0."""
+    check_supported(meta)
+    zero = torch.zeros_like(sp.alpha[..., 0])
+    alpha_prob = 1.0 - sp.alpha[..., 0] if meta.has_alpha_layer else zero
+    remaining = 1.0 - alpha_prob
+    specular_prob = 0.5 * remaining
+    diffuse_prob = remaining - specular_prob
+    return alpha_prob, zero, zero, specular_prob, diffuse_prob, zero
+
+
+def bsdf_pdf(sp: SurfaceProperties, v, l, is_transmission, probs, meta: PTMeta):
+    """BsdfPdf (PathTracer.lib.hlsl:555-565)."""
+    _, _, _, sp_p, di_p, _ = probs
+    cos_pdf = sampling.cosine_hemisphere_pdf(sp.shading_normal, l)
+    return sp_p * _specular_pdf(sp, v, l) + di_p * cos_pdf
+
+
+def _check_settings(settings: S.PathTracerSettings) -> None:
+    if (settings.debug_output != S.DEBUG_NONE or settings.material_diffuse_white
+            or not settings.material_mis):
+        raise NotImplementedError(
+            "the torch path tracer supports material_mis sampling without debug "
+            "outputs or diffuse-white only")
+
+
+def evaluate_bsdf(sp: SurfaceProperties, geometric_normal, v, l,
+                  settings: S.PathTracerSettings, meta: PTMeta):
+    """EvaluateBsdf (PathTracer.lib.hlsl:567-593). Returns (bsdf, pdf)."""
+    _check_settings(settings)
+    is_t = (dot(geometric_normal, l, keepdims=False)
+            * dot(geometric_normal, v, keepdims=False)) < 0.0
+    probs = layer_probabilities(sp, v, meta)
+    pdf = bsdf_pdf(sp, v, l, is_t, probs, meta)
+    return sp.alpha * gltf_bsdf(sp, v, l, is_transmission=is_t), pdf
+
+
+def sample_bsdf(sp: SurfaceProperties, u3, v, settings: S.PathTracerSettings, meta: PTMeta):
+    """SampleBsdf (PathTracer.lib.hlsl:595-667), layer selection by the
+    cumulative thresholds of SelectBsdf (:511-533).
+    Returns (bsdf, l, pdf, is_transmission, use_mis)."""
+    _check_settings(settings)
+    probs = layer_probabilities(sp, v, meta)
+    alpha_p, cc_p, sh_p, sp_p, _, tr_p = probs
+    u = u3[..., 0]
+    u2 = u3[..., 1:3]
+    c_alpha = alpha_p
+    c_cc = c_alpha + cc_p
+    c_sh = c_cc + sh_p
+    c_sp = c_sh + sp_p
+    sel_alpha = u <= c_alpha
+    sel_cc = (~sel_alpha) & (u - c_alpha <= cc_p)
+    sel_sh = (~sel_alpha) & (~sel_cc) & (u - c_cc <= sh_p)
+    sel_sp = (~sel_alpha) & (~sel_cc) & (~sel_sh) & (u - c_sh <= sp_p)
+    sel_tr = (~sel_alpha) & (~sel_cc) & (~sel_sh) & (~sel_sp) & (u - c_sp <= tr_p)
+    l_di = sampling.sample_cosine_hemisphere(sp.shading_normal, u2)
+    l_sp = _sample_specular(sp, v, u2)
+    l = torch.where(sel_sp.unsqueeze(-1), l_sp, l_di)
+    l = torch.where(sel_alpha.unsqueeze(-1), -v, l)
+    is_t = sel_tr | sel_alpha
+    pdf = bsdf_pdf(sp, v, l, sel_tr, probs, meta)
+    f = sp.alpha * gltf_bsdf(sp, v, l, is_transmission=sel_tr)
+    pdf = torch.where(sel_alpha, alpha_p, pdf)
+    f = torch.where(sel_alpha.unsqueeze(-1), 1.0 - sp.alpha, f)
+    return f, l, pdf, is_t, ~sel_alpha
+
+
+# ---------------------------------------------------------------------------
+# Environment hooks
+# ---------------------------------------------------------------------------
+
+def _env_radiance(scene: PTScene, meta: PTMeta, direction, params, use_env: bool):
+    """Miss radiance (Miss:1037-1051)."""
+    if use_env:
+        return params.environment_intensity * env_ops.env_radiance(scene.env, direction)
+    color = torch.as_tensor(params.environment_color, dtype=torch.float32,
+                            device=direction.device)
+    return params.environment_intensity * torch.broadcast_to(color, direction.shape)
+
+
+def _env_sample(scene: PTScene, meta: PTMeta, u4, params):
+    d, c, pdf = env_ops.env_sample(scene.env, u4)
+    return d, params.environment_intensity * c, pdf
+
+
+def _env_pdf(scene: PTScene, meta: PTMeta, direction):
+    return env_ops.env_pdf(scene.env, direction)
+
+
+def _balance_heuristic(pdf, other_pdf):
+    return pdf / torch.clamp(pdf + other_pdf, min=1e-20)
+
+
+# ---------------------------------------------------------------------------
+# The tracer
+# ---------------------------------------------------------------------------
+
+def _tile_order(w: int, h: int, device, tile: int = PACKET_TILE):
+    """Pixel emission order in 32x32 tiles over the edge-clamp-padded image:
+    (px, py, valid), each of length ceil(h/tile)*ceil(w/tile)*tile^2."""
+    hp = -(-h // tile) * tile
+    wp = -(-w // tile) * tile
+    ty, tx = torch.meshgrid(torch.arange(0, hp, tile, device=device),
+                            torch.arange(0, wp, tile, device=device), indexing="ij")
+    iy, ix = torch.meshgrid(torch.arange(tile, device=device),
+                            torch.arange(tile, device=device), indexing="ij")
+    px = (tx.reshape(-1, 1) + ix.reshape(1, -1)).reshape(-1)
+    py = (ty.reshape(-1, 1) + iy.reshape(1, -1)).reshape(-1)
+    valid = (px < w) & (py < h)
+    return (torch.clamp(px, max=w - 1).to(torch.int32),
+            torch.clamp(py, max=h - 1).to(torch.int32), valid)
+
+
+def _from_tile_order(stream, w: int, h: int, tile: int = PACKET_TILE):
+    """(N', C...) tile-order stream -> (h, w, C...) image."""
+    hp = -(-h // tile) * tile
+    wp = -(-w // tile) * tile
+    c_shape = tuple(stream.shape[1:])
+    x = stream.reshape((hp // tile, wp // tile, tile, tile) + c_shape)
+    x = torch.movedim(x, 2, 1)
+    return x.reshape((hp, wp) + c_shape)[:h, :w]
+
+
+def _to_tile_order(img, tile: int = PACKET_TILE):
+    """(h, w, C...) image -> (N', C...) tile-order stream (edge-clamp pad)."""
+    h, w = img.shape[0], img.shape[1]
+    hp = -(-h // tile) * tile
+    wp = -(-w // tile) * tile
+    yi = torch.clamp(torch.arange(hp, device=img.device), max=h - 1)
+    xi = torch.clamp(torch.arange(wp, device=img.device), max=w - 1)
+    img = img[yi][:, xi]
+    x = img.reshape((hp // tile, tile, wp // tile, tile) + tuple(img.shape[2:]))
+    x = torch.movedim(x, 1, 2)
+    return x.reshape((hp * wp,) + tuple(img.shape[2:]))
+
+
+def trace(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
+          params: S.PathTracerParams, clip_to_world, resolution, seed,
+          with_stats: bool = False, chunk: int = RAY_CHUNK):
+    """One progressive sample per pixel. Returns (h, w, 3) radiance (and
+    the [ray_count, nan_count] stats with with_stats)."""
+    return trace_chunked(scene, meta, settings, params, clip_to_world, resolution, seed,
+                         with_stats=with_stats, chunk=chunk, spp=1)
+
+
+def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
+                  params: S.PathTracerParams, clip_to_world, resolution, seed,
+                  with_stats: bool = False, chunk: int = RAY_CHUNK, spp: int = 1):
+    """Trace `chunk` rays per _trace_rays call. spp > 1 traces that many
+    samples per pixel in the same call (the pixel slice shrinks to
+    chunk/spp) and returns their mean; sample k is keyed by
+    seed + k*0x9E3779B9 (uint32 wrap), the reference's sample schedule."""
+    if chunk % spp:
+        raise ValueError(f"chunk {chunk} is not a multiple of spp {spp}")
+    dev = scene.wide_nodes.device
+    w, h = resolution
+    c2w = torch.as_tensor(np.asarray(clip_to_world, np.float32), device=dev)
+    px_f, py_f, valid_f = _tile_order(w, h, dev)
+    n = px_f.shape[0]
+    chunk_pix = chunk // spp
+    seeds = torch.as_tensor([(int(seed) + k * SEED_STRIDE) & rng.M32 for k in range(spp)],
+                            dtype=torch.int64, device=dev)
+    outs = []
+    stats = torch.zeros(2, dtype=torch.float32, device=dev)
+    for start in range(0, n, chunk_pix):
+        cpx = px_f[start:start + chunk_pix]
+        cpy = py_f[start:start + chunk_pix]
+        cva = valid_f[start:start + chunk_pix]
+        m = cpx.shape[0]
+        seed_vec = seeds.repeat_interleave(m) if spp > 1 else seeds[0]
+        col, st = _trace_rays(scene, meta, settings, params, c2w, (w, h), seed_vec,
+                              cpx.repeat(spp), cpy.repeat(spp), cva.repeat(spp))
+        if spp > 1:
+            col = col.reshape(spp, m, 3)
+            acc = col[0]
+            for k in range(1, spp):
+                acc = acc + col[k]
+            col = acc / spp
+        outs.append(col)
+        stats = stats + st
+    color = _from_tile_order(torch.cat(outs, 0), w, h)
+    return (color, stats) if with_stats else color
+
+
+def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
+                params: S.PathTracerParams, clip_to_world, full_resolution, seed, px, py,
+                valid=None):
+    """Trace a flat batch of pixel rays -> ((R, 3) color, [ray_count, nan_count])."""
+    check_supported(meta)
+    _check_settings(settings)
+    n_rays = px.shape[0]
+    dev = px.device
+    counter = 0
+
+    def rand4():
+        nonlocal counter
+        r = rng.pt_random(px, py, seed, counter)
+        counter += 1
+        return r
+
+    def full(value):
+        return torch.full((n_rays,), value, dtype=torch.float32, device=dev)
+
+    jitter = rand4()[..., 0:2] - 0.5
+    origin, direction_raw = generate_camera_rays(
+        px, py, (full_resolution[0], full_resolution[1]), clip_to_world, jitter)
+    # Primary ray: t in [0, |dir|], direction normalized (RayGeneration:756).
+    ray_len = torch.sqrt(torch.clamp(sum_last(direction_raw * direction_raw), min=1e-20))
+    direction = direction_raw / ray_len.unsqueeze(-1)
+    t_max = ray_len
+
+    radiance = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
+    prefix = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
+    rr_state = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
+    alive = (torch.ones(n_rays, dtype=torch.bool, device=dev) if valid is None
+             else valid.to(torch.bool))
+    prev_pdf = full(0.0)
+    prev_mis = torch.zeros(n_rays, dtype=torch.bool, device=dev)
+    ray_count = torch.zeros((), dtype=torch.float32, device=dev)
+    zero3 = torch.zeros((), dtype=torch.float32, device=dev)
+
+    nee_env = settings.environment_map and settings.environment_mis
+    primary_cull = 1 if settings.cull_backface else 0
+    bounce_cull = -1 if settings.cull_backface else 0
+
+    eff_tmin = torch.where(alive, full(0.0), t_max + 1.0)
+    hit = trace_closest(scene, meta, origin, direction, eff_tmin, t_max, cull_sign=primary_cull)
+
+    for bounce in range(settings.max_bounces + 1):
+        ray_count = ray_count + torch.sum(alive.to(torch.float32))
+
+        # Miss -> environment (Miss, PathTracer.lib.hlsl:1037-1051).
+        miss = alive & (hit.tri < 0)
+        use_env = settings.environment_map and meta.has_env
+        env_col = _env_radiance(scene, meta, normalize(direction), params, use_env)
+        if use_env and settings.environment_mis:
+            mis_w = torch.where(
+                prev_mis,
+                _balance_heuristic(prev_pdf, _env_pdf(scene, meta, normalize(direction))),
+                torch.ones_like(prev_pdf))
+            env_col = env_col * mis_w.unsqueeze(-1)
+        radiance = radiance + torch.where(miss.unsqueeze(-1), prefix * env_col, zero3)
+        alive = alive & (~miss)
+
+        attrs = fetch_hit_attributes(scene.world, hit.tri, hit.u, hit.v, direction)
+        view = -direction
+        sp, extras = get_surface_properties(
+            scene.materials, scene.textures, attrs.material, attrs.uv0, attrs.uv1,
+            attrs.color, attrs.normal, attrs.tangent, attrs.bitangent,
+            attrs.geometric_normal, view,
+            use_geometric_normals=settings.material_use_geometric_normals,
+            shading_normal_adaptation=settings.shading_normal_adaptation,
+            used_slots=meta.used_slots, identity_uv=meta.identity_uv,
+            wrap_modes=meta.wrap_modes, any_nearest=meta.any_nearest,
+        )
+        ray_origin = offset_ray(attrs.position, attrs.geometric_normal)
+        ray_origin_below = offset_ray(attrs.position, -attrs.geometric_normal)
+
+        # Emissive (ClosestHit:924-926).
+        radiance = radiance + torch.where(alive.unsqueeze(-1), prefix * extras.emissive, zero3)
+
+        # Environment NEE + MIS (ClosestHit:928-942). The shadow ray is
+        # traced in the merged launch with the next bounce's rays below.
+        nee_pending = None
+        if bounce < settings.max_bounces and nee_env and meta.has_env:
+            u_env = rand4()
+            l_dir, l_col, l_pdf = _env_sample(scene, meta, u_env, params)
+            f, f_pdf = evaluate_bsdf(sp, attrs.geometric_normal, view, l_dir, settings, meta)
+            mis = _balance_heuristic(l_pdf, f_pdf)
+            contrib = (mis.unsqueeze(-1) * f * l_col) / torch.clamp(l_pdf.unsqueeze(-1),
+                                                                    min=1e-20)
+            ok = alive & torch.any(l_col > 0.0, -1)
+            # Zero-BSDF lanes trace dead; the ok-mask selects OUTSIDE the
+            # prefix product so an inf prefix on a dead lane cannot mint a
+            # NaN (the reference's fix at pathtracer.py:1791-1802).
+            s_active = ok & torch.any(f > 0.0, -1)
+            nee_pending = (ray_origin, l_dir,
+                           torch.where(ok.unsqueeze(-1), prefix * contrib, zero3), s_active)
+
+        # Bounce (ClosestHit:958-1006).
+        if bounce < settings.max_bounces:
+            u3 = rand4()[..., 0:3]
+            f, l_dir, pdf, is_t, use_mis = sample_bsdf(sp, u3, view, settings, meta)
+            weight = torch.where(pdf.unsqueeze(-1) != 0.0, f / pdf.unsqueeze(-1), zero3)
+            throughput = rr_state * weight
+            u_rr = rand4()[..., 0]
+            continue_prob = torch.clamp(max_value(throughput)[..., 0],
+                                        params.min_russian_roulette_continue_prob,
+                                        params.max_russian_roulette_continue_prob)
+            if bounce >= settings.min_bounces:
+                cont = u_rr < continue_prob
+                weight = weight / torch.where(cont, continue_prob,
+                                              torch.ones_like(continue_prob)).unsqueeze(-1)
+            else:
+                cont = torch.ones(n_rays, dtype=torch.bool, device=dev)
+            alive = alive & cont & torch.any(throughput > 0.0, -1)
+            prefix = prefix * weight
+            rr_state = throughput * weight  # quirk kept: affects only RR (:995-1003)
+            origin = torch.where(is_t.unsqueeze(-1), ray_origin_below, ray_origin)
+            direction = l_dir
+            t_max = full(params.max_ray_length)
+            prev_pdf = pdf
+            prev_mis = use_mis
+
+            eff_tmin = torch.where(alive, full(0.0), t_max + 1.0)
+            trace_bounce = not settings.indirect_environment_only
+            if nee_pending is not None:
+                s_tmax = full(params.max_ray_length)
+                s_tmin = torch.where(nee_pending[3], full(0.0), s_tmax + 1.0)
+                hit, shadow = trace_bounce_and_shadow(
+                    scene, meta, origin, direction, eff_tmin, t_max,
+                    nee_pending[0], nee_pending[1], s_tmin, s_tmax,
+                    cull_sign=bounce_cull, trace_bounce=trace_bounce)
+                radiance = radiance + nee_pending[2] * shadow.unsqueeze(-1)
+                ray_count = ray_count + torch.sum(nee_pending[3].to(torch.float32))
+            elif trace_bounce:
+                hit = trace_closest(scene, meta, origin, direction, eff_tmin, t_max,
+                                    cull_sign=bounce_cull)
+            else:
+                hit = Hit(t=t_max, tri=torch.full((n_rays,), -1, dtype=torch.int64, device=dev),
+                          u=full(0.0), v=full(0.0))
+
+    # NaN/INF scrub + luminance clamp (RayGeneration:760-774).
+    nan_mask = torch.any(torch.isnan(radiance), -1)
+    inf_mask = torch.any(torch.isinf(radiance), -1)
+    nan_count = (torch.sum(nan_mask.to(torch.float32)) + torch.sum(inf_mask.to(torch.float32)))
+    red = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    black = torch.zeros(3, dtype=torch.float32, device=dev)
+    radiance = torch.where(nan_mask.unsqueeze(-1), red if settings.show_nan else black, radiance)
+    radiance = torch.where(inf_mask.unsqueeze(-1), red if settings.show_inf else black, radiance)
+    if settings.luminance_clamp_enabled:
+        lum = luminance(radiance)
+        scale = torch.where(lum > params.luminance_clamp,
+                            params.luminance_clamp / torch.clamp(lum, min=1e-20),
+                            torch.ones_like(lum))
+        radiance = radiance * scale.unsqueeze(-1)
+    return radiance, torch.stack([ray_count, nan_count])
+
+
+def accumulate(history, frame, accumulated_frames, settings: S.PathTracerSettings):
+    """Running-mean accumulation (RayGeneration:776-786)."""
+    if not settings.accumulate:
+        return frame
+    blend = 1.0 / (accumulated_frames.to(torch.float32) + 1.0)
+    return torch.where(accumulated_frames > 0, history + (frame - history) * blend, frame)
