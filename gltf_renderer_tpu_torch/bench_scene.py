@@ -1,9 +1,15 @@
-"""The bench configuration, built without JAX.
+"""The bench and raster-fidelity configurations, built without JAX.
 
-Mirrors bench.py:23-125 for the helmet scene: the DamagedHelmet-class
-textured sphere (~49k triangles, one 512^2 base-colour texture, metallic
-0.3 / roughness 0.45), the analytic HDR sky at cube size 128, env NEE + MIS
-with 2 bounces and the luminance clamp, and the bench camera.
+`build_bench_scene` mirrors bench.py:23-125 for the helmet scene: the
+DamagedHelmet-class textured sphere (~49k triangles, one 512^2 base-colour
+texture, metallic 0.3 / roughness 0.45), the analytic HDR sky at cube size
+128, env NEE + MIS with 2 bounces and the luminance clamp, and the bench
+camera. The same scene feeds the raster frame at 1080p.
+
+`build_raster_fidelity_scene` is the helmet-raster golden configuration
+(tests/golden_configs.py::render_helmet_raster, golden
+tests/goldens/helmet_raster.png): the small textured sphere (metallic 0.4,
+roughness 0.35) under the 32x64 analytic environment, 192x108, frame 0.
 """
 
 from __future__ import annotations
@@ -11,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 from gltf_renderer_tpu_torch import camera
-from gltf_renderer_tpu_torch.env.environment import build_environment_pt
+from gltf_renderer_tpu_torch.env.environment import DIFFUSE_RESOLUTION, build_environment_pt
 from gltf_renderer_tpu_torch.render import pathtracer as pt
 from gltf_renderer_tpu_torch.render import settings as S
 from gltf_renderer_tpu_torch.scene import flatten
@@ -19,6 +25,7 @@ from gltf_renderer_tpu_torch.scene.procedural import textured_sphere_scene
 
 FIDELITY_RES = (256, 144)  # bench.FIDELITY_RES
 FIDELITY_SPP = 32          # bench.FIDELITY_SPP: seeds 1..32 averaged
+RASTER_FIDELITY_RES = (192, 108)  # golden_configs.render_helmet_raster
 
 
 def analytic_sky(h: int = 256, w: int = 512) -> np.ndarray:
@@ -54,18 +61,51 @@ def bench_camera(width: int, height: int) -> np.ndarray:
                                 y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
 
 
-def build_bench_scene(width: int, height: int, device="cpu", tex_size: int = 512,
+def build_bench_scene(width: int, height: int, device="cuda", tex_size: int = 512,
                       n_lat: int = 128, n_lon: int = 192, sky_hw=(256, 512),
-                      cube_size: int = 128):
+                      cube_size: int = 128, diffuse_size: int = DIFFUSE_RESOLUTION):
     """Bench scene + camera on `device`. The keyword sizes default to the
     bench's; tests pass smaller ones. Returns
     (ptscene, meta, settings, params, clip_to_world, n_tris)."""
     scene = textured_sphere_scene(tex_size=tex_size, n_lat=n_lat, n_lon=n_lon,
                                   metallic=0.3, roughness=0.45)
     world, lights = world_from_scene(scene)
-    env = build_environment_pt(analytic_sky(*sky_hw), cube_size=cube_size, device=device)
+    env = build_environment_pt(analytic_sky(*sky_hw), cube_size=cube_size, device=device,
+                               diffuse_size=diffuse_size)
     ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
                                      device=device)
     settings = S.PathTracerSettings(max_bounces=2, min_bounces=2, alpha_shadows=False)
     return (ptscene, meta, settings, S.PathTracerParams(), bench_camera(width, height),
             int(world.tri_vertex.shape[0]))
+
+
+def analytic_equirect(h: int = 32, w: int = 64) -> np.ndarray:
+    """The golden configurations' smooth low-dynamic-range environment
+    (tests/golden_configs.py::_analytic_equirect), (h, w, 3) f32."""
+    v = (np.arange(h) + 0.5) / h
+    z = 1.0 - 2.0 * v
+    eq = np.stack([0.5 + 0.2 * z, 0.5 + 0.1 * z, 0.5 - 0.1 * z], -1).astype(np.float32)
+    return np.broadcast_to(eq[:, None, :], (h, w, 3)).copy()
+
+
+def raster_camera(eye, width: int, height: int):
+    """(clip_to_world, camera position) looking at the origin from `eye`,
+    with the golden configurations' lens (60 degrees, z_near 0.01)."""
+    w2v = camera.look_at(eye, [0.0, 0.0, 0.0])
+    c2w = camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
+    return c2w, camera.position(w2v)
+
+
+def build_raster_fidelity_scene(device="cuda", diffuse_size: int = DIFFUSE_RESOLUTION):
+    """The helmet-raster golden configuration on `device`. Returns
+    (ptscene, meta, render_settings, params, clip_to_world, camera_pos,
+    resolution)."""
+    w, h = RASTER_FIDELITY_RES
+    scene = textured_sphere_scene(metallic=0.4, roughness=0.35)
+    world, lights = world_from_scene(scene)
+    env = build_environment_pt(analytic_equirect(), device=device, diffuse_size=diffuse_size)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    c2w, cam_pos = raster_camera([1.2, -1.2, 0.8], w, h)
+    rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
+    return ptscene, meta, rs, S.PathTracerParams(), c2w, cam_pos, (w, h)

@@ -1,6 +1,6 @@
 """Perspective camera matrices (numpy, row-major, reversed Z, Z-up world).
 
-The subset of gltf_renderer_tpu/camera.py the bench camera uses.
+The subset of gltf_renderer_tpu/camera.py the bench cameras use.
 """
 
 from __future__ import annotations
@@ -46,3 +46,14 @@ def clip_to_world(world_to_view: np.ndarray, y_fov: float, aspect: float,
     """inverse(view_to_clip @ world_to_view) as f32 (Camera.clip_to_world)."""
     view_to_clip = perspective_reversed_z(y_fov, aspect, z_near, z_far)
     return np.linalg.inv(view_to_clip @ world_to_view).astype(np.float32)
+
+
+def world_to_clip(clip_to_world) -> np.ndarray:
+    """The f32 inverse of clip_to_world: the matrix the tiled rasterizer
+    projects with (the JAX raster backend inverts in f32 too)."""
+    return np.linalg.inv(np.asarray(clip_to_world, np.float32)).astype(np.float32)
+
+
+def position(world_to_view: np.ndarray) -> np.ndarray:
+    """Camera position: the translation of inverse(world_to_view)."""
+    return np.linalg.inv(world_to_view)[:3, 3].astype(np.float32)

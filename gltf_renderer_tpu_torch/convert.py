@@ -3,7 +3,10 @@
 `from_jax_pt_scene` takes a JAX `PTScene` whose leaves were pulled to numpy
 (`jax.tree.map(np.asarray, scene)`) and its `PTMeta`, and returns the
 port's `PTScene` / `PTMeta` on `device`, so both packages can run on
-identical tables. It reads fields by name and imports nothing of JAX.
+identical tables: geometry, BVH, materials, the linear atlas and its mip
+pyramid, and the environment (cube level 0, importance, alias rows and the
+GGX / diffuse prefilters). It reads fields by name and imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ def _fields(cls, src, convert=lambda v: v):
     return cls(**{f: convert(getattr(src, f)) for f in cls._fields if hasattr(src, f)})
 
 
-def from_jax_pt_scene(scene_np, meta, device="cpu"):
+def from_jax_pt_scene(scene_np, meta, device="cuda"):
     """(JAX PTScene with numpy leaves, JAX PTMeta) -> (PTScene, PTMeta)."""
     dev = resolve(device)
     maps = scene_np.wide_maps
@@ -40,6 +43,8 @@ def from_jax_pt_scene(scene_np, meta, device="cpu"):
             importance=[_tensor(m, dev) for m in env.importance],
             equirect=_tensor(env.equirect, dev),
             alias_rows=_tensor(env.alias_rows, dev),
+            ggx=[_tensor(m, dev) for m in (env.ggx or [])],
+            diffuse=_tensor(env.diffuse, dev),
         )
     materials = _fields(T.MaterialTable, scene_np.materials)
     textures = _fields(T.TextureTable, scene_np.textures)
@@ -51,7 +56,9 @@ def from_jax_pt_scene(scene_np, meta, device="cpu"):
             words=np.asarray(scene_np.packed.words), n_nodes=int(scene_np.packed.n_nodes)),
         materials=materials._replace(rows=_tensor(materials.rows, dev)),
         textures=textures._replace(rows=_tensor(textures.rows, dev),
-                                   atlas_linear=_tensor(textures.atlas_linear, dev)),
+                                   atlas_linear=_tensor(textures.atlas_linear, dev),
+                                   mip_flat=_tensor(textures.mip_flat, dev),
+                                   mip_rows=_tensor(textures.mip_rows, dev)),
         lights=_fields(T.GpuLights, scene_np.lights, np.asarray),
         env=port_env,
         wide_nodes=_tensor(scene_np.wide_nodes, dev),

@@ -1,9 +1,12 @@
 """Surface property assembly: material rows + textures -> SurfaceProperties.
 
 Port of gltf_renderer_tpu/ops/material.py (GetSurfaceProperties,
-PathTracer.lib.hlsl:318-381, and the Material.hlsli getters) on the path
-tracer's compact material rows: one row gather per hit, each used texture
-slot's metadata joined into the row at scene build.
+PathTracer.lib.hlsl:318-381, and the Material.hlsli getters) on the
+compact material rows: one row gather per hit, each used texture slot's
+metadata joined into the row at scene build. Textures sample level 0 of the
+linear atlas (the path tracer), or the mip pyramid trilinearly at a given
+level (the raster backend). The JAX package's quad-packed mip branch is a
+TPU gather layout of the same texels and is not ported.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import numpy as np
 import torch
 
 from gltf_renderer_tpu_torch.ops.bsdf import MINIMUM_ROUGHNESS, SurfaceProperties
-from gltf_renderer_tpu_torch.ops.texture import sample_atlas, transform_uv
+from gltf_renderer_tpu_torch.ops.texture import _wrap, sample_atlas, transform_uv
 from gltf_renderer_tpu_torch.scene import types as T
 from gltf_renderer_tpu_torch.utils.math import cross, dot, normalize, reflect
 
@@ -55,9 +58,69 @@ def compact_material_rows(rows, used_slots, tex_rows=None) -> np.ndarray:
     return out
 
 
+def _sample_mips(textures, tid, trow, uv, scl, mip_base, wrap_modes, any_nearest):
+    """Trilinear fetch from the flat mip pyramid (JAX material.py:182-234,
+    :294-310). tid (k, R) texture ids, trow (k, R, 9) their metadata, uv and
+    scl (k, R, 2), mip_base (R,) log2 of the uv footprint -> (k, R, 4)."""
+    n_tex = textures.x.shape[0]
+    maxl = textures.mip_rows.shape[0] // max(n_tex, 1)
+    ws = trow[..., 4].to(torch.int64)
+    wt = trow[..., 5].to(torch.int64)
+    is_near = trow[..., 6].to(torch.int64) == 1
+    area = torch.clamp(trow[..., 2].to(torch.int64).to(torch.float32)
+                       * trow[..., 3].to(torch.int64).to(torch.float32), min=1.0)
+    suv = torch.clamp(torch.abs(scl[..., 0] * scl[..., 1]), min=1e-12)
+    lvl = mip_base[None] + 0.5 * torch.log2(area) + 0.5 * torch.log2(suv)
+    lvl = torch.clamp(lvl, 0.0, maxl - 1.0)
+    if any_nearest:
+        lvl = torch.where(is_near, torch.zeros_like(lvl), lvl)
+    l0 = torch.floor(lvl).to(torch.int64)
+    l1 = torch.clamp(l0 + 1, max=maxl - 1)
+    lfrac = (lvl - l0.to(torch.float32)).unsqueeze(-1)
+    tid_c = torch.clamp(tid.to(torch.int64), 0, max(n_tex - 1, 0))
+    meta_ids = torch.stack([tid_c * maxl + l0, tid_c * maxl + l1])
+    mrow2 = textures.mip_rows[meta_ids.reshape(-1)].reshape(meta_ids.shape + (4,))
+
+    def level_corners(mrow):
+        base_i = _bits(mrow[..., 0]).to(torch.int64)
+        lw = mrow[..., 1].to(torch.int64)
+        lh = mrow[..., 2].to(torch.int64)
+        fx = uv[..., 0] * mrow[..., 1] - 0.5
+        fy = uv[..., 1] * mrow[..., 2] - 0.5
+        x0f = torch.floor(fx)
+        y0f = torch.floor(fy)
+        x0 = x0f.to(torch.int64)
+        y0 = y0f.to(torch.int64)
+        tx = (fx - x0f).unsqueeze(-1)
+        ty = (fy - y0f).unsqueeze(-1)
+        if any_nearest:
+            x0 = torch.where(is_near, torch.floor(uv[..., 0] * mrow[..., 1]).to(torch.int64), x0)
+            y0 = torch.where(is_near, torch.floor(uv[..., 1] * mrow[..., 2]).to(torch.int64), y0)
+            tx = torch.where(is_near.unsqueeze(-1), torch.zeros_like(tx), tx)
+            ty = torch.where(is_near.unsqueeze(-1), torch.zeros_like(ty), ty)
+
+        def fi(xi, yi):
+            return base_i + _wrap(yi, lh, wt, wrap_modes) * lw + _wrap(xi, lw, ws, wrap_modes)
+
+        ids = torch.stack([fi(x0, y0), fi(x0 + 1, y0), fi(x0, y0 + 1), fi(x0 + 1, y0 + 1)])
+        return ids, tx, ty
+
+    ids0, tx0, ty0 = level_corners(mrow2[0])
+    ids1, tx1, ty1 = level_corners(mrow2[1])
+    ids = torch.clamp(torch.cat([ids0, ids1]), 0, max(textures.mip_flat.shape[0] - 1, 0))
+    texel = textures.mip_flat[ids.reshape(-1)].reshape(ids.shape + (4,)).to(torch.float32)
+
+    def bil(c, tx, ty):
+        return (c[0] * (1 - tx) + c[1] * tx) * (1 - ty) + (c[2] * (1 - tx) + c[3] * tx) * ty
+
+    return bil(texel[0:4], tx0, ty0) * (1 - lfrac) + bil(texel[4:8], tx1, ty1) * lfrac
+
+
 def sample_slots_fused(row, textures, slots, uv0, uv1, used_slots, identity_uv=False,
-                       wrap_modes=(0, 1, 2), any_nearest=True):
-    """Sample several texture slots from compact rows in one atlas gather.
+                       wrap_modes=(0, 1, 2), any_nearest=True, mip_base=None):
+    """Sample several texture slots from compact rows in one gather: level 0
+    of the linear atlas, or with `mip_base` (R,) and a scene mip pyramid the
+    trilinear mip level mip_base + log2 of each texture's size.
 
     Returns {slot: (rgba (R, 4), present (R,) exactly-0/1 f32)}; absent
     slots read 1.0."""
@@ -81,8 +144,11 @@ def sample_slots_fused(row, textures, slots, uv0, uv1, used_slots, identity_uv=F
     presf = (tid >= 0).to(torch.float32).unsqueeze(-1)
     trow = torch.stack([row[:, b + T.MATERIAL_SLOT_STRIDE : b + T.MATERIAL_SLOT_STRIDE + 9]
                         for b in bases])
-    ah, aw = textures.atlas.shape[0], textures.atlas.shape[1]
-    out = sample_atlas(textures.atlas_linear, aw, ah, trow, uv, wrap_modes, any_nearest)
+    if mip_base is not None and textures.mip_flat is not None:
+        out = _sample_mips(textures, tid, trow, uv, scl, mip_base, wrap_modes, any_nearest)
+    else:
+        ah, aw = textures.atlas.shape[0], textures.atlas.shape[1]
+        out = sample_atlas(textures.atlas_linear, aw, ah, trow, uv, wrap_modes, any_nearest)
     out = out * presf + (1.0 - presf)
     return {s: (out[i], presf[i, ..., 0]) for i, s in enumerate(slots)}
 
@@ -129,13 +195,14 @@ def get_surface_properties(materials, textures, mat_id, uv0, uv1, vertex_color, 
                            shading_normal_adaptation: bool = True,
                            used_slots: Tuple[int, ...] = ALL_SLOTS,
                            identity_uv: bool = False, wrap_modes=(0, 1, 2),
-                           any_nearest: bool = True):
-    """Returns (SurfaceProperties, SurfaceExtras) for hits on compact rows."""
+                           any_nearest: bool = True, mip_base=None):
+    """Returns (SurfaceProperties, SurfaceExtras) for hits on compact rows.
+    mip_base: see sample_slots_fused (None samples level 0)."""
     row = materials.rows[mat_id.long()]
     active = tuple(s for s in used_slots if s in ALL_SLOTS)
     tex = sample_slots_fused(row, textures, active, uv0, uv1, used_slots,
                              identity_uv=identity_uv, wrap_modes=wrap_modes,
-                             any_nearest=any_nearest)
+                             any_nearest=any_nearest, mip_base=mip_base)
     ones = torch.ones(uv0.shape[:-1] + (4,), dtype=torch.float32, device=uv0.device)
     no = torch.zeros(uv0.shape[:-1], dtype=torch.float32, device=uv0.device)
 

@@ -1,6 +1,6 @@
 """Counter-based RNG: bit-exact pcg3d/pcg4d (Random.hlsli) on torch.
 
-Port of gltf_renderer_tpu/ops/rng.py:20-82. torch has no full uint32
+Port of gltf_renderer_tpu/ops/rng.py:20-82 and its R2 sequence (:92). torch has no full uint32
 arithmetic on every device, so values ride in int64 and are masked back to
 32 bits after every multiply and add; right shifts only ever see masked
 (non-negative) values, so they are logical shifts. The streams are identical
@@ -75,3 +75,17 @@ def pt_random(pixel_x, pixel_y, seed, counter) -> torch.Tensor:
         torch.full_like(px, int(counter) & M32),
     ], -1)
     return random_float4(v)
+
+
+def random_float3(v: torch.Tensor) -> torch.Tensor:
+    """3 floats in [0, 1] from a uint3 seed: pcg3d / 0xffffffff in f32."""
+    return pcg3d(v).to(torch.float32) / _U32_MAX_F
+
+
+def r2(start: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Plastic-constant 2D sequence (Random.hlsli:80-85). start (2,) f32,
+    n f32 of any shape -> (..., 2) f32 in [0, 1)."""
+    g = 1.324717957244746
+    a = torch.tensor([1.0 / g, 1.0 / (g * g)], dtype=torch.float32, device=start.device)
+    x = start + n.to(torch.float32)[..., None] * a
+    return x - torch.floor(x)

@@ -1,9 +1,11 @@
 """Texture helpers on the linear atlas.
 
-Port of the path tracer's subset of gltf_renderer_tpu/ops/texture.py:
-`decode_atlas_linear` (host, once per scene), `transform_uv`, `_wrap` and
-level-0 bilinear / nearest sampling of the flat linear atlas. No quad atlas
-and no mips: the path tracer samples level 0 (Material.hlsli:95).
+Port of gltf_renderer_tpu/ops/texture.py without its quad-packed
+atlases (a TPU gather layout of the same texels): `decode_atlas_linear` and
+`build_atlas_mips` (host, once per scene), `transform_uv`, `_wrap` and
+level-0 bilinear / nearest sampling of the flat linear atlas. The path
+tracer samples level 0 (Material.hlsli:95); the raster backend samples the
+mip pyramid trilinearly (ops.material.sample_slots_fused).
 """
 
 from __future__ import annotations
@@ -35,6 +37,75 @@ def decode_atlas_linear(tex):
         x, y, w, h = int(xs[i]), int(ys[i]), int(ws[i]), int(hs[i])
         lin[y : y + h, x : x + w, :3] = dec(lin[y : y + h, x : x + w, :3])
     return tex._replace(atlas_linear=lin.reshape(-1, atlas.shape[-1]).astype(np.float16))
+
+
+def _mip_axis_np(img, axis):
+    """One separable pass of GenerateMipLevel.cs.hlsl along `axis` (host):
+    2-tap box on an even axis; on an odd one the 3-tap trapezoid with
+    weights ((n-x), n, (1+x)) / (2n+1) at 2x, 2x+1 and Wrap(2x+2)."""
+    n_in = img.shape[axis]
+    if n_in == 1:
+        return img
+    m = np.moveaxis(img, axis, 0)
+    if n_in % 2 == 0:
+        out = 0.5 * (m[0::2] + m[1::2])
+    else:
+        n_out = n_in // 2
+        x = np.arange(n_out, dtype=np.float32).reshape((n_out,) + (1,) * (m.ndim - 1))
+        n = np.float32(n_out)
+        s0 = m[0 : 2 * n_out : 2]
+        s1 = m[1 : 2 * n_out + 1 : 2]
+        s2 = m[(np.arange(n_out) * 2 + 2) % n_in]
+        out = ((n - x) * s0 + n * s1 + (1.0 + x) * s2) / (2.0 * n + 1.0)
+    return np.moveaxis(out, 0, axis)
+
+
+def build_atlas_mips(tex):
+    """Every texture's full NPOT mip chain in one flat (M, 4) f16 array plus
+    (T * MAXL, 4) addressing rows [base (bitcast i32), w, h, 0] (host numpy,
+    once per scene). Level 0 is the texture's linear rect; a chain that ends
+    early repeats its last level, so the row table is rectangular."""
+    if tex.atlas_linear is None:
+        return tex
+    lin = np.asarray(tex.atlas_linear)
+    if lin.size == 0:
+        return tex
+    ah, aw = np.asarray(tex.atlas).shape[0], np.asarray(tex.atlas).shape[1]
+    img = lin.reshape(ah, aw, 4).astype(np.float32)
+    xs, ys = np.asarray(tex.x), np.asarray(tex.y)
+    ws, hs = np.asarray(tex.width), np.asarray(tex.height)
+    t = len(xs)
+    chains = []
+    maxl = 1
+    for i in range(t):
+        x, y, w, h = int(xs[i]), int(ys[i]), int(ws[i]), int(hs[i])
+        chain = [img[y : y + h, x : x + w]]
+        while chain[-1].shape[0] > 1 or chain[-1].shape[1] > 1:
+            nxt = np.asarray(_mip_axis_np(_mip_axis_np(chain[-1], 0), 1), np.float32)
+            if nxt.shape == chain[-1].shape:
+                break
+            chain.append(nxt)
+        chains.append(chain)
+        maxl = max(maxl, len(chain))
+    flat_parts = []
+    rows = np.zeros((t, maxl, 4), np.float32)
+    bases = np.zeros((t, maxl), np.int32)
+    base = 0
+    for i, chain in enumerate(chains):
+        for lv in range(maxl):
+            level = chain[min(lv, len(chain) - 1)]
+            if lv < len(chain):
+                flat_parts.append(level.reshape(-1, 4))
+                level_base = base
+                base += level.shape[0] * level.shape[1]
+            else:
+                level_base = bases[i, len(chain) - 1]
+            bases[i, lv] = level_base
+            rows[i, lv] = (0.0, level.shape[1], level.shape[0], 0.0)
+    # The base rides bitcast: f32 integers are exact only to 2^24 texels.
+    rows[:, :, 0] = bases.view(np.float32)
+    flat = np.concatenate(flat_parts, 0) if flat_parts else np.zeros((0, 4), np.float32)
+    return tex._replace(mip_flat=flat.astype(np.float16), mip_rows=rows.reshape(t * maxl, 4))
 
 
 def transform_uv(uv, rotation, offset, scale):

@@ -157,8 +157,11 @@ def _inv_dir(d):
 
 def traverse_wide_ref(nodes, meta, records, words, origin, direction, t_min, t_max,
                       root_meta: int, any_hit=False, cull_sign: int = 0, blend_mode: int = 0,
-                      mode=None, *, stack_bound: int):
-    """Plain PyTorch version of the kernel (same order, same arithmetic)."""
+                      mode=None, *, stack_bound: int, visits=None):
+    """Plain PyTorch version of the kernel (same order, same arithmetic).
+    visits: an optional dict whose "node" and "leaf" entries are increased
+    by the number of (ray, node) and (ray, leaf) visits, the work the kernel
+    does on these rays."""
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
     any_mode = _any_mode(any_hit)
@@ -194,6 +197,10 @@ def traverse_wide_ref(nodes, meta, records, words, origin, direction, t_min, t_m
         ids = entry & WIDE_ID_MASK
 
         ia = act[~is_leaf]
+        la = act[is_leaf]
+        if visits is not None:
+            visits["node"] = visits.get("node", 0) + int(ia.numel())
+            visits["leaf"] = visits.get("leaf", 0) + int(la.numel())
         if ia.numel():
             node = ids[~is_leaf].long()
             box = nodes[node]
@@ -222,7 +229,6 @@ def traverse_wide_ref(nodes, meta, records, words, origin, direction, t_min, t_m
                 sp_i = sp_i + h.to(torch.int64)
             sp[ia] = sp_i
 
-        la = act[is_leaf]
         if la.numel():
             leaf = ids[is_leaf].long()
             rec = records[leaf]

@@ -28,7 +28,7 @@ from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
 from gltf_renderer_tpu_torch.ops import rng, sampling
 from gltf_renderer_tpu_torch.ops.bsdf import SurfaceProperties, gltf_bsdf
 from gltf_renderer_tpu_torch.ops.material import compact_material_rows, get_surface_properties
-from gltf_renderer_tpu_torch.ops.texture import decode_atlas_linear
+from gltf_renderer_tpu_torch.ops.texture import build_atlas_mips, decode_atlas_linear
 from gltf_renderer_tpu_torch.ops.traverse import traverse_wide
 from gltf_renderer_tpu_torch.render import settings as S
 from gltf_renderer_tpu_torch.scene import types as T
@@ -186,10 +186,11 @@ def _to_device(tup, dev):
 
 
 def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
-                  device="cpu") -> "tuple[PTScene, PTMeta]":
-    """Build the BVH and the traversal / shading tables on the host, then
-    place them on `device`. Raises NotImplementedError for scenes using
-    features this slice does not port."""
+                  device="cuda") -> "tuple[PTScene, PTMeta]":
+    """Build the BVH and the traversal / shading tables on the host (the
+    texture mip pyramid the raster backend samples included), then place
+    them on `device`. Raises NotImplementedError for scenes using features
+    this slice does not port."""
     dev = resolve(device)
     meta = _scene_meta(world, materials, textures, lights, env)
     check_supported(meta)
@@ -206,7 +207,7 @@ def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
                          stack_bound=bvh_ops.wide_stack_bound(maps.meta, wide_root))
 
     if textures.atlas_linear is None and np.asarray(textures.atlas).size:
-        textures = decode_atlas_linear(textures)
+        textures = build_atlas_mips(decode_atlas_linear(textures))
     tex_rows = None if textures.rows is None else np.asarray(textures.rows)
     materials = materials._replace(rows=torch.as_tensor(
         compact_material_rows(np.asarray(materials.rows), meta.used_slots, tex_rows), device=dev))
@@ -217,7 +218,11 @@ def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
         materials=materials,
         textures=textures._replace(
             rows=None if tex_rows is None else torch.as_tensor(tex_rows, device=dev),
-            atlas_linear=torch.as_tensor(np.asarray(textures.atlas_linear), device=dev)),
+            atlas_linear=torch.as_tensor(np.asarray(textures.atlas_linear), device=dev),
+            mip_flat=None if textures.mip_flat is None else torch.as_tensor(
+                textures.mip_flat, device=dev),
+            mip_rows=None if textures.mip_rows is None else torch.as_tensor(
+                textures.mip_rows, device=dev)),
         lights=lights,
         env=env,
         wide_nodes=torch.as_tensor(bvh_ops.assemble_wide(packed.nodes, maps.child_src),
@@ -274,6 +279,7 @@ class HitAttributes(NamedTuple):
     uv1: Any
     material: Any           # (R,) i32
     back_face: Any          # (R,) bool
+    uv_area_ratio: Any = None  # (R,) sqrt(uv0 area / world area), with_footprint only
 
 
 def _generate_tangent(normal):
@@ -284,9 +290,18 @@ def _generate_tangent(normal):
     return normalize(cross(torch.where(use_y, y_axis, x_axis), normal))
 
 
-def fetch_hit_attributes(world: WorldGeometry, tri, u, v, ray_dir) -> HitAttributes:
+def fetch_hit_attributes(world: WorldGeometry, tri, u, v, ray_dir, with_footprint: bool = False,
+                         raster_flip: bool = False) -> HitAttributes:
     """One (R, 64) tri-major row gather per hit; interpolate and flip back
-    faces as the reference's ClosestHit does (PathTracer.lib.hlsl:842-846)."""
+    faces.
+
+    raster_flip: Forward.ps.hlsl's back-face convention (:115-120): the
+    bitangent comes from the pre-flip normal and tangent, and only the
+    normals are reversed. Without it, the path tracer's (ClosestHit,
+    PathTracer.lib.hlsl:842-846): normal, tangent and tangent.w are negated
+    and the bitangent is built afterwards.
+    with_footprint: also return uv_area_ratio (texels per metre for the
+    raster backend's mip selection)."""
     row = world.tri_attr_rows[torch.clamp(tri, min=0).long()]
     r0, r1, r2 = row[:, 0:20], row[:, 20:40], row[:, 40:60]
     material = row[:, 60].contiguous().view(torch.int32)
@@ -309,12 +324,18 @@ def fetch_hit_attributes(world: WorldGeometry, tri, u, v, ray_dir) -> HitAttribu
 
     back = dot(gn_raw, ray_dir, keepdims=False) > 0.0
     b3 = back.unsqueeze(-1)
-    gn = torch.where(b3, -gn, gn)
-    normal = torch.where(b3, -normal, normal)
-    tangent_xyz = torch.where(b3, -tangent_xyz, tangent_xyz)
-    tangent_w = torch.where(back, -tangent_w, tangent_w)
-    tangent = torch.cat([tangent_xyz, tangent_w.unsqueeze(-1)], -1)
-    bitangent = tangent[..., 3:4] * normalize(cross(normal, tangent[..., :3]))
+    if raster_flip:
+        bitangent = tangent_w.unsqueeze(-1) * normalize(cross(normal, tangent_xyz))
+        gn = torch.where(b3, -gn, gn)
+        normal = torch.where(b3, -normal, normal)
+        tangent = torch.cat([tangent_xyz, tangent_w.unsqueeze(-1)], -1)
+    else:
+        gn = torch.where(b3, -gn, gn)
+        normal = torch.where(b3, -normal, normal)
+        tangent_xyz = torch.where(b3, -tangent_xyz, tangent_xyz)
+        tangent_w = torch.where(back, -tangent_w, tangent_w)
+        tangent = torch.cat([tangent_xyz, tangent_w.unsqueeze(-1)], -1)
+        bitangent = tangent[..., 3:4] * normalize(cross(normal, tangent[..., :3]))
 
     has_col = ((fbits & TRI_HAS_COLOR) != 0).unsqueeze(-1)
     col = torch.where(has_col, interp(14, 18), torch.ones_like(r0[:, 14:18]))
@@ -322,9 +343,16 @@ def fetch_hit_attributes(world: WorldGeometry, tri, u, v, ray_dir) -> HitAttribu
     uv0 = torch.where(has_uv0, interp(10, 12), torch.zeros_like(r0[:, 10:12]))
     has_uv1 = ((fbits & TRI_HAS_UV1) != 0).unsqueeze(-1)
     uv1 = torch.where(has_uv1, interp(12, 14), torch.zeros_like(r0[:, 12:14]))
+    uv_area_ratio = None
+    if with_footprint:
+        ue1 = r1[:, 10:12] - r0[:, 10:12]
+        ue2 = r2[:, 10:12] - r0[:, 10:12]
+        uv_cross = torch.abs(ue1[:, 0] * ue2[:, 1] - ue1[:, 1] * ue2[:, 0])
+        w_cross = torch.sqrt(sum_last(gn_raw * gn_raw))
+        uv_area_ratio = torch.sqrt(uv_cross / torch.clamp(w_cross, min=1e-20))
     return HitAttributes(position=pos, geometric_normal=gn, normal=normal, tangent=tangent,
                          bitangent=bitangent, color=col, uv0=uv0, uv1=uv1,
-                         material=material, back_face=back)
+                         material=material, back_face=back, uv_area_ratio=uv_area_ratio)
 
 
 # ---------------------------------------------------------------------------

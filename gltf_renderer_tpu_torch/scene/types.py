@@ -94,6 +94,8 @@ class TextureTable(NamedTuple):
     srgb: Any
     rows: Any = None          # (T, 9) f32 [x, y, w, h, wrap_s, wrap_t, nearest, srgb, pad]
     atlas_linear: Any = None  # (AH*AW, 4) f16, pre-decoded to linear
+    mip_flat: Any = None      # (M, 4) f16 every texture's mip chain (build_atlas_mips)
+    mip_rows: Any = None      # (T * MAXL, 4) f32 [base (bitcast i32), w, h, 0]
 
 
 class GeometryPools(NamedTuple):

@@ -27,6 +27,7 @@ from gltf_renderer_tpu_torch.ops import traverse as tr
 from gltf_renderer_tpu_torch.render import pathtracer as ppt
 from tests.test_torch_scene import (
     CUBE_SIZE,
+    DIFFUSE_SIZE,
     SKY_HW,
     SPHERE,
     build_jax_bench_scene,
@@ -83,7 +84,7 @@ def test_port_built_scene_traces_like_jax(scenes, jax_trace):
     jset, jparams = jax_settings()
     pscene, pmeta, pset, pparams, c2w, n_tris = build_bench_scene(
         *RES, device="cpu", tex_size=SPHERE["tex_size"], n_lat=SPHERE["n_lat"],
-        n_lon=SPHERE["n_lon"], sky_hw=SKY_HW, cube_size=CUBE_SIZE)
+        n_lon=SPHERE["n_lon"], sky_hw=SKY_HW, cube_size=CUBE_SIZE, diffuse_size=DIFFUSE_SIZE)
     assert n_tris == np.asarray(jscene.world.tri_vertex).shape[0]
     want = np.asarray(jax_trace(jscene, jmeta, jset, jparams, jnp.asarray(c2w), RES,
                                 jnp.uint32(3)))
@@ -124,6 +125,27 @@ def test_cuda_without_card_raises():
         build_environment_pt(np.ones((8, 16, 3), np.float32), cube_size=8, device="cuda")
 
 
+def test_entry_points_default_to_the_card():
+    """Called without `device`, the entry points ask for the card: on a host
+    without one they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from gltf_renderer_tpu_torch.bench_scene import world_from_scene
+    from gltf_renderer_tpu_torch.env.environment import build_environment_pt
+    from gltf_renderer_tpu_torch.scene.procedural import textured_sphere_scene
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_environment_pt(np.ones((8, 16, 3), np.float32), cube_size=8)
+    scene = textured_sphere_scene(tex_size=8, n_lat=4, n_lon=8)
+    world, lights = world_from_scene(scene)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ppt.make_pt_scene(world, scene.materials, scene.textures, lights)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_bench_scene(16, 9, tex_size=8, n_lat=4, n_lon=8, sky_hw=(8, 16), cube_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.from_jax_pt_scene(None, None)
+
+
 def test_unported_features_raise(scenes):
     _, _, pscene, pmeta = scenes
     pset, pparams = port_settings()
@@ -139,6 +161,12 @@ def test_port_imports_no_jax():
         "import gltf_renderer_tpu_torch.render.pathtracer\n"
         "import gltf_renderer_tpu_torch.bench_scene\n"
         "import gltf_renderer_tpu_torch.convert\n"
+        "import gltf_renderer_tpu_torch.ops.raster\n"
+        "import gltf_renderer_tpu_torch.render.rasterizer\n"
+        "import gltf_renderer_tpu_torch.render.renderer\n"
+        "import gltf_renderer_tpu_torch.post.bloom\n"
+        "import gltf_renderer_tpu_torch.post.tonemap\n"
+        "import gltf_renderer_tpu_torch.profile_raster\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gltf_renderer_tpu' or m.startswith('gltf_renderer_tpu.')]\n"

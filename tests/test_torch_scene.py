@@ -44,6 +44,7 @@ torch.set_num_threads(2)
 SPHERE = dict(tex_size=64, n_lat=12, n_lon=24, metallic=0.3, roughness=0.45)
 SKY_HW = (32, 64)
 CUBE_SIZE = 32
+DIFFUSE_SIZE = 8  # the raster-only diffuse cube, small: the path tracer never reads it
 JAX_KNOBS = {
     "GLTF_TPU_QUAD": "0",
     "GLTF_TPU_BF16ROWS": "0",
@@ -129,7 +130,8 @@ def built(tmp_path_factory):
             str(tmp_path_factory.mktemp("scene")))
     scene = textured_sphere_scene(**SPHERE)
     world, lights = world_from_scene(scene)
-    env = build_environment_pt(analytic_sky(*SKY_HW), cube_size=CUBE_SIZE, device="cpu")
+    env = build_environment_pt(analytic_sky(*SKY_HW), cube_size=CUBE_SIZE, device="cpu",
+                               diffuse_size=DIFFUSE_SIZE)
     pscene, pmeta = ppt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
                                       device="cpu")
     return dict(jsrc=jscene_src, jworld=jworld, jscene=jscene, jmeta=jmeta, src=scene,
