@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-1. device and build: the card's name and power limit (nvidia-smi), then both
-   kernels built in parallel from gltf_renderer_tpu_torch/csrc/traverse.cu
-   and csrc/raster.cu;
+1. device and build: the card's name and power limit (nvidia-smi), then all
+   five kernel sources in gltf_renderer_tpu_torch/csrc/ built in parallel,
+   one nvcc each;
 2. BVH traversal kernel vs its plain PyTorch version on the bench scene's
    tables, for primary, bounce-like and lane-mixed ray sets under every
    cull/blend mode, and both timed at the main path's launch sizes;
@@ -24,18 +24,40 @@ Phases (any failure exits non-zero and prints no result line):
 7. the raster frame at full size: bench scene, 1920x1080, tiled visibility +
    bloom + AgX -> u8, one warm and three timed frames, then the same with
    raycast visibility; the tile kernel launches once per tiled frame and no
-   plain version runs.
+   plain version runs;
+8. brute-force closest-hit kernel (csrc/brute.cu) vs its plain version, key
+   and blk bit-identical on the study tool's correctness data, on 16,384
+   rays x 49,152 triangles with clipped ray intervals, and on the tool's
+   own scale-timing inputs at both widths it times, 262,144 rays x the
+   helmet's 49,152 and the courtyard's 274,432 triangles (the plain version
+   timed there, one call each of about 7 s and 40 s), then the main of the
+   study tool `python -m gltf_renderer_tpu_torch.tools.bench_mxu` with the
+   launch counters reset: correctness against numpy, the torch.mm depth
+   curve, and the kernel timed at both widths;
+9. per-lane fetch kernels (csrc/perlane.cu) vs their plain versions,
+   bit-identical at the tool's three table shapes (plain versions timed),
+   then `python -m gltf_renderer_tpu_torch.tools.bench_perlane`'s main with
+   the launch counters reset;
+10. the port's bench entry point, `python -m gltf_renderer_tpu_torch.bench`,
+   as a subprocess at 1920x1080 with BENCH_STEPS=3: one JSON line on
+   stdout with the headline metric > 0, both gates true and raster FPS > 0.
+
+Before phase 2 the warm-up kernel (csrc/warm.cu) runs once, as the bench
+runs it first, and is held against its plain version.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
 """
 
+import itertools
 import json
 import os
 import sys
 import time
 
 import numpy as np
+
+from gltf_renderer_tpu_torch.device import cuda_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "bench_fidelity.npy")
@@ -49,13 +71,20 @@ WORD_AGREE_BAR = 0.9999
 REL_TOL = 1e-6
 REPLACES = "gltf_renderer_tpu/ops/pallas_trace.py:123"
 RASTER_REPLACES = "gltf_renderer_tpu/ops/pallas_raster.py:248"
-SOURCES = ("traverse.cu", "raster.cu")
+BRUTE_REPLACES = "tools/bench_mxu.py:108"
+ONEHOT_REPLACES = "tools/bench_perlane.py:47"
+SHUFFLE_REPLACES = "tools/bench_perlane.py:92"
+WARM_REPLACES = "bench.py:230"
+SOURCES = ("traverse.cu", "raster.cu", "warm.cu", "brute.cu", "perlane.cu")
+PERLANE_ROW = "courtyard-node"  # the table shape phase 9 reports in the kernel table
+BENCH_TIMEOUT_S = 600
 NEAR_VIEW_EYE = ([0.52, 0.0, 0.0], [0.52, 1.0, 0.0])  # camera plane cuts the sphere
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, 700 W): HBM bytes/s and
-# f32 operations/s outside the tensor cores.
+# f32 operations/s outside the tensor cores, dense bf16 operations/s in them.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12
 # f32 operations the kernels execute, counted from their sources (compares
 # included): a BVH node visit tests 4 child boxes at 25 each; a leaf visit
 # tests 16 triangles at 53 each; a live (triangle, tile) pair costs 29 per
@@ -64,34 +93,28 @@ PEAK_F32_S = 67e12
 OPS_NODE_VISIT = 4 * 25
 OPS_LEAF_VISIT = 16 * 53
 OPS_PAIR_PIXEL = 29
+# The brute-force kernel's four 16-term products are 128 operations a (ray,
+# triangle) pair, timed at the bf16 tensor-core rate apart from the f32
+# epilogue, since the two units overlap on Hopper; its epilogue is 22
+# f32 operations a pair (m3, m4, m5: 6; 12 compares; select, mask, or, min),
+# the division, made for hits only, not counted. A per-lane step sums 8
+# columns into s and s into acc (one-hot: 9 adds a lane); the shuffle step
+# adds one value per (column, lane).
+OPS_BRUTE_PRODUCTS = 4 * 2 * 16
+OPS_BRUTE_EPILOGUE = 22
+OPS_ONEHOT_LANE_STEP = 9
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() over reps launches, timed with CUDA events
-    after one warm call."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and f32
-    operations over the f32 rate."""
+def bound(n_bytes, n_ops, n_bf16_ops=0):
+    """(bound_ms, bound_by): the largest of bytes over the HBM rate, f32
+    operations over the f32 rate and bf16 tensor operations over the bf16
+    tensor-core rate (the tensor cores run beside the f32 units)."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_S * 1e3
+    t_ops = max(n_ops / PEAK_F32_S, n_bf16_ops / PEAK_BF16_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -216,19 +239,12 @@ def phase_kernel_vs_plain(scene, meta, settings, params, c2w, device):
 
 
 def phase_fidelity(scene, meta, settings, params):
+    from gltf_renderer_tpu_torch.bench import render_fidelity_probe
     from gltf_renderer_tpu_torch.bench_scene import FIDELITY_RES, FIDELITY_SPP, bench_camera
-    from gltf_renderer_tpu_torch.render import pathtracer as pt
     from gltf_renderer_tpu_torch.utils.ssim import ssim
 
     w, h = FIDELITY_RES
-    c2w = bench_camera(w, h)
-    acc = np.zeros((h, w, 3), np.float64)
-    nan = 0.0
-    for s in range(1, FIDELITY_SPP + 1):
-        img, stats = pt.trace(scene, meta, settings, params, c2w, (w, h), s, with_stats=True)
-        acc += img.double().cpu().numpy()
-        nan += float(stats[1])
-    probe = (acc / FIDELITY_SPP).astype(np.float32)
+    probe, nan = render_fidelity_probe(scene, meta, settings, params, bench_camera(w, h))
     golden = np.load(GOLDEN).astype(np.float32)
     if golden.shape != probe.shape:
         raise AssertionError(f"probe {probe.shape} vs golden {golden.shape}")
@@ -455,6 +471,192 @@ def phase_raster_frame(scene, meta, params, c2w, card):
     return out
 
 
+def identical(a, b):
+    """Bit-identical (same shape, same 32-bit words)."""
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def phase_warm(device):
+    """The warm-up kernel, run first as the bench runs it, then held
+    against its plain version and timed. Returns its kernel-table row."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import warm
+
+    warm.KERNEL_LAUNCHES = 0
+    y = warm.warm(device)
+    if warm.KERNEL_LAUNCHES != 1 or tuple(y.shape) != warm.WARM_SHAPE:
+        raise AssertionError("the warm-up did not launch its kernel once")
+    x = torch.randn(warm.WARM_SHAPE, generator=torch.Generator().manual_seed(3)).to(device)
+    got, want = warm.add_one(x), warm.warm_ref(x)
+    if not identical(got, want):
+        raise AssertionError("warm-up kernel disagrees with x + 1")
+    ms = cuda_ms(lambda: warm.add_one(x), 200)
+    plain_ms = cuda_ms(lambda: warm.warm_ref(x), 200)
+    library_ms = cuda_ms(lambda: torch.add(x, 1.0), 200)
+    b_ms, b_by = bound(nbytes(x, got), x.numel())
+    log(f"[warm] add_one {tuple(x.shape)} identical to x + 1; kernel={ms:.4f} ms "
+        f"plain={plain_ms:.4f} ms torch.add={library_ms:.4f} ms bound={b_ms:.6f} ms ({b_by})")
+    return {"name": "add_one", "route": "cuda",
+            "source": "gltf_renderer_tpu_torch/csrc/warm.cu", "replaces": WARM_REPLACES,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library_ms}
+
+
+def brute_bound(rays, tris, n_bytes):
+    return bound(n_bytes, OPS_BRUTE_EPILOGUE * rays * tris, OPS_BRUTE_PRODUCTS * rays * tris)
+
+
+def phase_brute(device):
+    """Brute-force kernel vs plain, then the study tool's main path.
+    Returns its kernel-table row."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import brute
+    from gltf_renderer_tpu_torch.tools import bench_mxu
+
+    rng = np.random.default_rng(11)
+    r, t = 16384, 49152
+    o = rng.normal(size=(r, 3)).astype(np.float32)
+    d = rng.normal(size=(r, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tri = [rng.normal(size=(t, 3)).astype(np.float32) * s for s in (1.0, 0.1, 0.1)]
+    tmin = np.where(rng.random(r) < 0.2, 0.5, 0.0).astype(np.float32)
+    tmax = np.where(rng.random(r) < 0.2, 2.0, 100.0).astype(np.float32)
+    cases = [("correctness data", bench_mxu.brute_inputs(*bench_mxu.correctness_data(), device)),
+             (f"{r} rays x {t} tris, clipped intervals",
+              bench_mxu.brute_inputs(o, d, tmin, tmax, *tri, device))]
+    plain = {}
+    for name, ins in itertools.chain(cases, bench_mxu.scale_inputs(device)):
+        got = brute.brute_closest(*ins)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = brute.brute_closest_ref(*ins)
+        torch.cuda.synchronize()
+        plain[name] = (time.perf_counter() - t0) * 1e3
+        same = [identical(g, p) for g, p in zip(got, want)]
+        hits = int((want[1] >= 0).sum())
+        log(f"[brute] {name} ({ins[0].shape[0]} rays x {ins[3].shape[1]} tris): key "
+            f"identical={same[0]} blk identical={same[1]} rays hitting={hits}/{ins[0].shape[0]}"
+            f"; plain {plain[name]:.3f} ms (host clock around one synchronised call)")
+        if not all(same) or hits == 0:
+            raise AssertionError(f"brute-force kernel disagrees with its plain version on {name}")
+
+    brute.KERNEL_LAUNCHES = 0
+    refs = brute.REFERENCE_CALLS
+    scale = bench_mxu.main(device)
+    launches = brute.KERNEL_LAUNCHES
+    if launches <= 0 or brute.REFERENCE_CALLS != refs:
+        raise AssertionError("the study tool did not run through the brute-force kernel only")
+    for row in scale:
+        rb_ms, rb_by = brute_bound(row["rays"], row["tris"], row["bytes"])
+        row.update(bound_ms=rb_ms, bound_by=rb_by)
+        log(f"[brute] tool {row['name']}: {row['rays']} rays x {row['tris']} tris "
+            f"kernel={row['ms']:.3f} ms bound={rb_ms:.4f} ms ({rb_by}) bytes={row['bytes']}")
+    helmet = scale[0]
+    log(f"[brute] tool launches={launches}; the kernel table's row is the helmet width")
+    return {"name": "brute_closest", "route": "cuda",
+            "source": "gltf_renderer_tpu_torch/csrc/brute.cu", "replaces": BRUTE_REPLACES,
+            "launches": launches, "max_abs_err": 0.0, "ms": helmet["ms"],
+            "plain_ms": plain[helmet["name"]],
+            "bound_ms": helmet["bound_ms"], "bound_by": helmet["bound_by"],
+            "library_ms": None}
+
+
+def phase_perlane(device):
+    """Per-lane fetch kernels vs plain at the tool's shapes, then the tool's
+    main path. Returns their two kernel-table rows."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import perlane
+    from gltf_renderer_tpu_torch.tools import bench_perlane as bp
+
+    rng = np.random.RandomState(5)
+    steps = bp.STEPS
+    plain = {}
+    for label, n, c in bp.SHAPES:
+        ids, table = bp.onehot_inputs(rng, n, c, device)
+        visited = torch.zeros(n, dtype=torch.bool, device=device)
+        got = perlane.onehot_fetch(ids, table, steps)
+        want = perlane.onehot_fetch_ref(ids, table, steps, visited=visited)
+        s_ids, s_table = bp.shuffle_inputs(rng, n, c, device)
+        s_visited = torch.zeros(s_table.shape[0] // c * perlane.LANES, dtype=torch.bool,
+                                device=device)
+        s_got = perlane.shuffle_fetch(s_ids, s_table, n, c, steps)
+        s_want = perlane.shuffle_fetch_ref(s_ids, s_table, n, c, steps, visited=s_visited)
+        same = identical(got, want), identical(s_got, s_want)
+        log(f"[perlane] {label} ({n}x{c}): onehot identical={same[0]} "
+            f"shuffle identical={same[1]}")
+        if not all(same):
+            raise AssertionError(f"a per-lane fetch kernel disagrees with its plain version "
+                                 f"on {label}")
+        o_bytes = nbytes(ids, got) + int(visited.sum()) * perlane.SUM_COLS * 2
+        s_bytes = nbytes(s_ids, s_got) + int(s_visited.sum()) * c * 4
+        plain[label] = {
+            "onehot": (cuda_ms(lambda: perlane.onehot_fetch_ref(ids, table, steps), 3),
+                       bound(o_bytes, OPS_ONEHOT_LANE_STEP * ids.numel() * steps)),
+            "shuffle": (cuda_ms(lambda: perlane.shuffle_fetch_ref(s_ids, s_table, n, c, steps), 3),
+                        bound(s_bytes, c * perlane.LANES * steps)),
+        }
+
+    perlane.KERNEL_LAUNCHES.update(dict.fromkeys(perlane.KERNEL_LAUNCHES, 0))
+    refs = perlane.REFERENCE_CALLS
+    rows = bp.main(device)
+    launches = dict(perlane.KERNEL_LAUNCHES)
+    if min(launches.values()) <= 0 or perlane.REFERENCE_CALLS != refs:
+        raise AssertionError("the study tool did not run through the per-lane kernels only")
+    out = {}
+    for row in rows:
+        p_ms, (b_ms, b_by) = plain[row["label"]][row["kind"]]
+        log(f"[perlane] tool {row['kind']} {row['label']}: kernel={row['ms']:.4f} ms "
+            f"({row['us_step']:.3f} us/step) plain={p_ms:.3f} ms bound={b_ms:.6f} ms ({b_by})")
+        if row["label"] == PERLANE_ROW:
+            out[row["kind"]] = {"ms": row["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
+                                "bound_by": b_by}
+    log(f"[perlane] tool launches={launches}; the kernel table's rows are the {PERLANE_ROW} "
+        f"shape")
+    common = {"route": "cuda", "source": "gltf_renderer_tpu_torch/csrc/perlane.cu",
+              "max_abs_err": 0.0, "library_ms": None}
+    return [dict(common, name="onehot_fetch", replaces=ONEHOT_REPLACES,
+                 launches=launches["onehot_fetch"], **out["onehot"]),
+            dict(common, name="shuffle_fetch", replaces=SHUFFLE_REPLACES,
+                 launches=launches["shuffle_fetch"], **out["shuffle"])]
+
+
+def phase_bench():
+    """The port's bench entry point as a user runs it. Returns its detail."""
+    import subprocess
+
+    env = dict(os.environ, BENCH_WIDTH=str(FULL_RES[0]), BENCH_HEIGHT=str(FULL_RES[1]),
+               BENCH_STEPS="3")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gltf_renderer_tpu_torch.bench"], cwd=ROOT,
+                          env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        log(f"[bench:stderr] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"the bench exited with {proc.returncode}")
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines on stdout, not 1")
+    result = json.loads(lines[0])
+    detail = next(json.loads(x)["detail"] for x in reversed(proc.stderr.splitlines())
+                  if x.startswith('{"detail"'))
+    log(f"[bench] {wall:.1f}s wall: {lines[0]}")
+    if (result.get("metric") != "pt_mrays_per_s_per_chip_1080p" or not result["value"] > 0
+            or detail["gates"]["nan_pixels_zero"] is not True
+            or detail["gates"]["ssim_ge_0995"] is not True
+            or not (detail["raster_fps"] or 0) > 0):
+        raise AssertionError(f"the bench's result fails its checks: {result} {detail}")
+    launches = detail["kernel_launches"]
+    if launches["add_one"] != 1 or launches["traverse_wide"] <= 0:
+        raise AssertionError(f"the bench did not run through its kernels: {launches}")
+    return detail
+
+
 def build_kernels():
     """Build every kernel library at once, one nvcc process each."""
     from concurrent.futures import ThreadPoolExecutor
@@ -487,6 +689,8 @@ def main() -> int:
     log(f"[build] {', '.join(_build.library_path(x) for x in SOURCES)} in "
         f"{time.perf_counter() - t0:.2f}s")
 
+    warm_row = phase_warm(device)
+
     t0 = time.perf_counter()
     scene, meta, settings, params, c2w, n_tris = build_bench_scene(*FULL_RES, device=device)
     log(f"[scene] {n_tris} triangles, stack bound {meta.stack_bound}, "
@@ -499,8 +703,15 @@ def main() -> int:
     r_err, r_ms, r_plain, r_bound, r_by = phase_raster_kernel(scene, device)
     phase_raster_fidelity(device)
     frames = phase_raster_frame(scene, meta, params, c2w, card)
-
     log(f"[done] phases 1-7 in {time.perf_counter() - t_start:.1f}s")
+    t0 = time.perf_counter()
+    brute_row = phase_brute(device)
+    perlane_rows = phase_perlane(device)
+    log(f"[done] phases 8-9 in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    bench_detail = phase_bench()
+    log(f"[done] phase 10 in {time.perf_counter() - t0:.1f}s; all phases in "
+        f"{time.perf_counter() - t_start:.1f}s")
     n_lane, ms_k, ms_p, b_ms, b_by = times["lane_mixed"]
     print(json.dumps({"kernels": [{
         "name": "traverse_wide", "route": "cuda",
@@ -512,7 +723,8 @@ def main() -> int:
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,
         "launches": frames["tiled"][1], "max_abs_err": r_err, "ms": r_ms, "plain_ms": r_plain,
         "bound_ms": r_bound, "bound_by": r_by, "library_ms": None,
-    }]}))
+    }, brute_row, *perlane_rows,
+        dict(warm_row, launches=bench_detail["kernel_launches"]["add_one"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

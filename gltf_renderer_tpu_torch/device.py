@@ -24,6 +24,29 @@ def resolve(device) -> torch.device:
     return dev
 
 
+def synchronize(device) -> None:
+    """Wait for the work queued on `device` (nothing to wait for on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds of fn() over `reps` calls on the current CUDA
+    stream, timed with CUDA events after `warmup` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def card_name_and_power_limit() -> str:
     """The card's name and power limit as
     `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` prints

@@ -167,6 +167,12 @@ def test_port_imports_no_jax():
         "import gltf_renderer_tpu_torch.post.bloom\n"
         "import gltf_renderer_tpu_torch.post.tonemap\n"
         "import gltf_renderer_tpu_torch.profile_raster\n"
+        "import gltf_renderer_tpu_torch.ops.brute\n"
+        "import gltf_renderer_tpu_torch.ops.perlane\n"
+        "import gltf_renderer_tpu_torch.ops.warm\n"
+        "import gltf_renderer_tpu_torch.bench\n"
+        "import gltf_renderer_tpu_torch.tools.bench_mxu\n"
+        "import gltf_renderer_tpu_torch.tools.bench_perlane\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gltf_renderer_tpu' or m.startswith('gltf_renderer_tpu.')]\n"
