@@ -6,10 +6,15 @@
 Phases (any failure exits non-zero and prints no result line):
 1. device and build: the card's name and power limit (nvidia-smi), then all
    five kernel sources in gltf_renderer_tpu_torch/csrc/ built in parallel,
-   one nvcc each;
+   one nvcc each, with ptxas's report of every kernel's registers, stack
+   frame, spills and shared memory;
 2. BVH traversal kernel vs its plain PyTorch version on the bench scene's
    tables, for primary, bounce-like and lane-mixed ray sets under every
-   cull/blend mode, and both timed at the main path's launch sizes;
+   cull/blend mode at 256x144 and at the main path's two launch sizes
+   (t, u, v and word identical on every lane), and both timed at those
+   sizes; where build/parent/traverse.cu holds an older kernel source
+   (copied there by hand; build/ is not committed), it is built too and
+   timed in turns with this one;
 3. path-tracer fidelity: the 256x144 probe (mean of seeds 1..32) against the
    committed CPU golden tests/goldens/bench_fidelity.npy by SSIM (bar
    0.995), no NaN/Inf;
@@ -43,7 +48,8 @@ Phases (any failure exits non-zero and prints no result line):
    stdout with the headline metric > 0, both gates true and raster FPS > 0.
 
 Before phase 2 the warm-up kernel (csrc/warm.cu) runs once, as the bench
-runs it first, and is held against its plain version.
+runs it first, is held against its plain version and is timed in turns
+with torch.add.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
@@ -52,12 +58,14 @@ and power limit; the last line is {"ok": true, "device": {...}}.
 import itertools
 import json
 import os
+import statistics
 import sys
 import time
 
 import numpy as np
 
 from gltf_renderer_tpu_torch.device import cuda_ms
+from gltf_renderer_tpu_torch.tools import bench_traverse
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "bench_fidelity.npy")
@@ -67,14 +75,13 @@ SPP = 4
 TIMED_STEPS = 3
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
-WORD_AGREE_BAR = 0.9999
-REL_TOL = 1e-6
 REPLACES = "gltf_renderer_tpu/ops/pallas_trace.py:123"
 RASTER_REPLACES = "gltf_renderer_tpu/ops/pallas_raster.py:248"
 BRUTE_REPLACES = "tools/bench_mxu.py:108"
 ONEHOT_REPLACES = "tools/bench_perlane.py:47"
 SHUFFLE_REPLACES = "tools/bench_perlane.py:92"
 WARM_REPLACES = "bench.py:230"
+PARENT_K1 = os.path.join(ROOT, "build", "parent", "traverse.cu")  # optional, for phase 2's turns
 SOURCES = ("traverse.cu", "raster.cu", "warm.cu", "brute.cu", "perlane.cu")
 PERLANE_ROW = "courtyard-node"  # the table shape phase 9 reports in the kernel table
 BENCH_TIMEOUT_S = 600
@@ -122,47 +129,11 @@ def nbytes(*tensors):
     return sum(int(t.numel()) * t.element_size() for t in tensors if t is not None)
 
 
-def ray_sets(scene, meta, settings, params, c2w, res, device, seed=7):
-    """(name, origin, direction, t_min, t_max, mode) sets from the bench
-    view: primary rays, bounce-like rays from their hits, and a lane-mixed
-    set (closest bounce rays + any-hit env-shadow rays), as the main path
-    launches them."""
-    import torch
-
-    from gltf_renderer_tpu_torch.env import environment as env_ops
-    from gltf_renderer_tpu_torch.ops import rng
-    from gltf_renderer_tpu_torch.ops import sampling
-    from gltf_renderer_tpu_torch.render import pathtracer as pt
-
-    w, h = res
-    px, py, valid = pt._tile_order(w, h, device)
-    jitter = rng.pt_random(px, py, seed, 0)[..., 0:2] - 0.5
-    c2w_t = torch.as_tensor(np.asarray(c2w), device=device)
-    origin, d_raw = pt.generate_camera_rays(px, py, (w, h), c2w_t, jitter)
-    ray_len = torch.sqrt(torch.clamp((d_raw * d_raw).sum(-1), min=1e-20))
-    direction = d_raw / ray_len[:, None]
-    t_min = torch.where(valid, torch.zeros_like(ray_len), ray_len + 1.0)
-    prim = pt.trace_closest(scene, meta, origin, direction, t_min, ray_len)
-    attrs = pt.fetch_hit_attributes(scene.world, prim.tri, prim.u, prim.v, direction)
-    hit = prim.tri >= 0
-    o_b = pt.offset_ray(attrs.position, attrs.geometric_normal)
-    d_b = sampling.sample_cosine_hemisphere(attrs.geometric_normal,
-                                            rng.pt_random(px, py, seed, 1)[..., 0:2])
-    far = torch.full_like(ray_len, params.max_ray_length)
-    tmin_b = torch.where(hit, torch.zeros_like(far), far + 1.0)
-    d_s, _, _ = env_ops.env_sample(scene.env, rng.pt_random(px, py, seed, 2))
-    mode = torch.cat([torch.zeros_like(px), torch.ones_like(px)]).to(torch.int32)
-    return [
-        ("primary", origin, direction, t_min, ray_len, None),
-        ("bounce", o_b, d_b, tmin_b, far, None),
-        ("lane_mixed", torch.cat([o_b, o_b]), torch.cat([d_b, d_s]),
-         torch.cat([tmin_b, tmin_b]), torch.cat([far, far]), mode),
-    ]
-
-
 def compare(scene, meta, rays, cull, blend):
-    """Kernel vs plain on one ray set. Returns (n_closest, n_word_agree,
-    max_abs_err_t, max_rel_err_tuv, occlusion_mismatches)."""
+    """Kernel vs plain on one ray set, every lane (closest and any-hit).
+    Returns (word agreement, max abs error of t, max relative error of t,
+    u and v, identical): identical when t, u, v and word are the same
+    32-bit words on every lane."""
     import torch
 
     from gltf_renderer_tpu_torch.ops import traverse as tr
@@ -173,58 +144,54 @@ def compare(scene, meta, rays, cull, blend):
             o, d, tmn, tmx, meta.wide_root, any_hit, cull, blend, mode)
     k = tr.traverse_wide(*args, stack_bound=meta.stack_bound)
     p = tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound)
-    closest = torch.ones_like(tmn, dtype=torch.bool) if mode is None else mode == 0
     kt, kw, ku, kv = k
     pt_, pw, pu, pv = p
-    agree = closest & (kw == pw)
-    max_abs = 0.0
+    max_abs = float(torch.abs(kt - pt_).max())
     max_rel = 0.0
     for a, b in ((kt, pt_), (ku, pu), (kv, pv)):
-        diff = torch.abs(a - b)[agree]
-        if diff.numel():
-            rel = diff / torch.clamp(torch.abs(b[agree]), min=1e-30)
-            max_rel = max(max_rel, float(torch.where(diff == 0, torch.zeros_like(rel), rel).max()))
-            if a is kt:
-                max_abs = float(diff.max())
-    occ_bad = int(((kw >= 0) != (pw >= 0))[~closest].sum()) if mode is not None else 0
-    return int(closest.sum()), int(agree.sum()), max_abs, max_rel, occ_bad
+        diff = torch.abs(a - b)
+        rel = torch.where(diff == 0, torch.zeros_like(diff),
+                          diff / torch.clamp(torch.abs(b), min=1e-30))
+        max_rel = max(max_rel, float(rel.max()))
+    same = all(identical(a, b) for a, b in zip(k, p))
+    return float((kw == pw).float().mean()), max_abs, max_rel, same
 
 
-def phase_kernel_vs_plain(scene, meta, settings, params, c2w, device):
-    import torch
-
+def phase_kernel_vs_plain(scene, meta, params, c2w, device):
+    from gltf_renderer_tpu_torch.ops import _build
     from gltf_renderer_tpu_torch.ops import traverse as tr
 
-    sets = ray_sets(scene, meta, settings, params, c2w, (256, 144), device)
+    sets = bench_traverse.ray_sets(scene, meta, params, c2w, (256, 144), device)
     worst_abs = 0.0
     for rays in sets:
         for cull in (-1, 0, 1):
             for blend in (0, 1, 2):
-                n, agree, max_abs, max_rel, occ_bad = compare(scene, meta, rays, cull, blend)
-                frac = agree / max(n, 1)
-                log(f"[kernel] {rays[0]:10s} cull={cull:+d} blend={blend} closest={n} "
-                    f"word_agree={frac:.6f} max_rel_tuv={max_rel:.3e} occ_mismatch={occ_bad}")
-                if frac < WORD_AGREE_BAR or max_rel > REL_TOL or occ_bad:
+                frac, max_abs, max_rel, same = compare(scene, meta, rays, cull, blend)
+                log(f"[kernel] {rays[0]:10s} cull={cull:+d} blend={blend} "
+                    f"rays={rays[1].shape[0]} word_agree={frac:.6f} max_rel_tuv={max_rel:.3e} "
+                    f"identical={same}")
+                if not same:
                     raise AssertionError(f"kernel disagrees with plain version on {rays[0]} "
                                          f"cull={cull} blend={blend}")
                 worst_abs = max(worst_abs, max_abs)
 
     # Times at the main path's launch sizes: 1080p spp=4 chunks are 262144
     # primary rays and 2 x 262144 merged bounce + shadow rays.
-    big = ray_sets(scene, meta, settings, params, c2w, (512, 512), device)
+    big = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
     times = {}
     for rays in (big[0], big[2]):
-        n, agree, max_abs, max_rel, occ_bad = compare(scene, meta, rays, 0, 0)
-        log(f"[kernel] {rays[0]:10s} rays={rays[1].shape[0]} word_agree={agree / max(n, 1):.6f} "
-            f"max_rel_tuv={max_rel:.3e} occ_mismatch={occ_bad}")
-        if agree / max(n, 1) < WORD_AGREE_BAR or max_rel > REL_TOL or occ_bad:
+        frac, max_abs, max_rel, same = compare(scene, meta, rays, 0, 0)
+        log(f"[kernel] {rays[0]:10s} rays={rays[1].shape[0]} word_agree={frac:.6f} "
+            f"max_rel_tuv={max_rel:.3e} identical={same}")
+        if not same:
             raise AssertionError(f"kernel disagrees with plain version on {rays[0]} (main-path size)")
         worst_abs = max(worst_abs, max_abs)
         _, o, d, tmn, tmx, mode = rays
         args = (scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
                 o, d, tmn, tmx, meta.wide_root, "lane" if mode is not None else False, 0, 0,
                 mode)
-        ms_k = cuda_ms(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound), 20)
+        ms_w = cuda_ms(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound), 20)
+        ms_k = kernel_turns(scene, meta, rays)
         ms_p = cuda_ms(lambda: tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound), 2)
         visits = {}
         tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound, visits=visits)
@@ -232,10 +199,47 @@ def phase_kernel_vs_plain(scene, meta, settings, params, c2w, device):
         n_ops = visits["node"] * OPS_NODE_VISIT + visits["leaf"] * OPS_LEAF_VISIT
         b_ms, b_by = bound(n_bytes, n_ops)
         times[rays[0]] = (o.shape[0], ms_k, ms_p, b_ms, b_by)
-        log(f"[kernel] time {rays[0]} rays={o.shape[0]} kernel={ms_k:.3f} ms "
-            f"plain={ms_p:.3f} ms node_visits={visits['node']} leaf_visits={visits['leaf']} "
-            f"bytes={n_bytes} ops={n_ops} bound={b_ms:.4f} ms ({b_by})")
+        log(f"[kernel] time {rays[0]} rays={o.shape[0]} kernel={ms_k:.4f} ms "
+            f"wrapper={ms_w:.4f} ms plain={ms_p:.3f} ms node_visits={visits['node']} "
+            f"leaf_visits={visits['leaf']} bytes={n_bytes} ops={n_ops} "
+            f"bound={b_ms:.4f} ms ({b_by})")
+    # The wrapper's host cost, where the kernel's work is too small to hide it.
+    name, o, d, tmn, tmx, mode = big[2]
+    small = (name, o[:1024], d[:1024], tmn[:1024], tmx[:1024], mode[:1024])
+    args = (scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
+            *small[1:5], meta.wide_root, "lane", 0, 0, small[5])
+    run, _ = bench_traverse.launcher(_build.load("traverse.cu"), scene, meta, small)
+    log(f"[kernel] host cost at 1024 lane rays: traverse_wide "
+        f"{host_us(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound)):.3f} us a call, "
+        f"its C launcher {host_us(run):.3f} us a call (2000 calls each)")
     return worst_abs, times
+
+
+def kernel_turns(scene, meta, rays):
+    """K1's own time on `rays`: its C launcher on ready tensors, 20 launches
+    per timing, 4 timings. Where PARENT_K1 holds an older kernel's source
+    (put there by hand), that kernel is timed in turns with this one
+    (parent, new, new, parent, ...) and its hits compared. Returns this
+    kernel's median ms."""
+    from gltf_renderer_tpu_torch.ops import _build
+
+    fns, outs = {}, {}
+    if os.path.exists(PARENT_K1):
+        fns["parent"], outs["parent"] = bench_traverse.launcher(
+            _build.load(PARENT_K1), scene, meta, rays, with_stack_bound=False)
+    fns["new"], outs["new"] = bench_traverse.launcher(_build.load("traverse.cu"), scene, meta,
+                                                      rays)
+    times = bench_traverse.time_in_turns(fns, rounds=4)
+    log(f"[kernel] turns {rays[0]} rays={rays[1].shape[0]} "
+        + " ".join(f"{k}={[round(x, 5) for x in v]} ms" for k, v in times.items())
+        + " (CUDA events, 20 launches each, C launcher)")
+    if "parent" in outs:
+        log(f"[kernel] turns {rays[0]}: parent's t identical="
+            f"{identical(outs['parent'][0], outs['new'][0])}, words differing="
+            f"{int((outs['parent'][1] != outs['new'][1]).sum())} (its order is child 0 first)")
+    else:
+        log(f"[kernel] turns: no parent kernel source at {PARENT_K1}, parent not timed")
+    return statistics.median(times["new"])
 
 
 def phase_fidelity(scene, meta, settings, params):
@@ -287,14 +291,18 @@ def phase_main_path(scene, meta, settings, params, c2w, card):
         rays += float(stats[0])
         nan += float(stats[1])
     launches = tr.KERNEL_LAUNCHES
+    # Per step and chunk: one primary launch and one merged bounce + shadow
+    # launch per bounce.
+    chunks = -(-pt._tile_order(w, h, img.device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
+    per_step = chunks * (1 + settings.max_bounces)
     elapsed = sum(step_s)
     mrays = rays / elapsed / 1e6
     log(f"[main] {w}x{h} spp={SPP} warm={warm_s:.3f}s steps={[round(s, 4) for s in step_s]} "
         f"rays={rays:.0f} Mrays/s={mrays:.4f} nan_inf={nan:.0f} launches={launches} "
-        f"card={card}")
+        f"({per_step} a step expected) card={card}")
     if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()):
         raise AssertionError("main path image has the wrong shape or non-finite values")
-    if launches <= 0 or tr.REFERENCE_CALLS != ref_calls:
+    if launches != per_step * (TIMED_STEPS + 1) or tr.REFERENCE_CALLS != ref_calls:
         raise AssertionError("main path did not run through the traversal kernel only")
     return launches, mrays, step_s
 
@@ -493,16 +501,70 @@ def phase_warm(device):
     got, want = warm.add_one(x), warm.warm_ref(x)
     if not identical(got, want):
         raise AssertionError("warm-up kernel disagrees with x + 1")
-    ms = cuda_ms(lambda: warm.add_one(x), 200)
+    # torch.add, kernel, kernel, torch.add: 200 calls back to back each.
+    turns = bench_traverse.time_in_turns({"torch.add": lambda: torch.add(x, 1.0),
+                                          "add_one": lambda: warm.add_one(x)}, rounds=2, reps=200)
+    ms = sum(turns["add_one"]) / 2
+    library_ms = sum(turns["torch.add"]) / 2
     plain_ms = cuda_ms(lambda: warm.warm_ref(x), 200)
-    library_ms = cuda_ms(lambda: torch.add(x, 1.0), 200)
     b_ms, b_by = bound(nbytes(x, got), x.numel())
-    log(f"[warm] add_one {tuple(x.shape)} identical to x + 1; kernel={ms:.4f} ms "
-        f"plain={plain_ms:.4f} ms torch.add={library_ms:.4f} ms bound={b_ms:.6f} ms ({b_by})")
+    log(f"[warm] add_one {tuple(x.shape)} identical to x + 1; in turns: "
+        f"torch.add={turns['torch.add'][0]:.5f} kernel={turns['add_one'][0]:.5f} "
+        f"kernel={turns['add_one'][1]:.5f} torch.add={turns['torch.add'][1]:.5f} ms; "
+        f"plain={plain_ms:.5f} ms bound={b_ms:.6f} ms ({b_by})")
+    launch_cost_breakdown(x)
     return {"name": "add_one", "route": "cuda",
             "source": "gltf_renderer_tpu_torch/csrc/warm.cu", "replaces": WARM_REPLACES,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
+
+
+def host_us(fn, calls=2000):
+    """Host microseconds per call of fn() over `calls` calls back to back,
+    the queued device work synchronised once at the end."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def launch_cost_breakdown(x):
+    """Where a wrapper's launch spends host time: each step of
+    warm.add_one's launch path timed alone on the host clock, beside
+    torch.add, the whole wrapper and the stream query the launch helper
+    does not use (current_stream(), which builds a Stream object)."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import _build
+    from gltf_renderer_tpu_torch.ops import warm
+
+    fn = _build.entry("warm.cu", "add_one_launch", warm._ARGTYPES)
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    idx = x.get_device()
+    steps = {
+        "torch.add(x, 1.0)": lambda: torch.add(x, 1.0),
+        "warm.add_one(x)": lambda: warm.add_one(x),
+        "x.contiguous()": x.contiguous,
+        "torch.empty_like(x)": lambda: torch.empty_like(x),
+        "torch._C._cuda_getDevice()": torch._C._cuda_getDevice,
+        "torch._C._cuda_getCurrentRawStream(i)": lambda: torch._C._cuda_getCurrentRawStream(idx),
+        "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
+        "_build.entry lookup": lambda: _build.entry("warm.cu", "add_one_launch", warm._ARGTYPES),
+        "C launcher, n=0 (ctypes + cudaGetLastError)": lambda: fn(x.data_ptr(), y.data_ptr(), 0,
+                                                                  stream),
+        "C launcher, n=1024 (+ the launch)": lambda: fn(x.data_ptr(), y.data_ptr(), 1024, stream),
+        "_build.launch(n=1024)": lambda: _build.launch(fn, "add_one", idx, x.data_ptr(),
+                                                       y.data_ptr(), 1024),
+    }
+    for name, f in steps.items():
+        log(f"[warm] host cost {name}: {host_us(f):.3f} us a call (2000 calls)")
 
 
 def brute_bound(rays, tris, n_bytes):
@@ -663,8 +725,9 @@ def build_kernels():
 
     from gltf_renderer_tpu_torch.ops import _build
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        list(pool.map(_build.load, SOURCES))
+    sources = SOURCES + ((PARENT_K1,) if os.path.exists(PARENT_K1) else ())
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.load, sources))
 
 
 def main() -> int:
@@ -688,6 +751,9 @@ def main() -> int:
     build_kernels()
     log(f"[build] {', '.join(_build.library_path(x) for x in SOURCES)} in "
         f"{time.perf_counter() - t0:.2f}s")
+    for source in SOURCES:
+        for line in _build.ptxas_report(source):
+            log(f"[ptxas] {source}: {line.strip()}")
 
     warm_row = phase_warm(device)
 
@@ -697,7 +763,7 @@ def main() -> int:
         f"{scene.wide_nodes.shape[0]} wide nodes, {scene.leaf_records.shape[0]} leaves, "
         f"built in {time.perf_counter() - t0:.2f}s")
 
-    worst_abs, times = phase_kernel_vs_plain(scene, meta, settings, params, c2w, device)
+    worst_abs, times = phase_kernel_vs_plain(scene, meta, params, c2w, device)
     phase_fidelity(scene, meta, settings, params)
     launches, mrays, _ = phase_main_path(scene, meta, settings, params, c2w, card)
     r_err, r_ms, r_plain, r_bound, r_by = phase_raster_kernel(scene, device)

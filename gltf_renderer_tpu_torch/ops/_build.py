@@ -1,10 +1,21 @@
-"""Build and load the port's CUDA kernels (plain C entry points, ctypes).
+"""Build, load and launch the port's CUDA kernels (plain C entry points, ctypes).
 
 Each source under `csrc/` is compiled at first use with nvcc for Hopper
 (`sm_90a`) into `build/torch_ext/`, named by a hash of the source and the
 flags so an unchanged source is never rebuilt. No `--use_fast_math` and no
 `-ftz=true`: the kernels keep IEEE division and denormals, and
 `-fmad=false` keeps their rounding equal to the plain PyTorch versions'.
+`-Xptxas -v` makes ptxas report each kernel's registers, stack frame,
+spills and shared memory; `ptxas_report` returns that report.
+
+Every wrapper launches through `entry` and `launch`: `entry` configures a
+C launcher's argument and result types once per (source, function), and
+`launch` passes pointers and the stream as plain Python ints, so a launch
+builds no ctypes objects and enters no device guard it does not need. It
+reads the current device and stream through torch's raw getters, which
+return ints: `torch.cuda.current_stream()` builds a Stream object on every
+call, which costs more host time than the kernel launch itself
+(chip_smoke's `[warm] host cost` lines).
 """
 
 from __future__ import annotations
@@ -15,13 +26,20 @@ import os
 import shutil
 import subprocess
 
+import torch
+
 from gltf_renderer_tpu_torch.ops.bvh import BUILD_DIR
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+VP = ctypes.c_void_p  # a pointer or a stream, passed as a Python int
+CI = ctypes.c_int
 
 _LOADED = {}
+_REPORTS = {}
+_ENTRIES = {}
 
 
 def _nvcc() -> str:
@@ -31,29 +49,70 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(source: str) -> str:
-    """Path of the shared library built from csrc/<source>."""
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(source: str, defines=()) -> str:
+    """Path of the shared library built from csrc/<source> (or from the
+    absolute path `source`) with the macros `defines` ("NAME=value")."""
     with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    stem = os.path.splitext(source)[0]
+        digest = hashlib.sha1(f.read() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Compile csrc/<source> if its library is missing, then load it."""
-    if source in _LOADED:
-        return _LOADED[source]
-    lib_path = library_path(source)
+def load(source: str, defines=()) -> ctypes.CDLL:
+    """Compile csrc/<source> with `defines` if its library is missing, then
+    load it."""
+    key = (source, tuple(defines))
+    if key in _LOADED:
+        return _LOADED[key]
+    lib_path = library_path(source, defines)
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
+            [_nvcc(), *_flags(defines), "-o", tmp, os.path.join(CSRC, source)],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
         os.replace(tmp, lib_path)
+        _REPORTS[key] = [line for line in proc.stderr.splitlines() if "ptxas" in line
+                         or "stack frame" in line]
     lib = ctypes.CDLL(lib_path)
-    _LOADED[source] = lib
+    _LOADED[key] = lib
     return lib
+
+
+def ptxas_report(source: str, defines=()) -> list:
+    """ptxas's resource lines from this process's build of `source`, or an
+    empty list if its library was already built when it was loaded."""
+    return _REPORTS.get((source, tuple(defines)), [])
+
+
+def entry(source: str, name: str, argtypes):
+    """The C function `name` of csrc/<source>'s library, with its argument
+    types set to `argtypes` and its result typed int (a CUDA error code),
+    configured at its first call and cached after."""
+    fn = _ENTRIES.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = CI
+        _ENTRIES[(source, name)] = fn
+    return fn
+
+
+def launch(fn, what: str, device_index: int, *args) -> None:
+    """Call the C launcher `fn` with `args` and the current stream of CUDA
+    device `device_index`; raise if it returns a CUDA error code. The device
+    guard is entered only when that device is not the current one."""
+    if device_index == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    else:
+        with torch.cuda.device(device_index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")

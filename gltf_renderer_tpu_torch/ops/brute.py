@@ -30,10 +30,10 @@ key, so near-equal hits tie on the lane.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
+
+from gltf_renderer_tpu_torch.ops import _build
 
 RB = 1024  # rays per block of the TPU kernel's grid: R must be a multiple
 TB = 512   # triangles per key block
@@ -45,6 +45,7 @@ KERNEL_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 _SOURCE = "brute.cu"
+_ARGTYPES = [_build.VP] * 7 + [_build.CI] * 2 + [_build.VP] * 3
 
 
 def mt_coefficients(v0, e1, e2):
@@ -143,16 +144,6 @@ def _check_inputs(feats, tmin, tmax, slabs):
     return r, t
 
 
-def _kernel_library():
-    from gltf_renderer_tpu_torch.ops import _build
-
-    lib = _build.load(_SOURCE)
-    vp = ctypes.c_void_p
-    lib.brute_closest_launch.argtypes = [vp] * 7 + [ctypes.c_int] * 2 + [vp] * 3
-    lib.brute_closest_launch.restype = ctypes.c_int
-    return lib
-
-
 def brute_closest(feats, tmin, tmax, cdet, cud, cvd, ctd):
     """Closest hit of every ray over every triangle. Returns (key, blk),
     each (R, 1) int32. R must be a multiple of RB and T of TB."""
@@ -163,17 +154,12 @@ def brute_closest(feats, tmin, tmax, cdet, cud, cvd, ctd):
         return brute_closest_ref(feats, tmin, tmax, cdet, cud, cvd, ctd)
     if dev.type != "cuda":
         raise ValueError(f"brute_closest runs on cpu or cuda tensors, got {dev}")
-    lib = _kernel_library()
     ins = [x.contiguous() for x in (feats, tmin, tmax, cdet, cud, cvd, ctd)]
     key = torch.empty((r, 1), dtype=torch.int32, device=dev)
     blk = torch.empty_like(key)
-    vp = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.brute_closest_launch(*[vp(x.data_ptr()) for x in ins], r, cdet.shape[1],
-                                      vp(key.data_ptr()), vp(blk.data_ptr()), vp(stream))
-    if rc != 0:
-        raise RuntimeError(f"brute_closest kernel launch failed: CUDA error {rc}")
+    _build.launch(_build.entry(_SOURCE, "brute_closest_launch", _ARGTYPES), "brute_closest",
+                  dev.index, *[x.data_ptr() for x in ins], r, cdet.shape[1], key.data_ptr(),
+                  blk.data_ptr())
     KERNEL_LAUNCHES += 1
     return key, blk
 

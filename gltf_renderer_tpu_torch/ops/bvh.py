@@ -361,20 +361,19 @@ def assemble_wide(packed_nodes: np.ndarray, child_src: np.ndarray) -> np.ndarray
 def wide_stack_bound(meta: np.ndarray, root_meta: int) -> int:
     """Most entries a depth-first traversal's stack can ever hold.
 
-    A popped internal node pushes up to k = 4 child entries with child 0 on
-    top; while child i's subtree runs, children i+1.. wait beneath it. So
-    bound(node) = max_i (k - 1 - i + bound(child_i)), and a leaf entry needs
-    1 slot. Every child slot counts (empty ones too), so the bound holds
-    whichever boxes a ray hits."""
+    A popped internal node pushes up to k = 4 child entries, nearest first
+    on top, so any child may run first with up to k - 1 siblings waiting
+    beneath it. So bound(node) = k - 1 + max_i bound(child_i), and a leaf
+    entry needs 1 slot. Every child slot counts (empty ones too), so the
+    bound holds whichever boxes a ray hits, in whichever order."""
     meta = np.asarray(meta)
     k = meta.shape[1]
     memo = {}
     # Children before parents: wide ids are assigned parents-first, so a
     # reverse sweep sees every internal child's bound before its parent's.
     for node in range(meta.shape[0] - 1, -1, -1):
-        memo[node] = max(
-            k - 1 - c + (1 if int(e) & WIDE_LEAF_BIT else memo[int(e)])
-            for c, e in enumerate(meta[node])
+        memo[node] = k - 1 + max(
+            1 if int(e) & WIDE_LEAF_BIT else memo[int(e)] for e in meta[node]
         )
     root = int(root_meta)
     return 1 if root & WIDE_LEAF_BIT else memo[root]

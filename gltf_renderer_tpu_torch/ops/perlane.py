@@ -25,9 +25,9 @@ kernel, plain version and JAX kernel agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from gltf_renderer_tpu_torch.ops import _build
 
 ROWS, LANES = 16, 128  # the one-hot kernel's 2048-lane packet
 SUM_COLS = 8           # columns the one-hot step sums
@@ -36,6 +36,7 @@ KERNEL_LAUNCHES = {"onehot_fetch": 0, "shuffle_fetch": 0}
 REFERENCE_CALLS = 0
 
 _SOURCE = "perlane.cu"
+_ARGTYPES = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2  # both launchers
 
 
 def _groups(n_rows: int) -> int:
@@ -66,30 +67,13 @@ def _check_shuffle(ids, table, n_rows, n_cols):
     _check("table", table, torch.float32, (_groups(n_rows) * n_cols, LANES), ids.device)
 
 
-def _kernel_library():
-    from gltf_renderer_tpu_torch.ops import _build
-
-    lib = _build.load(_SOURCE)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.onehot_fetch_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp]
-    lib.onehot_fetch_launch.restype = ci
-    lib.shuffle_fetch_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp, vp]
-    lib.shuffle_fetch_launch.restype = ci
-    return lib
-
-
 def _launch(fn_name, ids, table, out, *ints):
     dev = ids.device
     if dev.type != "cuda":
         raise ValueError(f"{fn_name} runs on cpu or cuda tensors, got {dev}")
-    fn = getattr(_kernel_library(), f"{fn_name}_launch")
     ids, table = ids.contiguous(), table.contiguous()
-    vp = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(vp(ids.data_ptr()), vp(table.data_ptr()), *ints, vp(out.data_ptr()), vp(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
+    _build.launch(_build.entry(_SOURCE, f"{fn_name}_launch", _ARGTYPES), fn_name, dev.index,
+                  ids.data_ptr(), table.data_ptr(), *ints, out.data_ptr())
     KERNEL_LAUNCHES[fn_name] += 1
     return out
 

@@ -30,11 +30,12 @@ module are not ported: no path of the renderer uses them.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Any, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from gltf_renderer_tpu_torch.ops import _build
 
 TILE_H = 16
 TILE_W = 128
@@ -47,6 +48,7 @@ KERNEL_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 _SOURCE = "raster.cu"
+_ARGTYPES = [_build.VP] * 4 + [_build.CI] * 3 + [_build.VP] * 5
 
 
 def default_pair_cap(n_tris: int) -> int:
@@ -295,17 +297,6 @@ def _check_tile_inputs(rows, rows_i, tri_list, offsets, tiles, cull_sign):
         raise ValueError(f"empty tile grid {tiles}")
 
 
-def _kernel_library():
-    """The built kernel library with its C signature declared."""
-    from gltf_renderer_tpu_torch.ops import _build
-
-    lib = _build.load(_SOURCE)
-    vp = ctypes.c_void_p
-    lib.raster_tiles_launch.argtypes = [vp] * 4 + [ctypes.c_int] * 3 + [vp] * 5
-    lib.raster_tiles_launch.restype = ctypes.c_int
-    return lib
-
-
 def rasterize_tiles(rows, rows_i, tri_list, offsets, tiles: Tuple[int, int],
                     cull_sign: int = 1):
     """Rasterize every 16x128 tile's triangle list. Returns (z, tri, u, v),
@@ -323,7 +314,6 @@ def rasterize_tiles(rows, rows_i, tri_list, offsets, tiles: Tuple[int, int],
     if dev.type != "cuda":
         raise ValueError(f"rasterize_tiles runs on cpu or cuda tensors, got {dev}")
 
-    lib = _kernel_library()
     tiles_x, tiles_y = tiles
     shape = (tiles_y * TILE_H, tiles_x * TILE_W)
     out_z = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -331,15 +321,9 @@ def rasterize_tiles(rows, rows_i, tri_list, offsets, tiles: Tuple[int, int],
     out_u = torch.empty_like(out_z)
     out_v = torch.empty_like(out_z)
     ins = [x.contiguous() for x in (rows, rows_i, tri_list, offsets)]
-    vp = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.raster_tiles_launch(
-            *[vp(x.data_ptr()) for x in ins], tiles_x, tiles_y, int(cull_sign),
-            vp(out_z.data_ptr()), vp(out_tri.data_ptr()),
-            vp(out_u.data_ptr()), vp(out_v.data_ptr()), vp(stream))
-    if rc != 0:
-        raise RuntimeError(f"raster_tiles kernel launch failed: CUDA error {rc}")
+    _build.launch(_build.entry(_SOURCE, "raster_tiles_launch", _ARGTYPES), "raster_tiles",
+                  dev.index, *[x.data_ptr() for x in ins], tiles_x, tiles_y, int(cull_sign),
+                  out_z.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(), out_v.data_ptr())
     KERNEL_LAUNCHES += 1
     return out_z, out_tri, out_u, out_v
 

@@ -7,9 +7,10 @@ things live here:
   the plain version; a CUDA tensor goes to the CUDA kernel
   (csrc/traverse.cu), or the call raises. There is no fallback between them.
 - `traverse_wide_ref`, the plain PyTorch version: the same tables, the same
-  depth-first order (child 0 popped first, a leaf tested when popped) and
-  the same arithmetic as the kernel, vectorised over rays with an (R, S)
-  stack tensor. It runs on either device.
+  depth-first order (the children whose box a ray enters visited nearest
+  first, by entry distance and then child index; a leaf tested when popped)
+  and the same arithmetic as the kernel, vectorised over rays with an
+  (R, S) stack tensor. It runs on either device.
 - `KERNEL_LAUNCHES` and `REFERENCE_CALLS`, plain counters of kernel
   launches and plain-version calls, so a run can show which one it used.
 
@@ -21,10 +22,11 @@ and carries no meaning). A miss returns t = t_max, u = v = 0, word = -1.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
+from gltf_renderer_tpu_torch.ops import _build
 from gltf_renderer_tpu_torch.ops.bvh import (
     BLEND_EXCLUDE,
     BLEND_ONLY,
@@ -42,6 +44,7 @@ KERNEL_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 _SOURCE = "traverse.cu"
+_ARGTYPES = [_build.VP] * 9 + [_build.CI] * 6 + [_build.VP] * 5
 
 
 def _any_mode(any_hit) -> int:
@@ -83,17 +86,11 @@ def _check_inputs(nodes, meta, records, words, origin, direction, t_min, t_max, 
     return t_max, mode
 
 
-def _kernel_library():
-    """The built kernel library with its C signatures declared."""
-    from gltf_renderer_tpu_torch.ops import _build
-
-    lib = _build.load(_SOURCE)
-    vp = ctypes.c_void_p
-    lib.traverse_wide_launch.argtypes = [vp] * 9 + [ctypes.c_int] * 5 + [vp] * 5
-    lib.traverse_wide_launch.restype = ctypes.c_int
-    lib.traverse_wide_max_stack.argtypes = []
-    lib.traverse_wide_max_stack.restype = ctypes.c_int
-    return lib
+@functools.cache
+def max_stack_bound() -> int:
+    """Largest tree stack bound the kernel takes: its stack, one entry per
+    thread and level, must fit the shared memory one block may use."""
+    return _build.entry(_SOURCE, "traverse_wide_max_stack", [])()
 
 
 def traverse_wide(nodes, meta, records, words, origin, direction, t_min, t_max,
@@ -119,11 +116,10 @@ def traverse_wide(nodes, meta, records, words, origin, direction, t_min, t_max,
     if dev.type != "cuda":
         raise ValueError(f"traverse_wide runs on cpu or cuda tensors, got {dev}")
 
-    lib = _kernel_library()
-    if stack_bound > lib.traverse_wide_max_stack():
+    if stack_bound > max_stack_bound():
         raise ValueError(
-            f"tree needs a traversal stack of {stack_bound} entries; the kernel "
-            f"is compiled with {lib.traverse_wide_max_stack()}")
+            f"tree needs a traversal stack of {stack_bound} entries; the kernel takes "
+            f"at most {max_stack_bound()}, as its stack must fit a block's shared memory")
     r = origin.shape[0]
     out_t = torch.empty(r, dtype=torch.float32, device=dev)
     out_u = torch.empty_like(out_t)
@@ -133,21 +129,24 @@ def traverse_wide(nodes, meta, records, words, origin, direction, t_min, t_max,
         return out_t, out_w, out_u, out_v
     ins = [x.contiguous() for x in (nodes, meta, records, words, origin, direction,
                                     t_min, t_max)]
-    if ins[0].data_ptr() % 16 or ins[1].data_ptr() % 16:
-        raise ValueError("nodes and meta must start 16-byte aligned (read as float4/int4 rows)")
-    mode_c = mode.contiguous() if mode is not None else None
-    vp = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.traverse_wide_launch(*[vp(x.data_ptr()) for x in ins],
-                vp(mode_c.data_ptr()) if mode_c is not None else None,
-                r, int(root_meta), _any_mode(any_hit), int(cull_sign), int(blend_mode),
-                vp(out_t.data_ptr()), vp(out_u.data_ptr()), vp(out_v.data_ptr()),
-                vp(out_w.data_ptr()), vp(stream))
-    if rc != 0:
-        raise RuntimeError(f"traverse_wide kernel launch failed: CUDA error {rc}")
+    if any(x.data_ptr() % 16 for x in ins[:4]):
+        raise ValueError("nodes, meta, records and words must start 16-byte aligned "
+                         "(read as float4/int4 rows)")
+    mode_ptr = mode.contiguous().data_ptr() if mode is not None else None
+    _build.launch(_build.entry(_SOURCE, "traverse_wide_launch", _ARGTYPES), "traverse_wide",
+                  dev.index, *[x.data_ptr() for x in ins], mode_ptr, r, int(root_meta),
+                  _any_mode(any_hit), int(cull_sign), int(blend_mode), int(stack_bound),
+                  out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_w.data_ptr())
     KERNEL_LAUNCHES += 1
     return out_t, out_w, out_u, out_v
+
+
+def _order2(key, idx, ent, a, b):
+    """One compare-exchange of the kernel's 4-input sorting network: columns
+    a and b ordered by (key, child index), each child's entry carried."""
+    swap = (key[b] < key[a]) | ((key[b] == key[a]) & (idx[b] < idx[a]))
+    for col in (key, idx, ent):
+        col[a], col[b] = torch.where(swap, col[b], col[a]), torch.where(swap, col[a], col[b])
 
 
 def _inv_dir(d):
@@ -209,7 +208,7 @@ def traverse_wide_ref(nodes, meta, records, words, origin, direction, t_min, t_m
             ix, iy, iz = inv[ia, 0], inv[ia, 1], inv[ia, 2]
             tmn = t_min[ia]
             tb = t_best[ia]
-            hits = []
+            key, idx, ent = [], [], []
             for c in range(4):
                 tx0 = (box[:, 6 * c] - ox) * ix
                 tx1 = (box[:, 6 * c + 3] - ox) * ix
@@ -221,11 +220,18 @@ def traverse_wide_ref(nodes, meta, records, words, origin, direction, t_min, t_m
                                    torch.minimum(tz0, tz1))
                 tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1)),
                                    torch.maximum(tz0, tz1))
-                hits.append((tf >= torch.maximum(tn, tmn)) & (tn <= tb))
+                hit = (tf >= torch.maximum(tn, tmn)) & (tn <= tb)
+                key.append(torch.where(hit, tn, torch.full_like(tn, float("inf"))))
+                idx.append(torch.full_like(node, c))
+                ent.append(torch.where(hit, mrow[:, c], torch.full_like(mrow[:, c], -1)))
+            # Nearest child first: sort by (entry distance, child index) and
+            # push in reverse, so the nearest is popped next.
+            for a, b in ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2)):
+                _order2(key, idx, ent, a, b)
             sp_i = sp[ia]
             for c in range(3, -1, -1):
-                h = hits[c]
-                stack[ia[h], sp_i[h]] = mrow[h, c]
+                h = ent[c] >= 0
+                stack[ia[h], sp_i[h]] = ent[c][h]
                 sp_i = sp_i + h.to(torch.int64)
             sp[ia] = sp_i
 

@@ -14,27 +14,17 @@ benchmark's clock starts.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from gltf_renderer_tpu_torch.device import resolve
+from gltf_renderer_tpu_torch.ops import _build
 
 WARM_SHAPE = (8, 128)
 
 KERNEL_LAUNCHES = 0
 
 _SOURCE = "warm.cu"
-
-
-def _kernel_library():
-    from gltf_renderer_tpu_torch.ops import _build
-
-    lib = _build.load(_SOURCE)
-    vp = ctypes.c_void_p
-    lib.add_one_launch.argtypes = [vp, vp, ctypes.c_int, vp]
-    lib.add_one_launch.restype = ctypes.c_int
-    return lib
+_ARGTYPES = [_build.VP, _build.VP, _build.CI, _build.VP]
 
 
 def warm_ref(x: torch.Tensor) -> torch.Tensor:
@@ -47,19 +37,14 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     global KERNEL_LAUNCHES
     if x.dtype != torch.float32:
         raise TypeError(f"add_one takes float32, got {x.dtype}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return warm_ref(x)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"add_one runs on cpu or cuda tensors, got {x.device}")
-    lib = _kernel_library()
     x = x.contiguous()
     y = torch.empty_like(x)
-    vp = ctypes.c_void_p
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.add_one_launch(vp(x.data_ptr()), vp(y.data_ptr()), x.numel(), vp(stream))
-    if rc != 0:
-        raise RuntimeError(f"add_one kernel launch failed: CUDA error {rc}")
+    _build.launch(_build.entry(_SOURCE, "add_one_launch", _ARGTYPES), "add_one",
+                  x.get_device(), x.data_ptr(), y.data_ptr(), x.numel())
     KERNEL_LAUNCHES += 1
     return y
 

@@ -11,7 +11,10 @@ CPU build contracts the barycentric dot products into fused multiply-adds,
 which moves their last bits, and the dot products cancel (measured up to
 2.7e-6); the port rounds each product. Any-hit rays report the
 first accepted triangle in traversal order, which differs between
-traversal orders, so they are compared by occlusion only.
+traversal orders, so they are compared by occlusion only. A brute-force
+numpy test of every triangle, which no visit order can change, holds the
+plain version's nearest-child-first traversal on the soup and a closed
+mesh for every cull/blend mode.
 
 Interpret-mode calls each compile for ~20 s on the CPU, so the two of them
 cover several ray families at once (random, coherent, degenerate and
@@ -142,9 +145,9 @@ def test_ref_any_hit_matches_xla_occlusion(soup, cull):
     assert (t[w >= 0] == np.float32(tr.NEG_BIG)).all()
 
 
-def test_ref_matches_xla_on_mesh():
-    """Closed mesh (shared edges): the same triangle wins, or an equally
-    close one where a ray crosses an edge."""
+def _mesh_tables():
+    """Wide tables of a closed UV sphere (shared edges), as numpy, and the
+    packed BVH they come from."""
     from tests.scenes import uv_sphere
 
     p, _, _, idx = uv_sphere(16, 32)
@@ -152,12 +155,19 @@ def test_ref_matches_xla_on_mesh():
     p0, p1, p2 = p[tri[:, 0]], p[tri[:, 1]], p[tri[:, 2]]
     tree = pbvh.build(p0, p1, p2)
     order = tree.tri_order
-    words = order.astype(np.int32)
-    packed = pbvh.pack(tree, p0[order], (p1 - p0)[order], (p2 - p0)[order], words)
+    packed = pbvh.pack(tree, p0[order], (p1 - p0)[order], (p2 - p0)[order],
+                       order.astype(np.int32))
     maps, root = pbvh.build_wide_maps(tree)
     tables = dict(nodes=pbvh.assemble_wide(packed.nodes, maps.child_src), meta=maps.meta,
                   records=packed.records[maps.leaf_ids], words=packed.words[maps.leaf_ids],
                   root=root, stack_bound=pbvh.wide_stack_bound(maps.meta, root))
+    return tables, packed
+
+
+def test_ref_matches_xla_on_mesh():
+    """Closed mesh (shared edges): the same triangle wins, or an equally
+    close one where a ray crosses an edge."""
+    tables, packed = _mesh_tables()
     o, d, tmn, tmx = [np.asarray(x) for x in _random_rays(512, 19, coherent=True)]
     jpacked = jbvh.PackedBVH(nodes=jnp.asarray(packed.nodes), records=jnp.asarray(packed.records),
                              words=jnp.asarray(packed.words), n_nodes=packed.n_nodes)
@@ -171,6 +181,76 @@ def test_ref_matches_xla_on_mesh():
     np.testing.assert_allclose(t[hit], ref_t[hit], rtol=1e-6)
     same = (w == ref_tri) | (np.abs(t - ref_t) <= 1e-6 * np.abs(ref_t))
     assert same.all()
+
+
+def _brute_force(tables, o, d, tmn, tmx, cull, blend, any_lane):
+    """Every triangle of the leaf tables against every ray, in numpy f32 with
+    the kernel's predicate, order-free. Returns (t, accepted) per (ray,
+    triangle), with t = inf where the triangle is not accepted."""
+    f = np.float32
+    rec = tables["records"].reshape(-1, 9)[None]  # (1, T, 9)
+    word = tables["words"].reshape(-1)[None]
+    o, d = o[:, None, :].astype(f), d[:, None, :].astype(f)
+    e1, e2 = rec[..., 3:6], rec[..., 6:9]
+    pv = np.stack([d[..., 1] * e2[..., 2] - d[..., 2] * e2[..., 1],
+                   d[..., 2] * e2[..., 0] - d[..., 0] * e2[..., 2],
+                   d[..., 0] * e2[..., 1] - d[..., 1] * e2[..., 0]], -1)
+    det = e1[..., 0] * pv[..., 0] + e1[..., 1] * pv[..., 1] + e1[..., 2] * pv[..., 2]
+    det_ok = np.abs(det) > f(1e-12)
+    with np.errstate(divide="ignore"):
+        inv_det = np.where(det_ok, f(1) / np.where(det_ok, det, f(1)), f(0))
+    tv = o - rec[..., 0:3]
+    uu = (tv[..., 0] * pv[..., 0] + tv[..., 1] * pv[..., 1] + tv[..., 2] * pv[..., 2]) * inv_det
+    qv = np.stack([tv[..., 1] * e1[..., 2] - tv[..., 2] * e1[..., 1],
+                   tv[..., 2] * e1[..., 0] - tv[..., 0] * e1[..., 2],
+                   tv[..., 0] * e1[..., 1] - tv[..., 1] * e1[..., 0]], -1)
+    vv = (d[..., 0] * qv[..., 0] + d[..., 1] * qv[..., 1] + d[..., 2] * qv[..., 2]) * inv_det
+    tt = (e2[..., 0] * qv[..., 0] + e2[..., 1] * qv[..., 1] + e2[..., 2] * qv[..., 2]) * inv_det
+    ok = (det_ok & (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & (tt > tmn[:, None])
+          & (tt < tmx[:, None]) & (word >= 0))
+    if blend == jbvh.BLEND_EXCLUDE:
+        ok &= (word & jbvh.FLAG_BLEND) == 0
+    elif blend == jbvh.BLEND_ONLY:
+        ok &= (word & jbvh.FLAG_BLEND) != 0
+    if cull:
+        ok &= ~((det * f(cull) < 0) & ((word & jbvh.FLAG_DOUBLE_SIDED) == 0)
+                & ~any_lane[:, None])
+    return np.where(ok, tt, np.inf), ok
+
+
+@pytest.mark.parametrize("fixture", ["soup", "mesh"])
+@pytest.mark.parametrize("cull", [-1, 0, 1])
+@pytest.mark.parametrize("blend", [jbvh.BLEND_ANY, jbvh.BLEND_EXCLUDE, jbvh.BLEND_ONLY])
+def test_ref_matches_brute_force(soup, fixture, cull, blend):
+    """Nearest-child-first traversal against every triangle tested, which
+    no visit order can change: closest lanes report the smallest accepted
+    t (1e-6 relative) and its triangle's word (any of them where several
+    tie on that t, which only shared mesh edges do), any-hit lanes whether
+    any triangle is accepted."""
+    if fixture == "soup":
+        tables = soup
+        o, d, tmn, tmx = _ray_families(soup, seed=29)
+    else:
+        tables, _ = _mesh_tables()
+        o, d, tmn, tmx = [np.asarray(x) for x in _random_rays(256, 31, coherent=True)]
+    mode = (np.random.default_rng(37).random(o.shape[0]) < 0.3).astype(np.int32)
+    t_all, ok = _brute_force(tables, o, d, tmn, tmx, cull, blend, mode > 0)
+    t, w, _, _ = [x.numpy() for x in _ref(tables, o, d, tmn, tmx, "lane", cull, blend, mode)]
+    closest = mode == 0
+    best = t_all.min(1)
+    hit = np.isfinite(best)
+    np.testing.assert_array_equal(w[closest] >= 0, hit[closest])
+    np.testing.assert_allclose(t[closest & hit], best[closest & hit], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(t[closest & ~hit], tmx[closest & ~hit])
+    words = tables["words"].reshape(-1)
+    ties = (t_all == best[:, None]) & hit[:, None]
+    for r in np.nonzero(closest & hit)[0]:
+        assert w[r] in words[ties[r]]
+    if fixture == "soup":
+        assert (ties.sum(1) <= 1).all()
+    np.testing.assert_array_equal(w[~closest] >= 0, ok[~closest].any(1))
+    if blend != jbvh.BLEND_ONLY or fixture == "soup":  # the mesh has no BLEND triangle
+        assert (closest & hit).any() and (~closest & hit).any()
 
 
 def test_stack_bound_covers_every_push(soup):

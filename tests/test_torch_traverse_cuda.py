@@ -6,6 +6,7 @@ only the port's dependencies:
     python -m pytest tests/test_torch_traverse_cuda.py -q
 
 Without a CUDA device every test here skips (the kernel has no CPU mode).
+Both visit children nearest first (entry distance, then child index).
 Tolerance: none. The kernel and `traverse_wide_ref` visit nodes in the same
 order and round every operation the same way (the kernel is built with
 -fmad=false), so words, t, u and v are identical.
@@ -84,6 +85,66 @@ def test_kernel_matches_plain_on_card(cuda_device, n_tris):
                     np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32))
                 assert (want[1] >= 0).any()
     assert tr.KERNEL_LAUNCHES == launches + 27
+
+
+def test_kernel_matches_plain_in_lane_mode_at_main_path_size(cuda_device):
+    """524,288 lane-mixed rays, the size of the path tracer's merged bounce +
+    shadow launch at 1080p spp=4."""
+    tables = _soup_tables(5000, seed=9)
+    o, d, tmn, tmx = [x[:524_288] for x in _rays(262_143, seed=5)]
+    mode = (np.random.RandomState(6).rand(o.shape[0]) < 0.5).astype(np.int32)
+    T = lambda x: torch.from_numpy(np.array(x)).to(cuda_device)
+    args = [T(tables[k]) for k in ("nodes", "meta", "records", "words")] + [
+        T(o), T(d), T(tmn), T(tmx), tables["root"], "lane", 0, 0, T(mode)]
+    launches = tr.KERNEL_LAUNCHES
+    got = tr.traverse_wide(*args, stack_bound=tables["stack_bound"])
+    want = tr.traverse_wide_ref(*args, stack_bound=tables["stack_bound"])
+    assert tr.KERNEL_LAUNCHES == launches + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert (want[1] >= 0).sum() > 1000
+
+
+def _shifted(x, cuda_device):
+    """A contiguous copy of x that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
+def test_kernel_refuses_misaligned_leaf_rows(cuda_device):
+    tables = _soup_tables(300, seed=1)
+    o, d, tmn, tmx = _rays(16, seed=2)
+    T = lambda x: torch.from_numpy(np.array(x)).to(cuda_device)
+    base = [T(tables[k]) for k in ("nodes", "meta", "records", "words")]
+    rays = [T(o), T(d), T(tmn), T(tmx), tables["root"]]
+    launches = tr.KERNEL_LAUNCHES
+    for k in (2, 3):
+        args = list(base)
+        args[k] = _shifted(base[k], cuda_device)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tr.traverse_wide(*args, *rays, stack_bound=tables["stack_bound"])
+    assert tr.KERNEL_LAUNCHES == launches
+
+
+def test_kernel_refuses_a_stack_past_shared_memory(cuda_device):
+    """The stack, one int per thread and level, must fit the 227 KB one
+    block may use: the largest bound taken is launched, one more refused."""
+    tables = _soup_tables(300, seed=1)
+    o, d, tmn, tmx = _rays(16, seed=2)
+    T = lambda x: torch.from_numpy(np.array(x)).to(cuda_device)
+    args = [T(tables[k]) for k in ("nodes", "meta", "records", "words")] + [
+        T(o), T(d), T(tmn), T(tmx), tables["root"]]
+    most = tr.max_stack_bound()
+    assert most >= 64
+    want = tr.traverse_wide_ref(*args, stack_bound=tables["stack_bound"])
+    got = tr.traverse_wide(*args, stack_bound=most)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    with pytest.raises(ValueError, match="shared memory"):
+        tr.traverse_wide(*args, stack_bound=most + 1)
 
 
 def test_kernel_refuses_a_stack_it_was_not_built_for(cuda_device):
