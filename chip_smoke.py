@@ -12,9 +12,11 @@ Phases (any failure exits non-zero and prints no result line):
    tables, for primary, bounce-like and lane-mixed ray sets under every
    cull/blend mode at 256x144 and at the main path's two launch sizes
    (t, u, v and word identical on every lane), and both timed at those
-   sizes; where build/parent/traverse.cu holds an older kernel source
-   (copied there by hand; build/ is not committed), it is built too and
-   timed in turns with this one;
+   sizes: the wrapper the path tracer calls (the kernel table's `ms`), and
+   the kernel's C launcher on ready tensors in turns (`launcher_ms`); where
+   build/parent/traverse.cu holds an older kernel source (copied there by
+   hand; build/ is not committed), its launcher is built too and timed in
+   the same turns;
 3. path-tracer fidelity: the 256x144 probe (mean of seeds 1..32) against the
    committed CPU golden tests/goldens/bench_fidelity.npy by SSIM (bar
    0.995), no NaN/Inf;
@@ -158,7 +160,6 @@ def compare(scene, meta, rays, cull, blend):
 
 
 def phase_kernel_vs_plain(scene, meta, params, c2w, device):
-    from gltf_renderer_tpu_torch.ops import _build
     from gltf_renderer_tpu_torch.ops import traverse as tr
 
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, (256, 144), device)
@@ -187,46 +188,35 @@ def phase_kernel_vs_plain(scene, meta, params, c2w, device):
             raise AssertionError(f"kernel disagrees with plain version on {rays[0]} (main-path size)")
         worst_abs = max(worst_abs, max_abs)
         _, o, d, tmn, tmx, mode = rays
-        args = (scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
-                o, d, tmn, tmx, meta.wide_root, "lane" if mode is not None else False, 0, 0,
-                mode)
+        args = bench_traverse.wrapper_args(scene, meta, rays)
         ms_w = cuda_ms(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound), 20)
-        ms_k = kernel_turns(scene, meta, rays)
+        ms_l = launcher_turns(scene, meta, rays)
         ms_p = cuda_ms(lambda: tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound), 2)
         visits = {}
         tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound, visits=visits)
         n_bytes = nbytes(*args[:8], mode) + 16 * o.shape[0]
         n_ops = visits["node"] * OPS_NODE_VISIT + visits["leaf"] * OPS_LEAF_VISIT
         b_ms, b_by = bound(n_bytes, n_ops)
-        times[rays[0]] = (o.shape[0], ms_k, ms_p, b_ms, b_by)
-        log(f"[kernel] time {rays[0]} rays={o.shape[0]} kernel={ms_k:.4f} ms "
-            f"wrapper={ms_w:.4f} ms plain={ms_p:.3f} ms node_visits={visits['node']} "
+        times[rays[0]] = (o.shape[0], ms_w, ms_l, ms_p, b_ms, b_by)
+        log(f"[kernel] time {rays[0]} rays={o.shape[0]} kernel={ms_w:.4f} ms "
+            f"(through traverse_wide) launcher={ms_l:.4f} ms plain={ms_p:.3f} ms node_visits={visits['node']} "
             f"leaf_visits={visits['leaf']} bytes={n_bytes} ops={n_ops} "
             f"bound={b_ms:.4f} ms ({b_by})")
-    # The wrapper's host cost, where the kernel's work is too small to hide it.
-    name, o, d, tmn, tmx, mode = big[2]
-    small = (name, o[:1024], d[:1024], tmn[:1024], tmx[:1024], mode[:1024])
-    args = (scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
-            *small[1:5], meta.wide_root, "lane", 0, 0, small[5])
-    run, _ = bench_traverse.launcher(_build.load("traverse.cu"), scene, meta, small)
-    log(f"[kernel] host cost at 1024 lane rays: traverse_wide "
-        f"{host_us(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound)):.3f} us a call, "
-        f"its C launcher {host_us(run):.3f} us a call (2000 calls each)")
     return worst_abs, times
 
 
-def kernel_turns(scene, meta, rays):
+def launcher_turns(scene, meta, rays):
     """K1's own time on `rays`: its C launcher on ready tensors, 20 launches
     per timing, 4 timings. Where PARENT_K1 holds an older kernel's source
-    (put there by hand), that kernel is timed in turns with this one
-    (parent, new, new, parent, ...) and its hits compared. Returns this
-    kernel's median ms."""
+    (put there by hand), that kernel's launcher, its argument list read from
+    the library, is timed in turns with this one (parent, new, new,
+    parent, ...) and its hits compared. Returns this kernel's median ms."""
     from gltf_renderer_tpu_torch.ops import _build
 
     fns, outs = {}, {}
     if os.path.exists(PARENT_K1):
         fns["parent"], outs["parent"] = bench_traverse.launcher(
-            _build.load(PARENT_K1), scene, meta, rays, with_stack_bound=False)
+            _build.load(PARENT_K1), scene, meta, rays)
     fns["new"], outs["new"] = bench_traverse.launcher(_build.load("traverse.cu"), scene, meta,
                                                       rays)
     times = bench_traverse.time_in_turns(fns, rounds=4)
@@ -236,7 +226,7 @@ def kernel_turns(scene, meta, rays):
     if "parent" in outs:
         log(f"[kernel] turns {rays[0]}: parent's t identical="
             f"{identical(outs['parent'][0], outs['new'][0])}, words differing="
-            f"{int((outs['parent'][1] != outs['new'][1]).sum())} (its order is child 0 first)")
+            f"{int((outs['parent'][1] != outs['new'][1]).sum())}")
     else:
         log(f"[kernel] turns: no parent kernel source at {PARENT_K1}, parent not timed")
     return statistics.median(times["new"])
@@ -512,59 +502,10 @@ def phase_warm(device):
         f"torch.add={turns['torch.add'][0]:.5f} kernel={turns['add_one'][0]:.5f} "
         f"kernel={turns['add_one'][1]:.5f} torch.add={turns['torch.add'][1]:.5f} ms; "
         f"plain={plain_ms:.5f} ms bound={b_ms:.6f} ms ({b_by})")
-    launch_cost_breakdown(x)
     return {"name": "add_one", "route": "cuda",
             "source": "gltf_renderer_tpu_torch/csrc/warm.cu", "replaces": WARM_REPLACES,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library_ms}
-
-
-def host_us(fn, calls=2000):
-    """Host microseconds per call of fn() over `calls` calls back to back,
-    the queued device work synchronised once at the end."""
-    import torch
-
-    for _ in range(50):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / calls * 1e6
-
-
-def launch_cost_breakdown(x):
-    """Where a wrapper's launch spends host time: each step of
-    warm.add_one's launch path timed alone on the host clock, beside
-    torch.add, the whole wrapper and the stream query the launch helper
-    does not use (current_stream(), which builds a Stream object)."""
-    import torch
-
-    from gltf_renderer_tpu_torch.ops import _build
-    from gltf_renderer_tpu_torch.ops import warm
-
-    fn = _build.entry("warm.cu", "add_one_launch", warm._ARGTYPES)
-    y = torch.empty_like(x)
-    stream = torch.cuda.current_stream().cuda_stream
-    idx = x.get_device()
-    steps = {
-        "torch.add(x, 1.0)": lambda: torch.add(x, 1.0),
-        "warm.add_one(x)": lambda: warm.add_one(x),
-        "x.contiguous()": x.contiguous,
-        "torch.empty_like(x)": lambda: torch.empty_like(x),
-        "torch._C._cuda_getDevice()": torch._C._cuda_getDevice,
-        "torch._C._cuda_getCurrentRawStream(i)": lambda: torch._C._cuda_getCurrentRawStream(idx),
-        "torch.cuda.current_stream().cuda_stream": lambda: torch.cuda.current_stream().cuda_stream,
-        "_build.entry lookup": lambda: _build.entry("warm.cu", "add_one_launch", warm._ARGTYPES),
-        "C launcher, n=0 (ctypes + cudaGetLastError)": lambda: fn(x.data_ptr(), y.data_ptr(), 0,
-                                                                  stream),
-        "C launcher, n=1024 (+ the launch)": lambda: fn(x.data_ptr(), y.data_ptr(), 1024, stream),
-        "_build.launch(n=1024)": lambda: _build.launch(fn, "add_one", idx, x.data_ptr(),
-                                                       y.data_ptr(), 1024),
-    }
-    for name, f in steps.items():
-        log(f"[warm] host cost {name}: {host_us(f):.3f} us a call (2000 calls)")
 
 
 def brute_bound(rays, tris, n_bytes):
@@ -778,12 +719,12 @@ def main() -> int:
     bench_detail = phase_bench()
     log(f"[done] phase 10 in {time.perf_counter() - t0:.1f}s; all phases in "
         f"{time.perf_counter() - t_start:.1f}s")
-    n_lane, ms_k, ms_p, b_ms, b_by = times["lane_mixed"]
+    n_lane, ms_w, ms_l, ms_p, b_ms, b_by = times["lane_mixed"]
     print(json.dumps({"kernels": [{
         "name": "traverse_wide", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
-        "launches": launches, "max_abs_err": worst_abs, "ms": ms_k, "plain_ms": ms_p,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "launches": launches, "max_abs_err": worst_abs, "ms": ms_w, "plain_ms": ms_p,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "launcher_ms": ms_l,
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,

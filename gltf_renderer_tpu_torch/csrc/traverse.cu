@@ -37,48 +37,19 @@
 //   test their leaves together instead of one branch waiting on the
 //   other; the visit order of each ray is unchanged.
 //
-// Build-time knobs, for the step-by-step timings of
-// gltf_renderer_tpu_torch/tools/bench_traverse.py only (the package builds
-// none of them): TRAVERSE_LOCAL_STACK (a 64-entry per-thread array in local
-// memory), TRAVERSE_SCALAR_LEAF (one scalar load per value),
-// TRAVERSE_DFS_ORDER (child 0 first, whatever its distance),
-// TRAVERSE_IF_LOOP (one node or leaf per loop pass, instead of nodes until
-// the ray holds a leaf), TRAVERSE_LEAF_UNROLL (4-triangle groups of a leaf
-// unrolled, 1, 2 or 4), and the launch shape TRAVERSE_THREADS /
-// TRAVERSE_MIN_BLOCKS.
-//
-// Measured and not kept (PERF.md): entry distances kept on the stack to
-// drop far entries at the pop, and persistent warps that fetch rays from a
-// counter (Aila and Laine, HPG 2009); both were slower at both main-path
-// sizes. Left for later work: a wavefront layout that regroups rays by
-// path, and ray sorting. The TPU kernel's packet union, deferred
-// leaf queue, trash slots, multi-pop, HBM leaf tiles and bf16 boxes are TPU
-// workarounds and are not carried over.
+// Tried and not kept (PERF.md): entry distances kept on the stack to drop
+// far entries at the pop, and persistent warps that fetch rays from a
+// counter (Aila and Laine, HPG 2009). Left for later work: a wavefront
+// layout that regroups rays by path, and ray sorting. The TPU kernel's
+// packet union, deferred leaf queue, trash slots, multi-pop, HBM leaf tiles
+// and bf16 boxes are TPU workarounds and are not carried over.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
-#ifndef TRAVERSE_THREADS
-#define TRAVERSE_THREADS 128
-#endif
-#ifndef TRAVERSE_MIN_BLOCKS
-#define TRAVERSE_MIN_BLOCKS 0
-#endif
-#if TRAVERSE_MIN_BLOCKS > 0
-#define TRAVERSE_BOUNDS __launch_bounds__(TRAVERSE_THREADS, TRAVERSE_MIN_BLOCKS)
-#else
-#define TRAVERSE_BOUNDS __launch_bounds__(TRAVERSE_THREADS)
-#endif
-
-#ifndef TRAVERSE_LEAF_UNROLL
-#define TRAVERSE_LEAF_UNROLL 4
-#endif
-#define PRAGMA(x) _Pragma(#x)
-#define UNROLL(n) PRAGMA(unroll n)
-
+#define THREADS 128  // rays a block
 #define SMEM_LIMIT 232448  // shared memory one block may use on Hopper
-#define LOCAL_STACK 64
 #define LEAF_SIZE 16
 #define REC_GEO (9 * LEAF_SIZE)
 #define WIDE_LEAF_BIT (1 << 30)
@@ -149,21 +120,11 @@ __device__ __forceinline__ bool test_triangle(const float* g, int word, const Ra
 __device__ __forceinline__ bool test_leaf(const float* __restrict__ records,
                                           const int* __restrict__ words, int id,
                                           const Ray& r, Best& b) {
-#ifdef TRAVERSE_SCALAR_LEAF
-    const float* rec = records + (size_t)id * REC_GEO;
-    const int* wrd = words + (size_t)id * LEAF_SIZE;
-    for (int k = 0; k < LEAF_SIZE; ++k) {
-        float g[9];
-#pragma unroll
-        for (int q = 0; q < 9; ++q) g[q] = __ldg(rec + 9 * k + q);
-        if (test_triangle(g, __ldg(wrd + k), r, b)) return true;
-    }
-#else
     // 4 triangles = 36 floats = 9 float4, so every group starts 16-byte
     // aligned in the 576-byte row.
     const float4* rec = reinterpret_cast<const float4*>(records) + (size_t)id * (REC_GEO / 4);
     const int4* wrd = reinterpret_cast<const int4*>(words) + (size_t)id * (LEAF_SIZE / 4);
-    UNROLL(TRAVERSE_LEAF_UNROLL)
+#pragma unroll
     for (int grp = 0; grp < LEAF_SIZE / 4; ++grp) {
         float g[36];
 #pragma unroll
@@ -178,7 +139,6 @@ __device__ __forceinline__ bool test_leaf(const float* __restrict__ records,
             if (test_triangle(g + 9 * k, w[k], r, b)) return true;
         }
     }
-#endif
     return false;
 }
 
@@ -195,13 +155,8 @@ __device__ __forceinline__ void order2(float& ka, int& ia, int& ma, float& kb, i
 // The traversal stack of one thread, in shared memory strided by the block
 // size so that a warp's threads hit different banks.
 struct Stack {
-#ifdef TRAVERSE_LOCAL_STACK
-    int ent[LOCAL_STACK];
-    __device__ __forceinline__ int& at(int k) { return ent[k]; }
-#else
     int* ent;
-    __device__ __forceinline__ int& at(int k) { return ent[k * TRAVERSE_THREADS]; }
-#endif
+    __device__ __forceinline__ int& at(int k) { return ent[k * THREADS]; }
     int sp;
 
     __device__ __forceinline__ void push(int e) { at(sp++) = e; }
@@ -248,13 +203,11 @@ __device__ __forceinline__ int visit_node(const float4* __restrict__ nodes,
         idx[c] = c;
         ent[c] = hit ? ms[c] : -1;
     }
-#ifndef TRAVERSE_DFS_ORDER
     order2(key[0], idx[0], ent[0], key[1], idx[1], ent[1]);
     order2(key[2], idx[2], ent[2], key[3], idx[3], ent[3]);
     order2(key[0], idx[0], ent[0], key[2], idx[2], ent[2]);
     order2(key[1], idx[1], ent[1], key[3], idx[3], ent[3]);
     order2(key[1], idx[1], ent[1], key[2], idx[2], ent[2]);
-#endif
     // Visit order is ent[0], ent[1], ...: push the later ones first and
     // return the first rather than pushing it.
     int next = -1;
@@ -267,12 +220,6 @@ __device__ __forceinline__ int visit_node(const float4* __restrict__ nodes,
     }
     return next;
 }
-
-#ifdef TRAVERSE_IF_LOOP
-#define NODE_LOOP if
-#else
-#define NODE_LOOP while  // visit nodes until the ray holds a leaf
-#endif
 
 // any_mode: 0 = every lane closest, 1 = every lane any-hit, 2 = per lane
 // (mode[i] > 0 marks an any-hit lane).
@@ -304,7 +251,8 @@ __device__ __forceinline__ void trace_ray(
     // t_min < t < t_max, so they retire with a miss at once.
     bool live = r.t_min <= t_cap;
     while (live) {
-        NODE_LOOP (live && (entry & WIDE_LEAF_BIT) == 0) {
+        // Visit nodes until the ray holds a leaf, then test the leaf.
+        while (live && (entry & WIDE_LEAF_BIT) == 0) {
             const int next = visit_node(nodes, meta, entry & WIDE_ID_MASK, r, ix, iy, iz, b.t, st);
             if (next >= 0) entry = next;
             else live = st.pop(entry);
@@ -319,7 +267,7 @@ __device__ __forceinline__ void trace_ray(
     out_word[i] = b.word;
 }
 
-__global__ void TRAVERSE_BOUNDS traverse_wide_kernel(
+__global__ void __launch_bounds__(THREADS) traverse_wide_kernel(
     const float4* __restrict__ nodes,   // (N4, 6) float4 = (N4, 24) f32
     const int4* __restrict__ meta,      // (N4,) int4 = (N4, 4) i32
     const float* __restrict__ records,  // (L, REC_GEO) f32, 16-byte aligned
@@ -332,12 +280,10 @@ __global__ void TRAVERSE_BOUNDS traverse_wide_kernel(
     int n_rays, int root_meta, int any_mode, int cull_sign, int blend_mode,
     float* __restrict__ out_t, float* __restrict__ out_u,
     float* __restrict__ out_v, int* __restrict__ out_word) {
+    extern __shared__ int smem_stack[];  // (stack entries, THREADS)
     Stack st;
-#ifndef TRAVERSE_LOCAL_STACK
-    extern __shared__ int smem_stack[];  // (stack entries, TRAVERSE_THREADS)
     st.ent = smem_stack + threadIdx.x;
-#endif
-    const int i = blockIdx.x * TRAVERSE_THREADS + threadIdx.x;
+    const int i = blockIdx.x * THREADS + threadIdx.x;
     if (i >= n_rays) return;
     trace_ray(i, st, nodes, meta, records, words, origin, direction, t_min_in, t_max_in, mode,
               root_meta, any_mode, cull_sign, blend_mode, out_t, out_u, out_v, out_word);
@@ -350,14 +296,15 @@ int stack_entries(int stack_bound) { return stack_bound > 1 ? stack_bound - 1 : 
 }  // namespace
 
 // Largest stack bound the kernel takes: its stack must fit a block's
-// shared memory (or, built with TRAVERSE_LOCAL_STACK, the local array).
+// shared memory.
 extern "C" int traverse_wide_max_stack() {
-#ifdef TRAVERSE_LOCAL_STACK
-    return LOCAL_STACK + 1;
-#else
-    return SMEM_LIMIT / (TRAVERSE_THREADS * (int)sizeof(int)) + 1;
-#endif
+    return SMEM_LIMIT / (THREADS * (int)sizeof(int)) + 1;
 }
+
+// Version of traverse_wide_launch's argument list, for tools that launch an
+// older build of this file: 2 takes `stack_bound` after `blend_mode`; a
+// library without this symbol is version 1, which does not.
+extern "C" int traverse_wide_abi() { return 2; }
 
 extern "C" int traverse_wide_launch(
     const void* nodes, const void* meta, const void* records, const void* words,
@@ -367,10 +314,7 @@ extern "C" int traverse_wide_launch(
     void* out_word, void* stream) {
     if (stack_bound < 1 || stack_bound > traverse_wide_max_stack()) return (int)cudaErrorInvalidValue;
     if (n_rays <= 0) return (int)cudaGetLastError();
-#ifdef TRAVERSE_LOCAL_STACK
-    const size_t smem = 0;
-#else
-    const size_t smem = (size_t)TRAVERSE_THREADS * stack_entries(stack_bound) * sizeof(int);
+    const size_t smem = (size_t)THREADS * stack_entries(stack_bound) * sizeof(int);
     // Above 48 KB a block's dynamic shared memory must be allowed first.
     static size_t allowed = 48 * 1024;
     if (smem > allowed) {
@@ -379,9 +323,8 @@ extern "C" int traverse_wide_launch(
         if (err != cudaSuccess) return (int)err;
         allowed = smem;
     }
-#endif
-    const int blocks = (n_rays + TRAVERSE_THREADS - 1) / TRAVERSE_THREADS;
-    traverse_wide_kernel<<<blocks, TRAVERSE_THREADS, smem, (cudaStream_t)stream>>>(
+    const int blocks = (n_rays + THREADS - 1) / THREADS;
+    traverse_wide_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
         (const float4*)nodes, (const int4*)meta, (const float*)records,
         (const int*)words, (const float*)origin, (const float*)direction,
         (const float*)t_min, (const float*)t_max, (const int*)mode, n_rays,

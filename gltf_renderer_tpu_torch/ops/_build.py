@@ -15,7 +15,7 @@ builds no ctypes objects and enters no device guard it does not need. It
 reads the current device and stream through torch's raw getters, which
 return ints: `torch.cuda.current_stream()` builds a Stream object on every
 call, which costs more host time than the kernel launch itself
-(chip_smoke's `[warm] host cost` lines).
+(`python -m gltf_renderer_tpu_torch.tools.bench_launch`).
 """
 
 from __future__ import annotations
@@ -49,47 +49,42 @@ def _nvcc() -> str:
     return path
 
 
-def _flags(defines) -> tuple:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(source: str, defines=()) -> str:
+def library_path(source: str) -> str:
     """Path of the shared library built from csrc/<source> (or from the
-    absolute path `source`) with the macros `defines` ("NAME=value")."""
+    absolute path `source`)."""
     with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def load(source: str, defines=()) -> ctypes.CDLL:
-    """Compile csrc/<source> with `defines` if its library is missing, then
-    load it."""
-    key = (source, tuple(defines))
-    if key in _LOADED:
-        return _LOADED[key]
-    lib_path = library_path(source, defines)
+def load(source: str) -> ctypes.CDLL:
+    """Compile csrc/<source> (or the absolute path `source`) if its library
+    is missing, then load it."""
+    if source in _LOADED:
+        return _LOADED[source]
+    lib_path = library_path(source)
     if not os.path.exists(lib_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         proc = subprocess.run(
-            [_nvcc(), *_flags(defines), "-o", tmp, os.path.join(CSRC, source)],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
             capture_output=True, text=True, timeout=600,
         )
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
         os.replace(tmp, lib_path)
-        _REPORTS[key] = [line for line in proc.stderr.splitlines() if "ptxas" in line
+        _REPORTS[source] = [line for line in proc.stderr.splitlines() if "ptxas" in line
                          or "stack frame" in line]
     lib = ctypes.CDLL(lib_path)
-    _LOADED[key] = lib
+    _LOADED[source] = lib
     return lib
 
 
-def ptxas_report(source: str, defines=()) -> list:
+def ptxas_report(source: str) -> list:
     """ptxas's resource lines from this process's build of `source`, or an
     empty list if its library was already built when it was loaded."""
-    return _REPORTS.get((source, tuple(defines)), [])
+    return _REPORTS.get(source, [])
 
 
 def entry(source: str, name: str, argtypes):

@@ -1,62 +1,46 @@
-"""The BVH traversal kernel (csrc/traverse.cu) step by step, on one CUDA card.
+"""The BVH traversal kernel (csrc/traverse.cu) timed at the path tracer's two launch sizes, on one CUDA card.
 
-    python -m gltf_renderer_tpu_torch.tools.bench_traverse [--parent PATH] [--rounds N]
+    python gltf_renderer_tpu_torch/tools/bench_traverse.py [--root DIR] [--parent SRC] [--rounds N]
 
-Builds csrc/traverse.cu once per design step, with the build-time knobs its
-header lists, prints ptxas's report of each build (registers, stack frame,
-spills, shared memory), and times every build in turns at the path
-tracer's two launch sizes on the bench view: 262,144 primary rays and
-524,288 lane-mixed rays (closest bounce rays + any-hit env-shadow rays), the
-ray sets chip_smoke phase 2 uses. Each build is called through its C
-launcher on ready tensors, so a time is the kernel's own, without the
-wrapper's checks. `--parent PATH` adds an older traverse.cu whose launcher
-takes no stack bound (the kernel before the shared-memory stack) as the
-first build. Every build's output is held against the package's build: a
-build that visits children in the same order must give the same t and
-words on every ray; for one whose order differs the rays whose t or word
-differ are counted (an exact tie in t, another first hit of an any-hit
-ray, or a box pruned at an entry distance one rounding away from a hit).
+On the bench view, at 262,144 primary rays and at 524,288 lane-mixed rays
+(closest bounce rays + any-hit env-shadow rays; the ray sets chip_smoke
+phase 2 uses), it times in turns (a, b, b, a, ...; CUDA events, 20 calls a
+timing):
+- `ops.traverse.traverse_wide`, the wrapper the path tracer calls: the time
+  the main path pays a launch, and the kernel table's `ms`;
+- the kernel's C launcher on ready tensors: the kernel alone;
+- with `--parent SRC`, the C launcher of an older traverse.cu, whose hits
+  are compared with this kernel's.
+Then it times the host microseconds a call of the wrapper and of the
+launcher at 1,024 lane rays, where the kernel's work is too small to hide
+them. The last line is one JSON object of these numbers.
+
+`--root DIR` imports the package from DIR in place of this checkout, e.g.
+an older commit unpacked with `git archive`, so that two commits' wrappers
+are timed in one chip call, one process each (parent, change, change,
+parent). Run the file by its path for that, not with `python -m`.
+
+`ray_sets`, `launcher`, `time_in_turns` and `host_us` are shared with
+chip_smoke.py.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import statistics
-from concurrent.futures import ThreadPoolExecutor
+import sys
+import time
 
 import numpy as np
 import torch
 
-from gltf_renderer_tpu_torch.device import card_name_and_power_limit, cuda_ms, resolve
-from gltf_renderer_tpu_torch.ops import _build
-
-SOURCE = "traverse.cu"
-# (step, macros): the first six steps add one design change each, from
-# the parent kernel's design to the package's build ("shipped"); the rest
-# vary one thing of the shipped build.
-STEPS = (
-    ("local stack, scalar leaves, child 0 first",
-     ("TRAVERSE_LOCAL_STACK", "TRAVERSE_SCALAR_LEAF", "TRAVERSE_DFS_ORDER", "TRAVERSE_IF_LOOP")),
-    ("+ shared-memory stack", ("TRAVERSE_SCALAR_LEAF", "TRAVERSE_DFS_ORDER", "TRAVERSE_IF_LOOP")),
-    ("+ float4 leaf rows, 4 a round",
-     ("TRAVERSE_DFS_ORDER", "TRAVERSE_IF_LOOP", "TRAVERSE_LEAF_UNROLL=1")),
-    ("+ nearest child first", ("TRAVERSE_IF_LOOP", "TRAVERSE_LEAF_UNROLL=1")),
-    ("+ while-while loop", ("TRAVERSE_LEAF_UNROLL=1",)),
-    ("+ leaf groups unrolled (shipped)", ()),
-    ("shipped, local stack", ("TRAVERSE_LOCAL_STACK",)),
-    ("shipped, 8-triangle leaf rounds", ("TRAVERSE_LEAF_UNROLL=2",)),
-    ("shipped, 64 threads", ("TRAVERSE_THREADS=64",)),
-    ("shipped, 256 threads", ("TRAVERSE_THREADS=256",)),
-    ("shipped, 128 threads, >= 8 blocks", ("TRAVERSE_MIN_BLOCKS=8",)),
-    ("shipped, 128 threads, >= 12 blocks", ("TRAVERSE_MIN_BLOCKS=12",)),
-)
-# A knob that changes the order in which a ray visits nodes: such a build
-# may differ from the package's on exact ties and any-hit rays.
-ORDER_KNOBS = {"TRAVERSE_DFS_ORDER"}
-SHIPPED = "+ leaf groups unrolled (shipped)"
-PARENT = "parent kernel"
 RAYS_RES = (512, 512)  # 262,144 pixels: one 1080p spp=4 chunk's primary launch
+# Integer arguments of traverse_wide_launch by the version its library
+# reports (traverse_wide_abi; a library without it is version 1): version 2
+# added the tree's stack bound.
+ABI_INTS = {1: 5, 2: 6}
 
 
 def ray_sets(scene, meta, params, c2w, res, device, seed=7):
@@ -95,12 +79,25 @@ def ray_sets(scene, meta, params, c2w, res, device, seed=7):
     ]
 
 
-def launcher(lib, scene, meta, rays, with_stack_bound=True):
-    """A no-argument function that launches `lib`'s traverse_wide_launch on
-    the ray set `rays` (cull 0, blend 0) into fresh outputs, and the
-    outputs (t, word, u, v). with_stack_bound=False for a launcher that
-    takes no stack bound."""
+def wrapper_args(scene, meta, rays):
+    """traverse_wide's positional arguments for the ray set `rays` (cull 0,
+    blend 0)."""
     _, o, d, tmn, tmx, mode = rays
+    return (scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
+            o, d, tmn, tmx, meta.wide_root, "lane" if mode is not None else False, 0, 0, mode)
+
+
+def launcher(lib, scene, meta, rays):
+    """A no-argument function that launches the traverse_wide_launch of the
+    library `lib` (this kernel's or an older one's, its argument list read
+    from traverse_wide_abi) on the ray set `rays` (cull 0, blend 0) into
+    fresh outputs, and the outputs (t, word, u, v)."""
+    import ctypes
+
+    _, o, d, tmn, tmx, mode = rays
+    abi = lib.traverse_wide_abi() if hasattr(lib, "traverse_wide_abi") else 1
+    if abi not in ABI_INTS:
+        raise RuntimeError(f"traverse_wide_launch version {abi} is not known here")
     ins = [x.contiguous() for x in (scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records,
                                     scene.leaf_words, o, d, tmn, tmx)]
     r = o.shape[0]
@@ -108,13 +105,12 @@ def launcher(lib, scene, meta, rays, with_stack_bound=True):
     out_u, out_v = torch.empty_like(out_t), torch.empty_like(out_t)
     out_w = torch.empty(r, dtype=torch.int32, device=o.device)
     fn = lib.traverse_wide_launch
-    fn.argtypes = [_build.VP] * 9 + [_build.CI] * (6 if with_stack_bound else 5) + [_build.VP] * 5
-    fn.restype = _build.CI
-    ints = [r, int(meta.wide_root), 2 if mode is not None else 0, 0, 0]
-    if with_stack_bound:
-        ints.append(int(meta.stack_bound))
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * ABI_INTS[abi]
+                   + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    ints = [r, int(meta.wide_root), 2 if mode is not None else 0, 0, 0, int(meta.stack_bound)]
     args = ([x.data_ptr() for x in ins] + [mode.data_ptr() if mode is not None else None]
-            + ints + [x.data_ptr() for x in (out_t, out_u, out_v, out_w)])
+            + ints[:ABI_INTS[abi]] + [x.data_ptr() for x in (out_t, out_u, out_v, out_w)])
 
     def run():
         rc = fn(*args, torch._C._cuda_getCurrentRawStream(o.get_device()))
@@ -128,6 +124,8 @@ def time_in_turns(fns, rounds: int, reps: int = 20):
     """{name: [ms per call, one per round]}: every function timed with CUDA
     events over `reps` calls, the order reversed every other round (a, b,
     b, a, ...), so drift on the card falls on both sides alike."""
+    from gltf_renderer_tpu_torch.device import cuda_ms
+
     names = list(fns)
     times = {n: [] for n in names}
     for rnd in range(rounds):
@@ -136,59 +134,92 @@ def time_in_turns(fns, rounds: int, reps: int = 20):
     return times
 
 
+def host_us(fn, calls=2000):
+    """Host microseconds per call of fn() over `calls` calls back to back,
+    the queued device work synchronised once at the end."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def identical(a, b):
+    """Bit-identical (same shape, same 32-bit words)."""
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
 def main(device="cuda", parent=None, rounds: int = 4):
-    """Build every step, hold it against the package's build and time all
-    in turns at both sizes. Returns one dict per (build, ray set)."""
+    """Time the wrapper, the launcher and (with `parent`, an older
+    traverse.cu) the parent's launcher in turns at both sizes, then the
+    host cost a call. Returns the numbers as a dict."""
     from gltf_renderer_tpu_torch.bench_scene import build_bench_scene
+    from gltf_renderer_tpu_torch.device import card_name_and_power_limit, resolve
+    from gltf_renderer_tpu_torch.ops import _build
+    from gltf_renderer_tpu_torch.ops import traverse as tr
 
     dev = resolve(device)
     if dev.type != "cuda":
-        raise RuntimeError("bench_traverse times CUDA kernels and needs a CUDA device")
-    print(f"device: {card_name_and_power_limit()}", flush=True)
-    builds = {name: (SOURCE, defines) for name, defines in STEPS}
-    if parent:
-        builds = {PARENT: (os.path.abspath(parent), ())} | builds
-    with ThreadPoolExecutor(len(builds)) as pool:
-        libs = dict(zip(builds, pool.map(lambda b: _build.load(*b), builds.values())))
-    for name, (source, defines) in builds.items():
-        print(f"[ptxas] {name} {' '.join(defines)}", flush=True)
-        for line in _build.ptxas_report(source, defines):
-            print(f"[ptxas]   {line.strip()}", flush=True)
-
+        raise RuntimeError("bench_traverse times a CUDA kernel and needs a CUDA device")
+    card = card_name_and_power_limit()
+    lib = _build.load("traverse.cu")
+    parent_lib = _build.load(os.path.abspath(parent)) if parent else None
     scene, meta, _, params, c2w, _ = build_bench_scene(1920, 1080, device=dev)
     sets = ray_sets(scene, meta, params, c2w, RAYS_RES, dev)
-    print(f"bench tree: stack bound {meta.stack_bound} "
-          f"({4 * max(meta.stack_bound - 1, 1)} bytes of shared memory a thread)", flush=True)
-    rows = []
+    out = {"package": os.path.dirname(os.path.dirname(os.path.abspath(tr.__file__))),
+           "card": card, "stack_bound": int(meta.stack_bound)}
     for rays in (sets[0], sets[2]):
+        args = wrapper_args(scene, meta, rays)
         fns, outs = {}, {}
-        for name, lib in libs.items():
-            fns[name], outs[name] = launcher(lib, scene, meta, rays,
-                                             with_stack_bound=name != PARENT)
-            fns[name]()
+        fns["launcher"], outs["launcher"] = launcher(lib, scene, meta, rays)
+        if parent_lib is not None:
+            fns["parent_launcher"], outs["parent_launcher"] = launcher(parent_lib, scene, meta,
+                                                                       rays)
+        fns["wrapper"] = lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound)
+        for f in fns.values():
+            f()
+        outs["wrapper"] = tr.traverse_wide(*args, stack_bound=meta.stack_bound)
         torch.cuda.synchronize()
-        want = outs[SHIPPED]
+        if not all(identical(a, b) for a, b in zip(outs["wrapper"], outs["launcher"])):
+            raise AssertionError("the wrapper and its C launcher disagree")
         times = time_in_turns(fns, rounds)
-        for name, got in outs.items():
-            t_diff = int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())
-            word_diff = int((got[1] != want[1]).sum())
-            ms = times[name]
-            row = {"build": name, "rays": rays[0], "n": int(rays[1].shape[0]),
-                   "ms_median": statistics.median(ms), "ms_min": min(ms), "ms": ms,
-                   "t_diff": t_diff, "word_diff": word_diff}
-            rows.append(row)
-            print(f"[time] {rays[0]:10s} n={row['n']} {name:36s} median={row['ms_median']:.4f} "
-                  f"ms min={row['ms_min']:.4f} ms rounds={[round(x, 4) for x in ms]} "
-                  f"t_diff={t_diff} word_diff={word_diff}", flush=True)
-            same_order = name != PARENT and not ORDER_KNOBS & set(builds[name][1])
-            if same_order and (t_diff or word_diff):
-                raise AssertionError(f"build {name!r} disagrees with the package's build")
-    return rows
+        row = {"n": int(rays[1].shape[0])}
+        for name, ms in times.items():
+            row[f"{name}_ms"] = ms
+            row[f"{name}_ms_median"] = statistics.median(ms)
+        if parent_lib is not None:
+            p, n = outs["parent_launcher"], outs["launcher"]
+            row["parent_t_differs"] = int((p[0].view(torch.int32) != n[0].view(torch.int32)).sum())
+            row["parent_words_differ"] = int((p[1] != n[1]).sum())
+        out[rays[0]] = row
+        print(f"[time] {rays[0]} n={row['n']} " + " ".join(
+            f"{k}={[round(x, 5) for x in v]} ms" for k, v in times.items()), flush=True)
+
+    name, o, d, tmn, tmx, mode = sets[2]
+    small = (name, o[:1024], d[:1024], tmn[:1024], tmx[:1024], mode[:1024])
+    args = wrapper_args(scene, meta, small)
+    run, _ = launcher(lib, scene, meta, small)
+    out["host_us_1024"] = {
+        "wrapper": host_us(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound)),
+        "launcher": host_us(run)}
+    print(f"[host] 1024 lane rays, 2000 calls: wrapper {out['host_us_1024']['wrapper']:.3f} us "
+          f"a call, C launcher {out['host_us_1024']['launcher']:.3f} us", flush=True)
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+    return out
 
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="an older traverse.cu to time beside the steps")
+    ap.add_argument("--root", help="import the package from this directory")
+    ap.add_argument("--parent", help="an older traverse.cu whose launcher to time in turns")
     ap.add_argument("--rounds", type=int, default=4)
     a = ap.parse_args()
+    if a.root and "gltf_renderer_tpu_torch" in sys.modules:
+        sys.exit("--root needs the file run by its path: the package is already imported")
+    sys.path.insert(0, os.path.abspath(a.root or os.path.join(os.path.dirname(__file__),
+                                                                "..", "..")))
     main(parent=a.parent, rounds=a.rounds)
