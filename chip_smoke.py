@@ -32,6 +32,17 @@ Phases (any failure exits non-zero and prints no result line):
    bloom + AgX -> u8, one warm and three timed frames, then the same with
    raycast visibility; the tile kernel launches once per tiled frame and no
    plain version runs;
+7b. the courtyard (alpha MASK, alpha shadows, punctual lights): the
+   courtyard bench scene built at 1920x1080; the traversal kernel vs its
+   plain version on its tables for primary and lane-mixed rays at the main
+   path's two launch sizes (t, u, v and word identical), timed through its
+   wrapper; the courtyard golden configuration (128x72, two accumulated
+   frames, tone mapped) against tests/goldens/courtyard_pt.png by SSIM (bar
+   0.99); the foliage scene (masked leaf, point light) at 48x48 with alpha
+   shadows on and off, card against CPU at the CPU tests' bar; then the
+   1080p courtyard step, trace_chunked(spp=4), one warm and two timed steps,
+   with every traversal launch accounted for (3 a chunk plus one a retry or
+   alpha-shadow hop) and no plain version run;
 8. brute-force closest-hit kernel (csrc/brute.cu) vs its plain version, key
    and blk bit-identical on the study tool's correctness data, on 16,384
    rays x 49,152 triangles with clipped ray intervals, and on the tool's
@@ -47,7 +58,9 @@ Phases (any failure exits non-zero and prints no result line):
    the launch counters reset;
 10. the port's bench entry point, `python -m gltf_renderer_tpu_torch.bench`,
    as a subprocess at 1920x1080 with BENCH_STEPS=3: one JSON line on
-   stdout with the headline metric > 0, both gates true and raster FPS > 0.
+   stdout with the headline metric > 0, both gates true and raster FPS > 0;
+   then again with BENCH_SCENE=courtyard BENCH_STEPS=2: the courtyard
+   metric > 0 and no NaN/Inf pixel.
 
 Before phase 2 the warm-up kernel (csrc/warm.cu) runs once, as the bench
 runs it first, is held against its plain version and is timed in turns
@@ -72,9 +85,12 @@ from gltf_renderer_tpu_torch.tools import bench_traverse
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "bench_fidelity.npy")
 RASTER_GOLDEN = os.path.join(ROOT, "tests", "goldens", "helmet_raster.png")
+COURTYARD_GOLDEN = os.path.join(ROOT, "tests", "goldens", "courtyard_pt.png")
 FULL_RES = (1920, 1080)
 SPP = 4
 TIMED_STEPS = 3
+COURTYARD_TIMED_STEPS = 2
+FOLIAGE_RES = (48, 48)
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
 REPLACES = "gltf_renderer_tpu/ops/pallas_trace.py:123"
@@ -160,8 +176,6 @@ def compare(scene, meta, rays, cull, blend):
 
 
 def phase_kernel_vs_plain(scene, meta, params, c2w, device):
-    from gltf_renderer_tpu_torch.ops import traverse as tr
-
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, (256, 144), device)
     worst_abs = 0.0
     for rays in sets:
@@ -181,28 +195,39 @@ def phase_kernel_vs_plain(scene, meta, params, c2w, device):
     big = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
     times = {}
     for rays in (big[0], big[2]):
-        frac, max_abs, max_rel, same = compare(scene, meta, rays, 0, 0)
-        log(f"[kernel] {rays[0]:10s} rays={rays[1].shape[0]} word_agree={frac:.6f} "
-            f"max_rel_tuv={max_rel:.3e} identical={same}")
-        if not same:
-            raise AssertionError(f"kernel disagrees with plain version on {rays[0]} (main-path size)")
-        worst_abs = max(worst_abs, max_abs)
-        _, o, d, tmn, tmx, mode = rays
-        args = bench_traverse.wrapper_args(scene, meta, rays)
-        ms_w = cuda_ms(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound), 20)
-        ms_l = launcher_turns(scene, meta, rays)
-        ms_p = cuda_ms(lambda: tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound), 2)
-        visits = {}
-        tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound, visits=visits)
-        n_bytes = nbytes(*args[:8], mode) + 16 * o.shape[0]
-        n_ops = visits["node"] * OPS_NODE_VISIT + visits["leaf"] * OPS_LEAF_VISIT
-        b_ms, b_by = bound(n_bytes, n_ops)
-        times[rays[0]] = (o.shape[0], ms_w, ms_l, ms_p, b_ms, b_by)
-        log(f"[kernel] time {rays[0]} rays={o.shape[0]} kernel={ms_w:.4f} ms "
-            f"(through traverse_wide) launcher={ms_l:.4f} ms plain={ms_p:.3f} ms node_visits={visits['node']} "
-            f"leaf_visits={visits['leaf']} bytes={n_bytes} ops={n_ops} "
-            f"bound={b_ms:.4f} ms ({b_by})")
+        row = k1_main_size(scene, meta, rays, "[kernel]")
+        worst_abs = max(worst_abs, row["max_abs"])
+        row["launcher_ms"] = launcher_turns(scene, meta, rays)
+        times[rays[0]] = row
     return worst_abs, times
+
+
+def k1_main_size(scene, meta, rays, tag):
+    """K1 against its plain version on one main-path-size ray set (t, u, v
+    and word identical, or raise), then timed through its wrapper, the plain
+    version timed, and the bound from the visits this data needs. Returns
+    {n, ms, plain_ms, bound_ms, bound_by, max_abs}."""
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+
+    frac, max_abs, max_rel, same = compare(scene, meta, rays, 0, 0)
+    _, o, d, tmn, tmx, mode = rays
+    log(f"{tag} {rays[0]:10s} rays={o.shape[0]} word_agree={frac:.6f} "
+        f"max_rel_tuv={max_rel:.3e} identical={same}")
+    if not same:
+        raise AssertionError(f"kernel disagrees with plain version on {rays[0]} (main-path size)")
+    args = bench_traverse.wrapper_args(scene, meta, rays)
+    ms_w = cuda_ms(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound), 20)
+    ms_p = cuda_ms(lambda: tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound), 2)
+    visits = {}
+    tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound, visits=visits)
+    n_bytes = nbytes(*args[:8], mode) + 16 * o.shape[0]
+    n_ops = visits["node"] * OPS_NODE_VISIT + visits["leaf"] * OPS_LEAF_VISIT
+    b_ms, b_by = bound(n_bytes, n_ops)
+    log(f"{tag} time {rays[0]} rays={o.shape[0]} kernel={ms_w:.4f} ms (through traverse_wide) "
+        f"plain={ms_p:.3f} ms node_visits={visits['node']} leaf_visits={visits['leaf']} "
+        f"bytes={n_bytes} ops={n_ops} bound={b_ms:.4f} ms ({b_by})")
+    return dict(n=o.shape[0], ms=ms_w, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                max_abs=max_abs)
 
 
 def launcher_turns(scene, meta, rays):
@@ -469,6 +494,130 @@ def phase_raster_frame(scene, meta, params, c2w, card):
     return out
 
 
+def images_match(got, want):
+    """The CPU tests' bar for two renders (tests/test_torch_pathtracer.py):
+    (share of pixels within atol 1e-4 + rtol 1e-3, relative difference of
+    the means, passes: share >= 0.98 and means within 1%)."""
+    close = np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want)
+    frac = float(close.all(-1).mean())
+    rel = abs(float(got.mean()) - float(want.mean())) / max(abs(float(want.mean())), 1e-30)
+    return frac, rel, frac >= 0.98 and rel <= 0.01
+
+
+def phase_courtyard(device, card):
+    """The courtyard bench scene on the card (phase 7b). Returns the
+    traversal kernel's courtyard numbers and the main-path run's counts."""
+    import torch
+
+    from PIL import Image
+
+    from gltf_renderer_tpu_torch.bench_scene import build_bench_scene, render_courtyard_golden
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.utils.ssim import ssim
+
+    t0 = time.perf_counter()
+    scene, meta, settings, params, c2w, n_tris = build_bench_scene(
+        *FULL_RES, device=device, scene_kind="courtyard")
+    log(f"[courtyard] {n_tris} triangles, stack bound {meta.stack_bound}, "
+        f"{scene.wide_nodes.shape[0]} wide nodes, {scene.leaf_records.shape[0]} leaves, "
+        f"has_masked={meta.has_masked}, built in {time.perf_counter() - t0:.2f}s")
+    if not meta.has_masked or n_tris != 273856:
+        raise AssertionError("the courtyard scene is not the bench's")
+
+    # K1 against its plain version on the courtyard's tables, at the main
+    # path's two launch sizes; timed through its wrapper.
+    sets = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
+    k1 = {rays[0]: k1_main_size(scene, meta, rays, "[courtyard] kernel")
+          for rays in (sets[0], sets[2])}
+
+    # The golden configuration, drawn as the renderer draws it.
+    img, stats = render_courtyard_golden(device)
+    golden = np.asarray(Image.open(COURTYARD_GOLDEN))
+    img = img.cpu().numpy()
+    score = ssim(img, golden) if img.shape == golden.shape else 0.0
+    log(f"[courtyard] golden {img.shape[1]}x{img.shape[0]} ssim={score:.5f} "
+        f"(bar {RASTER_SSIM_BAR}) nan_inf={float(stats[1]):.0f}")
+    if score < RASTER_SSIM_BAR or float(stats[1]) != 0.0:
+        raise AssertionError("the courtyard golden fails its bar")
+
+    phase_foliage(device)
+
+    # The 1080p step: every traversal launch is a chunk's primary or merged
+    # bounce launch, or one hop of a retry or alpha-shadow loop.
+    w, h = FULL_RES
+    tr.KERNEL_LAUNCHES = 0
+    pt.ALPHA_RETRY_HOPS = pt.ALPHA_SHADOW_HOPS = 0
+    ref_calls = tr.REFERENCE_CALLS
+    rays = nan = 0.0
+    step_s, hops = [], []
+    img = None
+    for i in range(COURTYARD_TIMED_STEPS + 1):
+        hops0 = (pt.ALPHA_RETRY_HOPS, pt.ALPHA_SHADOW_HOPS)
+        t0 = time.perf_counter()
+        img, st = pt.trace_chunked(scene, meta, settings, params, c2w, (w, h), i,
+                                   with_stats=True, spp=SPP)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        hops.append((pt.ALPHA_RETRY_HOPS - hops0[0], pt.ALPHA_SHADOW_HOPS - hops0[1]))
+        if i:
+            step_s.append(dt)
+            rays += float(st[0])
+        nan += float(st[1])
+    launches = tr.KERNEL_LAUNCHES
+    chunks = -(-pt._tile_order(w, h, img.device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
+    steps = COURTYARD_TIMED_STEPS + 1
+    expected = steps * chunks * (1 + settings.max_bounces) + sum(a + b for a, b in hops)
+    mrays = rays / sum(step_s) / 1e6
+    log(f"[courtyard] main {w}x{h} spp={SPP} steps={[round(x, 4) for x in step_s]} "
+        f"(after one warm) rays={rays:.0f} Mrays/s={mrays:.4f} nan_inf={nan:.0f} "
+        f"traverse_launches={launches} in {steps} steps ({launches / steps:.1f} a step; "
+        f"{chunks * (1 + settings.max_bounces)} a step without hops) "
+        f"retry/shadow hops per step={hops} card={card}")
+    if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()) or nan != 0.0:
+        raise AssertionError("the courtyard step has the wrong shape or non-finite values")
+    if launches != expected or tr.REFERENCE_CALLS != ref_calls:
+        raise AssertionError(f"the courtyard step did not run through the traversal kernel "
+                             f"only: {launches} launches, {expected} expected")
+    if sum(a for a, _ in hops) == 0:
+        raise AssertionError("the courtyard step ran no masked retry")
+    return dict(k1=k1, launches=launches, steps=steps, hops=hops, mrays=mrays, step_s=step_s)
+
+
+def phase_foliage(device):
+    """Foliage (alpha-MASKed leaf, one point light) at 48x48 on the card
+    against the same render on the CPU, alpha shadows on and off."""
+    from gltf_renderer_tpu_torch import camera
+    from gltf_renderer_tpu_torch.bench_scene import world_from_scene
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import settings as S
+    from gltf_renderer_tpu_torch.scene.procedural import foliage_scene
+
+    src = foliage_scene()
+    world, lights = world_from_scene(src)
+    built = {dev: pt.make_pt_scene(world, src.materials, src.textures, lights, device=dev)
+             for dev in ("cpu", device)}
+    c2w = camera.clip_to_world(camera.look_at([0.0, -4.0, 1.0], [0.0, 0.0, -0.5]),
+                               y_fov=np.pi / 3, aspect=1.0, z_near=0.01)
+    for alpha_shadows in (True, False):
+        settings = S.PathTracerSettings(max_bounces=1, min_bounces=1, environment_map=False,
+                                        luminance_clamp_enabled=False,
+                                        alpha_shadows=alpha_shadows)
+        imgs = {}
+        for dev, (scene, meta) in built.items():
+            hops = pt.ALPHA_SHADOW_HOPS
+            img, st = pt.trace(scene, meta, settings, S.PathTracerParams(), c2w, FOLIAGE_RES, 5,
+                               with_stats=True)
+            imgs[str(dev)] = img.cpu().numpy()
+            if (pt.ALPHA_SHADOW_HOPS > hops) != alpha_shadows or float(st[1]) != 0.0:
+                raise AssertionError(f"foliage on {dev}: alpha-shadow hops or NaN wrong")
+        frac, rel, ok = images_match(imgs[str(device)], imgs["cpu"])
+        log(f"[foliage] 48x48 alpha_shadows={alpha_shadows} card vs CPU: "
+            f"{frac:.5f} of pixels within atol 1e-4 + rtol 1e-3, means {rel:.2e} apart")
+        if not ok:
+            raise AssertionError("foliage on the card disagrees with the CPU render")
+
+
 def identical(a, b):
     """Bit-identical (same shape, same 32-bit words)."""
     import torch
@@ -628,12 +777,12 @@ def phase_perlane(device):
                  launches=launches["shuffle_fetch"], **out["shuffle"])]
 
 
-def phase_bench():
+def phase_bench(scene_kind="helmet", steps=3):
     """The port's bench entry point as a user runs it. Returns its detail."""
     import subprocess
 
     env = dict(os.environ, BENCH_WIDTH=str(FULL_RES[0]), BENCH_HEIGHT=str(FULL_RES[1]),
-               BENCH_STEPS="3")
+               BENCH_STEPS=str(steps), BENCH_SCENE=scene_kind)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "gltf_renderer_tpu_torch.bench"], cwd=ROOT,
                           env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
@@ -648,11 +797,13 @@ def phase_bench():
     result = json.loads(lines[0])
     detail = next(json.loads(x)["detail"] for x in reversed(proc.stderr.splitlines())
                   if x.startswith('{"detail"'))
-    log(f"[bench] {wall:.1f}s wall: {lines[0]}")
-    if (result.get("metric") != "pt_mrays_per_s_per_chip_1080p" or not result["value"] > 0
+    log(f"[bench] {scene_kind} {wall:.1f}s wall: {lines[0]}")
+    helmet = scene_kind == "helmet"
+    metric = "pt_mrays_per_s_per_chip_1080p" if helmet else f"pt_mrays_per_s_{scene_kind}_1080p"
+    if (result.get("metric") != metric or not result["value"] > 0
             or detail["gates"]["nan_pixels_zero"] is not True
-            or detail["gates"]["ssim_ge_0995"] is not True
-            or not (detail["raster_fps"] or 0) > 0):
+            or (helmet and (detail["gates"]["ssim_ge_0995"] is not True
+                            or not (detail["raster_fps"] or 0) > 0))):
         raise AssertionError(f"the bench's result fails its checks: {result} {detail}")
     launches = detail["kernel_launches"]
     if launches["add_one"] != 1 or launches["traverse_wide"] <= 0:
@@ -712,19 +863,30 @@ def main() -> int:
     frames = phase_raster_frame(scene, meta, params, c2w, card)
     log(f"[done] phases 1-7 in {time.perf_counter() - t_start:.1f}s")
     t0 = time.perf_counter()
+    court = phase_courtyard(device, card)
+    log(f"[done] phase 7b in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     brute_row = phase_brute(device)
     perlane_rows = phase_perlane(device)
     log(f"[done] phases 8-9 in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     bench_detail = phase_bench()
+    court_detail = phase_bench("courtyard", steps=2)
     log(f"[done] phase 10 in {time.perf_counter() - t0:.1f}s; all phases in "
         f"{time.perf_counter() - t_start:.1f}s")
-    n_lane, ms_w, ms_l, ms_p, b_ms, b_by = times["lane_mixed"]
+    log(f"[courtyard] bench alpha hops {court_detail['alpha_hops']}, traversal launches "
+        f"{court_detail['kernel_launches']['traverse_wide']}")
+    lane = times["lane_mixed"]
+    c_lane = court["k1"]["lane_mixed"]
     print(json.dumps({"kernels": [{
         "name": "traverse_wide", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
-        "launches": launches, "max_abs_err": worst_abs, "ms": ms_w, "plain_ms": ms_p,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "launcher_ms": ms_l,
+        "launches": launches + court["launches"],
+        "max_abs_err": max(worst_abs, *(x["max_abs"] for x in court["k1"].values())),
+        "ms": lane["ms"], "plain_ms": lane["plain_ms"], "bound_ms": lane["bound_ms"],
+        "bound_by": lane["bound_by"], "library_ms": None, "launcher_ms": lane["launcher_ms"],
+        "courtyard_ms": c_lane["ms"], "courtyard_plain_ms": c_lane["plain_ms"],
+        "courtyard_bound_ms": c_lane["bound_ms"], "courtyard_bound_by": c_lane["bound_by"],
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,

@@ -1,10 +1,20 @@
-"""The bench and raster-fidelity configurations, built without JAX.
+"""The bench, golden and raster-fidelity configurations, built without JAX.
 
-`build_bench_scene` mirrors bench.py:23-125 for the helmet scene: the
+`build_bench_scene` mirrors bench.py:23-125. `scene_kind="helmet"`: the
 DamagedHelmet-class textured sphere (~49k triangles, one 512^2 base-colour
-texture, metallic 0.3 / roughness 0.45), the analytic HDR sky at cube size
-128, env NEE + MIS with 2 bounces and the luminance clamp, and the bench
-camera. The same scene feeds the raster frame at 1080p.
+texture, metallic 0.3 / roughness 0.45) seen from (1.1, -1.1, 0.6); the same
+scene feeds the raster frame at 1080p. `"courtyard"` / `"courtyard2"`: the
+Sponza-class courtyard at density 1 / 2 (273,856 / ~1.1M triangles, five
+materials, alpha-MASKed banners) seen down the colonnade from
+(-9, 0, 1.7), with alpha shadows on. Both: the analytic HDR sky at cube
+size 128, env NEE + MIS with 2 bounces and the luminance clamp. The
+courtyard skips the raster-only environment prefilters.
+
+`render_courtyard_golden` is the courtyard golden configuration
+(tests/golden_configs.py::render_courtyard_pt, golden
+tests/goldens/courtyard_pt.png): 128x72, tex_size 64, alpha shadows, the
+32x64 analytic environment, two frames (seeds 0 and 1) accumulated and
+tone-mapped as `Renderer.draw_frame` does.
 
 `build_raster_fidelity_scene` is the helmet-raster golden configuration
 (tests/golden_configs.py::render_helmet_raster, golden
@@ -21,11 +31,13 @@ from gltf_renderer_tpu_torch.env.environment import DIFFUSE_RESOLUTION, build_en
 from gltf_renderer_tpu_torch.render import pathtracer as pt
 from gltf_renderer_tpu_torch.render import settings as S
 from gltf_renderer_tpu_torch.scene import flatten
-from gltf_renderer_tpu_torch.scene.procedural import textured_sphere_scene
+from gltf_renderer_tpu_torch.scene.procedural import courtyard_scene, textured_sphere_scene
 
 FIDELITY_RES = (256, 144)  # bench.FIDELITY_RES
 FIDELITY_SPP = 32          # bench.FIDELITY_SPP: seeds 1..32 averaged
 RASTER_FIDELITY_RES = (192, 108)  # golden_configs.render_helmet_raster
+COURTYARD_GOLDEN_RES = (128, 72)   # golden_configs.render_courtyard_pt
+SCENE_KINDS = ("helmet", "courtyard", "courtyard2")
 
 
 def analytic_sky(h: int = 256, w: int = 512) -> np.ndarray:
@@ -55,28 +67,41 @@ def world_from_scene(scene):
     return world, flatten.gather_lights(scene, tf)
 
 
-def bench_camera(width: int, height: int) -> np.ndarray:
-    """clip_to_world of the bench camera (eye (1.1, -1.1, 0.6) at origin)."""
-    return camera.clip_to_world(camera.look_at([1.1, -1.1, 0.6], [0.0, 0.0, 0.0]),
-                                y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
+def bench_camera(width: int, height: int, scene_kind: str = "helmet") -> np.ndarray:
+    """clip_to_world of the bench camera: eye (1.1, -1.1, 0.6) at the
+    origin (helmet), or down the courtyard's colonnade."""
+    if scene_kind.startswith("courtyard"):
+        w2v = camera.look_at([-9.0, 0.0, 1.7], [1.0, 0.0, 1.6])
+    else:
+        w2v = camera.look_at([1.1, -1.1, 0.6], [0.0, 0.0, 0.0])
+    return camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
 
 
-def build_bench_scene(width: int, height: int, device="cuda", tex_size: int = 512,
-                      n_lat: int = 128, n_lon: int = 192, sky_hw=(256, 512),
-                      cube_size: int = 128, diffuse_size: int = DIFFUSE_RESOLUTION):
+def build_bench_scene(width: int, height: int, device="cuda", scene_kind: str = "helmet",
+                      tex_size: int = None, n_lat: int = 128, n_lon: int = 192,
+                      sky_hw=(256, 512), cube_size: int = 128,
+                      diffuse_size: int = DIFFUSE_RESOLUTION):
     """Bench scene + camera on `device`. The keyword sizes default to the
-    bench's; tests pass smaller ones. Returns
+    bench's (tex_size: 512 for the helmet, 256 for the courtyard; n_lat and
+    n_lon shape the helmet only); tests pass smaller ones. Returns
     (ptscene, meta, settings, params, clip_to_world, n_tris)."""
-    scene = textured_sphere_scene(tex_size=tex_size, n_lat=n_lat, n_lon=n_lon,
-                                  metallic=0.3, roughness=0.45)
+    if scene_kind not in SCENE_KINDS:
+        raise ValueError(f"unknown bench scene {scene_kind!r}, expected one of {SCENE_KINDS}")
+    courtyard = scene_kind.startswith("courtyard")
+    if courtyard:
+        scene = courtyard_scene(density=2 if scene_kind == "courtyard2" else 1,
+                                tex_size=256 if tex_size is None else tex_size)
+    else:
+        scene = textured_sphere_scene(tex_size=512 if tex_size is None else tex_size,
+                                      n_lat=n_lat, n_lon=n_lon, metallic=0.3, roughness=0.45)
     world, lights = world_from_scene(scene)
     env = build_environment_pt(analytic_sky(*sky_hw), cube_size=cube_size, device=device,
-                               diffuse_size=diffuse_size)
+                               diffuse_size=diffuse_size, prefilters=not courtyard)
     ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
                                      device=device)
-    settings = S.PathTracerSettings(max_bounces=2, min_bounces=2, alpha_shadows=False)
-    return (ptscene, meta, settings, S.PathTracerParams(), bench_camera(width, height),
-            int(world.tri_vertex.shape[0]))
+    settings = S.PathTracerSettings(max_bounces=2, min_bounces=2, alpha_shadows=courtyard)
+    return (ptscene, meta, settings, S.PathTracerParams(),
+            bench_camera(width, height, scene_kind), int(world.tri_vertex.shape[0]))
 
 
 def analytic_equirect(h: int = 32, w: int = 64) -> np.ndarray:
@@ -109,3 +134,34 @@ def build_raster_fidelity_scene(device="cuda", diffuse_size: int = DIFFUSE_RESOL
     c2w, cam_pos = raster_camera([1.2, -1.2, 0.8], w, h)
     rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
     return ptscene, meta, rs, S.PathTracerParams(), c2w, cam_pos, (w, h)
+
+
+def render_courtyard_golden(device="cuda", frames: int = 2):
+    """The courtyard golden configuration drawn as `Renderer.draw_frame`
+    draws it: per frame k, trace with seed k, accumulate into the running
+    mean, tone map (AgX, no bloom: bloom is raster-only) with frame index k
+    as the dither's, -> u8. Returns ((h, w, 3) uint8 of the last frame,
+    the summed [ray_count, nan_count] of the traces)."""
+    import torch
+
+    from gltf_renderer_tpu_torch.render import renderer
+
+    w, h = COURTYARD_GOLDEN_RES
+    scene = courtyard_scene(tex_size=64)
+    world, lights = world_from_scene(scene)
+    env = build_environment_pt(analytic_equirect(), device=device, prefilters=False)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    rs = S.RenderSettings(width=w, height=h,
+                          pt=S.PathTracerSettings(max_bounces=2, min_bounces=2,
+                                                  alpha_shadows=True))
+    c2w = bench_camera(w, h, "courtyard")
+    accum, stats, img = None, 0.0, None
+    for k in range(frames):
+        radiance, st = pt.trace(ptscene, meta, rs.pt, S.PathTracerParams(), c2w, (w, h), k,
+                                with_stats=True)
+        accum = radiance if accum is None else pt.accumulate(
+            accum, radiance, torch.tensor(k, device=radiance.device), rs.pt)
+        stats = stats + st
+        img = renderer.post_step(accum, rs.tonemap, None, k)
+    return img, stats

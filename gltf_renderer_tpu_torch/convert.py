@@ -59,7 +59,7 @@ def from_jax_pt_scene(scene_np, meta, device="cuda"):
                                    atlas_linear=_tensor(textures.atlas_linear, dev),
                                    mip_flat=_tensor(textures.mip_flat, dev),
                                    mip_rows=_tensor(textures.mip_rows, dev)),
-        lights=_fields(T.GpuLights, scene_np.lights, np.asarray),
+        lights=_fields(T.GpuLights, scene_np.lights, lambda v: _tensor(v, dev)),
         env=port_env,
         wide_nodes=_tensor(scene_np.wide_nodes, dev),
         wide_maps=bvh_ops.WideMaps(child_src=np.asarray(maps.child_src),

@@ -242,11 +242,14 @@ def build_diffuse_cube(cube_mips: List[Any], size: int = DIFFUSE_RESOLUTION,
 
 
 def build_environment_pt(equirect, cube_size: int = None, device="cuda",
-                         diffuse_size: int = DIFFUSE_RESOLUTION) -> EnvMaps:
+                         diffuse_size: int = DIFFUSE_RESOLUTION,
+                         prefilters: bool = True) -> EnvMaps:
     """Every environment table, built on `device`: cube level 0, the
     importance pyramid, the alias rows (host-built), the source equirect,
     and the GGX and diffuse prefiltered cubes. diffuse_size is the
-    reference's 256 unless a caller (a test) asks for less."""
+    reference's 256 unless a caller (a test) asks for less. With
+    prefilters=False the two prefiltered cubes, which only the raster
+    backend samples, are not built (ggx [], diffuse None)."""
     dev = resolve(device)
     eq = torch.as_tensor(np.asarray(equirect, np.float32), device=dev)
     if cube_size is None:
@@ -259,6 +262,9 @@ def build_environment_pt(equirect, cube_size: int = None, device="cuda",
     importance = build_importance_map(cube_mips)
     alias_rows = torch.as_tensor(
         sampling.build_alias_rows(importance[0].cpu().numpy()), device=dev)
+    if not prefilters:
+        return EnvMaps(cube=[cube_mips[0]], importance=importance, equirect=eq,
+                       alias_rows=alias_rows, ggx=[], diffuse=None)
     return EnvMaps(cube=[cube_mips[0]], importance=importance, equirect=eq,
                    alias_rows=alias_rows, ggx=build_ggx_cube(cube_mips),
                    diffuse=build_diffuse_cube(cube_mips, size=diffuse_size))

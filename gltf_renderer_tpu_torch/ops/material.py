@@ -153,6 +153,19 @@ def sample_slots_fused(row, textures, slots, uv0, uv1, used_slots, identity_uv=F
     return {s: (out[i], presf[i, ..., 0]) for i, s in enumerate(slots)}
 
 
+def get_base_color_row(row, textures, uv0, uv1, vertex_color, used_slots=ALL_SLOTS,
+                       identity_uv=False, wrap_modes=(0, 1, 2), any_nearest=True):
+    """Material.hlsli GetBaseColor:98-106 on compact rows: factor x vertex
+    colour x the base-colour texture at level 0 of the linear atlas."""
+    base = row[:, 0:4] * vertex_color
+    if T.TEX_ALBEDO not in used_slots:
+        return base
+    rgba, _ = sample_slots_fused(row, textures, (T.TEX_ALBEDO,), uv0, uv1, used_slots,
+                                 identity_uv=identity_uv, wrap_modes=wrap_modes,
+                                 any_nearest=any_nearest)[T.TEX_ALBEDO]
+    return base * rgba
+
+
 def get_alpha_row(row, base_color):
     """Material.hlsli GetAlpha:108-117 on the packed row."""
     mode = _bits(row[:, 33])

@@ -170,9 +170,14 @@ def sample_atlas(atlas_linear, atlas_w: int, atlas_h: int, trow, uv, wrap_modes=
         tx = torch.where(is_near.unsqueeze(-1), torch.zeros_like(tx), tx)
         ty = torch.where(is_near.unsqueeze(-1), torch.zeros_like(ty), ty)
 
+    # Absent textures (all-zero metadata rows, masked by the caller) wrap
+    # over one texel, not zero: an integer remainder by zero raises on the CPU.
+    w1 = torch.clamp(w, min=1)
+    h1 = torch.clamp(h, min=1)
+
     def flat_idx(xi, yi):
-        xi = torch.clamp(_wrap(xi, w, ws, wrap_modes) + ox, 0, atlas_w - 1)
-        yi = torch.clamp(_wrap(yi, h, wt, wrap_modes) + oy, 0, atlas_h - 1)
+        xi = torch.clamp(_wrap(xi, w1, ws, wrap_modes) + ox, 0, atlas_w - 1)
+        yi = torch.clamp(_wrap(yi, h1, wt, wrap_modes) + oy, 0, atlas_h - 1)
         return yi * atlas_w + xi
 
     idx = torch.stack([flat_idx(x0, y0), flat_idx(x0 + 1, y0),

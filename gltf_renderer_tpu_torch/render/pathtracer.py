@@ -6,13 +6,22 @@ the order GenerateNextRandom is called (PathTracer.lib.hlsl:144-148).
 Every ray the tracer casts goes through ops.traverse.traverse_wide: the CUDA
 kernel for tensors on the card, the plain version for tensors on the CPU.
 
-Ported here: the bench configuration's main path — environment NEE + MIS,
-the metallic-roughness BSDF (GGX + Lambert + Fresnel mix), Russian
+Ported here: the path tracer without its BSDF extension layers —
+environment NEE + MIS, punctual-light NEE (point, spot, directional; the
+binary light shadow rays merged into the bounce launch), the
+metallic-roughness BSDF (GGX + Lambert + Fresnel mix), alpha MASK
+(any-hit rejection by re-traversal past a rejected hit, MAX_ALPHA_HOPS) and
+BLEND (the stochastic alpha layer), alpha shadows (transmission as the
+product of 1 - alpha over the closest hits, MAX_SHADOW_HOPS), Russian
 roulette, the merged bounce + shadow launch, the NaN/Inf scrub and the
-luminance clamp. Scenes that need what is not ported yet (sheen, clearcoat,
-transmission, alpha MASK/BLEND, punctual lights) and settings outside the
-bench's (debug channels, diffuse-white, non-MIS sampling) raise
+luminance clamp. Scenes with sheen, clearcoat or transmission, and settings
+outside these (debug channels, diffuse-white, non-MIS sampling) raise
 NotImplementedError rather than render wrong.
+
+The two hop loops stop when no lane is left to retry, read as one scalar
+on the host per hop, or at their bound. ALPHA_RETRY_HOPS and
+ALPHA_SHADOW_HOPS count the hops they run: each hop is one more
+traverse_wide launch.
 """
 
 from __future__ import annotations
@@ -27,7 +36,14 @@ from gltf_renderer_tpu_torch.env import environment as env_ops
 from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
 from gltf_renderer_tpu_torch.ops import rng, sampling
 from gltf_renderer_tpu_torch.ops.bsdf import SurfaceProperties, gltf_bsdf
-from gltf_renderer_tpu_torch.ops.material import compact_material_rows, get_surface_properties
+from gltf_renderer_tpu_torch.ops.lights import sample_point_light
+from gltf_renderer_tpu_torch.ops.material import (
+    _bits,
+    compact_material_rows,
+    get_alpha_row,
+    get_base_color_row,
+    get_surface_properties,
+)
 from gltf_renderer_tpu_torch.ops.texture import build_atlas_mips, decode_atlas_linear
 from gltf_renderer_tpu_torch.ops.traverse import traverse_wide
 from gltf_renderer_tpu_torch.render import settings as S
@@ -56,6 +72,11 @@ from gltf_renderer_tpu_torch.utils.math import (
 RAY_CHUNK = 262144
 PACKET_TILE = 32  # pixels per tile side of the primary-ray emission order
 SEED_STRIDE = 0x9E3779B9  # per-sample seed step of trace_chunked(spp > 1)
+MAX_ALPHA_HOPS = 8    # re-traversals past rejected alpha-masked hits
+MAX_SHADOW_HOPS = 16  # closest hits an alpha shadow ray passes through
+
+ALPHA_RETRY_HOPS = 0   # hops run by the masked-retry loops
+ALPHA_SHADOW_HOPS = 0  # hops run by the alpha-shadow loops
 
 
 class PTScene(NamedTuple):
@@ -107,10 +128,8 @@ class Hit(NamedTuple):
 
 def check_supported(meta: PTMeta) -> None:
     """Raise NotImplementedError for scene features not ported yet."""
-    missing = [name for name in ("has_sheen", "has_clearcoat", "has_transmission",
-                                 "has_masked", "has_blend") if getattr(meta, name)]
-    if meta.num_lights > 0:
-        missing.append("punctual lights")
+    missing = [name for name in ("has_sheen", "has_clearcoat", "has_transmission")
+               if getattr(meta, name)]
     if missing:
         raise NotImplementedError(f"the torch path tracer does not support {missing} yet")
 
@@ -223,7 +242,7 @@ def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
                 textures.mip_flat, device=dev),
             mip_rows=None if textures.mip_rows is None else torch.as_tensor(
                 textures.mip_rows, device=dev)),
-        lights=lights,
+        lights=_to_device(lights, dev),
         env=env,
         wide_nodes=torch.as_tensor(bvh_ops.assemble_wide(packed.nodes, maps.child_src),
                                    device=dev),
@@ -377,27 +396,113 @@ def closest_hit(scene, meta, origin, direction, t_min, t_max, blend_mode=0, cull
                      cull_sign=cull_sign, blend_mode=blend_mode)
 
 
+def _hit_base_alpha(scene: PTScene, meta: PTMeta, tri, u, v):
+    """(base colour alpha, compact material row) at (tri, u, v) hits
+    (AnyHit's alpha test, PathTracer.lib.hlsl:1010-1035)."""
+    row = scene.world.tri_attr_rows[torch.clamp(tri, min=0).long()]
+    r0, r1, r2 = row[:, 0:20], row[:, 20:40], row[:, 40:60]
+    mat = _bits(row[:, 60])
+    fbits = _bits(row[:, 61])
+    w0 = (1.0 - u - v).unsqueeze(-1)
+    w1 = u.unsqueeze(-1)
+    w2 = v.unsqueeze(-1)
+
+    def interp(a, b):
+        return w0 * r0[:, a:b] + w1 * r1[:, a:b] + w2 * r2[:, a:b]
+
+    def flag(bit):
+        return ((fbits & bit) != 0).unsqueeze(-1)
+
+    col = torch.where(flag(TRI_HAS_COLOR), interp(14, 18), torch.ones_like(r0[:, 14:18]))
+    uv0 = torch.where(flag(TRI_HAS_UV0), interp(10, 12), torch.zeros_like(r0[:, 10:12]))
+    uv1 = torch.where(flag(TRI_HAS_UV1), interp(12, 14), torch.zeros_like(r0[:, 12:14]))
+    mrow = scene.materials.rows[mat.long()]
+    base = get_base_color_row(mrow, scene.textures, uv0, uv1, col, used_slots=meta.used_slots,
+                              identity_uv=meta.identity_uv, wrap_modes=meta.wrap_modes,
+                              any_nearest=meta.any_nearest)
+    return base[..., 3], mrow
+
+
+def _needs_alpha_retry(scene: PTScene, meta: PTMeta, hit: Hit):
+    """Lanes whose hit is an alpha-masked texel below the cutoff."""
+    alpha, mrow = _hit_base_alpha(scene, meta, hit.tri, hit.u, hit.v)
+    is_mask = _bits(mrow[:, 33]) == T.ALPHA_MODE_MASK
+    return (hit.tri >= 0) & is_mask & (alpha < mrow[:, 10])
+
+
+def _alpha_retry(scene: PTScene, meta: PTMeta, hit: Hit, origin, direction, t_min, t_max,
+                 cull_sign) -> Hit:
+    """IgnoreHit for alpha-masked texels (PathTracer.lib.hlsl:1030-1034):
+    re-traverse the lanes that need it from just past their rejected hit,
+    at most MAX_ALPHA_HOPS times. Lanes that are done keep their hit and
+    trace with a collapsed interval."""
+    global ALPHA_RETRY_HOPS
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=origin.device),
+                               hit.t.shape)
+    tmin_cur = torch.broadcast_to(torch.as_tensor(t_min, dtype=torch.float32,
+                                                  device=origin.device), hit.t.shape)
+    need = _needs_alpha_retry(scene, meta, hit)
+    for _ in range(MAX_ALPHA_HOPS):
+        if not bool(need.any()):
+            break
+        ALPHA_RETRY_HOPS += 1
+        tmin_cur = torch.where(need, hit.t * (1.0 + 1e-5) + 1e-6, tmin_cur)
+        eff_tmin = torch.where(need, tmin_cur, t_max + 1.0)
+        nh = closest_hit(scene, meta, origin, direction, eff_tmin, t_max, cull_sign=cull_sign)
+        hit = Hit(*(torch.where(need, n, c) for n, c in zip(nh, hit)))
+        need = _needs_alpha_retry(scene, meta, hit) & need
+    return hit
+
+
 def trace_closest(scene, meta, origin, direction, t_min, t_max, cull_sign=0) -> Hit:
-    """Closest hit. (Alpha-masked rejection is not ported: make_pt_scene
-    refuses scenes with MASK materials.)"""
-    return closest_hit(scene, meta, origin, direction, t_min, t_max, cull_sign=cull_sign)
+    """Closest hit honouring alpha-mask any-hit rejection."""
+    hit = closest_hit(scene, meta, origin, direction, t_min, t_max, cull_sign=cull_sign)
+    if not meta.has_masked:
+        return hit
+    return _alpha_retry(scene, meta, hit, origin, direction, t_min, t_max, cull_sign)
 
 
-def trace_shadow(scene, meta, origin, direction, t_max, active=None):
-    """TraceShadowRay, binary mode (ACCEPT_FIRST_HIT, ShadowAnyHit:1053-1079):
-    any geometry occludes. Returns transmission (R,) exactly 0 or 1."""
+def trace_shadow(scene, meta, origin, direction, t_max, alpha_shadow: bool = False,
+                 active=None):
+    """TraceShadowRay (PathTracer.lib.hlsl:724-742). Returns transmission (R,).
+
+    Binary mode (ACCEPT_FIRST_HIT, ShadowAnyHit:1053-1079): any geometry
+    occludes, alpha-masked texels included; exactly 0 or 1. Alpha mode:
+    the product of 1 - alpha over the closest hits along the ray until it
+    reaches 0, at most MAX_SHADOW_HOPS hits. A scene without MASK or BLEND
+    materials takes binary mode: there the first hit is opaque."""
+    global ALPHA_SHADOW_HOPS
     t_min = torch.zeros(origin.shape[0], dtype=torch.float32, device=origin.device)
     act_f = torch.ones_like(t_min) if active is None else active.to(torch.float32)
-    eff_tmin = t_min * act_f + (t_max + 1.0) * (1.0 - act_f)
-    hit = _traverse(scene, meta, origin, direction, eff_tmin, t_max, any_hit=True)
-    return (hit.tri < 0).to(torch.float32)
+    if not (alpha_shadow and meta.has_alpha_layer):
+        eff_tmin = t_min * act_f + (t_max + 1.0) * (1.0 - act_f)
+        hit = _traverse(scene, meta, origin, direction, eff_tmin, t_max, any_hit=True)
+        return (hit.tri < 0).to(torch.float32)
+    alive = act_f > 0.0
+    trans = torch.ones_like(t_min)
+    tmin_cur = t_min
+    for _ in range(MAX_SHADOW_HOPS):
+        if not bool(alive.any()):
+            break
+        ALPHA_SHADOW_HOPS += 1
+        eff_tmin = torch.where(alive, tmin_cur, t_max + 1.0)
+        hit = closest_hit(scene, meta, origin, direction, eff_tmin, t_max)
+        hit_valid = (hit.tri >= 0) & alive
+        alpha, mrow = _hit_base_alpha(scene, meta, hit.tri, hit.u, hit.v)
+        a = get_alpha_row(mrow, alpha.unsqueeze(-1).expand(-1, 4))
+        trans = torch.where(hit_valid, trans * (1.0 - a), trans)
+        alive = hit_valid & (trans > 0.0)
+        tmin_cur = torch.where(alive, hit.t * (1.0 + 1e-5) + 1e-6, tmin_cur)
+    return trans
 
 
 def trace_bounce_and_shadow(scene, meta, o_b, d_b, tmin_b, tmax_b, o_s, d_s, tmin_s, tmax_s,
                             cull_sign=0, trace_bounce=True):
     """ONE merged launch for the next-bounce closest rays and the binary
     shadow rays born at the same hit points (lane mode: closest lanes first,
-    any-hit lanes after). Returns (bounce Hit, shadow transmission)."""
+    any-hit lanes after; r env-NEE lanes, or 2r with the punctual-light
+    lanes behind them). The bounce half then runs the masked-alpha retry.
+    Returns (bounce Hit, shadow transmission)."""
     r = o_b.shape[0]
     if not trace_bounce:
         hit = Hit(t=torch.broadcast_to(tmax_b, (r,)),
@@ -415,6 +520,8 @@ def trace_bounce_and_shadow(scene, meta, o_b, d_b, tmin_b, tmax_b, o_s, d_s, tmi
     hit2 = _traverse(scene, meta, origin, direction, t_min, t_max, any_hit="lane",
                      cull_sign=cull_sign, mode=lane_mode)
     hit = Hit(t=hit2.t[:r], tri=hit2.tri[:r], u=hit2.u[:r], v=hit2.v[:r])
+    if meta.has_masked:
+        hit = _alpha_retry(scene, meta, hit, o_b, d_b, tmin_b, tmax_b, cull_sign)
     return hit, (hit2.tri[r:] < 0).to(torch.float32)
 
 
@@ -658,6 +765,11 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
     zero3 = torch.zeros((), dtype=torch.float32, device=dev)
 
     nee_env = settings.environment_map and settings.environment_mis
+    nee_lights = settings.point_lights and meta.num_lights > 0
+    # Binary light shadows ride the merged bounce launch (see below).
+    merge_light_shadow = (nee_lights and settings.shadow_rays
+                          and settings.merged_light_dispatch
+                          and not (settings.alpha_shadows and meta.has_alpha_layer))
     primary_cull = 1 if settings.cull_backface else 0
     bounce_cull = -1 if settings.cull_backface else 0
 
@@ -715,6 +827,35 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
             nee_pending = (ray_origin, l_dir,
                            torch.where(ok.unsqueeze(-1), prefix * contrib, zero3), s_active)
 
+        # Punctual-light NEE (ClosestHit:944-956). With binary shadows and a
+        # bounce launch to follow, the light's shadow rays ride that merged
+        # launch; the contribution is added after it, light before env, the
+        # order of the unmerged path.
+        light_pending = None
+        if nee_lights:
+            u_l = rand4()[..., 0]
+            light_ray, l_pdf = sample_point_light(scene.lights, meta.num_lights,
+                                                  origin + direction * hit.t.unsqueeze(-1), u_l)
+            l_col = light_ray.color
+            merged = merge_light_shadow and bounce < settings.max_bounces
+            if settings.shadow_rays and not merged:
+                shadow = trace_shadow(scene, meta, ray_origin, light_ray.direction,
+                                      full(params.max_ray_length),
+                                      alpha_shadow=settings.alpha_shadows, active=alive)
+                ray_count = ray_count + torch.sum(alive.to(torch.float32))
+                l_col = l_col * shadow.unsqueeze(-1)
+            f, _ = evaluate_bsdf(sp, attrs.geometric_normal, view, light_ray.direction,
+                                 settings, meta)
+            ok = alive & torch.any(l_col > 0.0, -1)
+            l_contrib = torch.where(ok.unsqueeze(-1), prefix * (l_col * f) / l_pdf, zero3)
+            if merged:
+                # Zero-contribution lanes trace dead, as the env lanes do.
+                light_pending = (ray_origin, light_ray.direction, l_contrib,
+                                 ok & torch.any(f > 0.0, -1))
+                ray_count = ray_count + torch.sum(alive.to(torch.float32))
+            else:
+                radiance = radiance + l_contrib
+
         # Bounce (ClosestHit:958-1006).
         if bounce < settings.max_bounces:
             u3 = rand4()[..., 0:3]
@@ -742,15 +883,21 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
 
             eff_tmin = torch.where(alive, full(0.0), t_max + 1.0)
             trace_bounce = not settings.indirect_environment_only
-            if nee_pending is not None:
-                s_tmax = full(params.max_ray_length)
-                s_tmin = torch.where(nee_pending[3], full(0.0), s_tmax + 1.0)
+            sets = [x for x in (nee_pending, light_pending) if x is not None]
+            if sets:
+                s_tmax1 = full(params.max_ray_length)
+                s_tmin = torch.cat([torch.where(x[3], full(0.0), s_tmax1 + 1.0) for x in sets])
                 hit, shadow = trace_bounce_and_shadow(
                     scene, meta, origin, direction, eff_tmin, t_max,
-                    nee_pending[0], nee_pending[1], s_tmin, s_tmax,
+                    torch.cat([x[0] for x in sets]), torch.cat([x[1] for x in sets]),
+                    s_tmin, torch.cat([s_tmax1] * len(sets)),
                     cull_sign=bounce_cull, trace_bounce=trace_bounce)
-                radiance = radiance + nee_pending[2] * shadow.unsqueeze(-1)
-                ray_count = ray_count + torch.sum(nee_pending[3].to(torch.float32))
+                if light_pending is not None:
+                    l_trans = shadow[n_rays * (len(sets) - 1):]
+                    radiance = radiance + light_pending[2] * l_trans.unsqueeze(-1)
+                if nee_pending is not None:
+                    radiance = radiance + nee_pending[2] * shadow[:n_rays].unsqueeze(-1)
+                    ray_count = ray_count + torch.sum(nee_pending[3].to(torch.float32))
             elif trace_bounce:
                 hit = trace_closest(scene, meta, origin, direction, eff_tmin, t_max,
                                     cull_sign=bounce_cull)

@@ -37,6 +37,9 @@ class PathTracerSettings:
     min_bounces: int = 2
     max_bounces: int = 2
     debug_output: int = DEBUG_NONE
+    # Binary punctual-light shadow rays ride the merged bounce + env-shadow
+    # launch instead of their own any-hit launch (same image).
+    merged_light_dispatch: bool = True
 
 
 class PathTracerParams(NamedTuple):

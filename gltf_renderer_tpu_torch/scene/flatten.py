@@ -170,17 +170,23 @@ def plan_tri_flags(plan, primitives) -> dict:
     )
 
 
-def _matvec3(m, v):
-    """(V, 3, 3) @ (V, 3) -> (V, 3), each row summed in index order."""
-    return np.stack([
-        m[:, i, 0] * v[:, 0] + m[:, i, 1] * v[:, 1] + m[:, i, 2] * v[:, 2]
-        for i in range(3)
-    ], -1)
-
-
 def _fma32(a, b, c):
     """f32 fused multiply-add (the f32 product is exact in f64)."""
     return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+
+
+def _matvec3(m, v):
+    """(V, 3, 3) @ (V, 3) -> (V, 3), each row accumulated in index order as
+    fused multiply-adds, the rounding of the reference's CPU build (XLA
+    fuses its batched dot, from a +0 accumulator)."""
+    zero = np.zeros(v.shape[:1], np.float32)
+    out = []
+    for i in range(3):
+        acc = zero
+        for j in range(3):
+            acc = _fma32(m[:, i, j], v[:, j], acc)
+        out.append(acc)
+    return np.stack(out, -1)
 
 
 def _unit(v):

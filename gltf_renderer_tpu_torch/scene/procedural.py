@@ -1,12 +1,24 @@
-"""Procedural bench scene built in memory (host numpy).
+"""Procedural scenes built in memory (host numpy).
 
-`textured_sphere_scene` returns the Scene that the JAX package's glTF loader
-produces from `write_textured_sphere_glb` (gltf_renderer_tpu/scene/
-procedural.py:174): the same UV sphere, the same 10:10:10:2 tangent-space
-quantization the loader applies (gltf_renderer_tpu/scene/gltf.py:196-221),
-the same checkerboard base-colour texture in a one-rect atlas and the same
-metallic-roughness material. Building it directly skips the GLB/PNG round
-trip, which is lossless, so the tables are identical.
+Each function returns the Scene that the JAX package's glTF loader produces
+from the matching writer in gltf_renderer_tpu/scene/procedural.py, without
+the glTF/PNG round trip, which is lossless, so the tables are identical:
+the same vertex data, the same 10:10:10:2 tangent-space quantisation the
+loader applies (gltf_renderer_tpu/scene/gltf.py:196-221), the same
+material rows with the loader's default material at row 0, the same RGBA
+textures shelf-packed into a 4096-wide atlas in the order the loader meets
+them, and the same nodes.
+
+- `textured_sphere_scene`: `write_textured_sphere_glb` (:174), the helmet
+  bench scene (a UV sphere with one checkerboard base-colour texture).
+- `courtyard_scene`: `write_courtyard_glb` (:895), the Sponza-class
+  courtyard bench scene (floor, walls, pillars, metal spheres and
+  alpha-MASKed double-sided banners; three textures; 273,856 triangles at
+  density 1). Its nodes keep the writer's chain: a root rotated -90 degrees
+  about X over the mesh and camera nodes, which the loader's Y-up -> Z-up
+  basis at the roots turns back into the authored coordinates.
+- `foliage_scene`: `write_foliage_gltf` (:715), an alpha-MASKed leaf quad
+  over a floor quad, lit by one point light.
 """
 
 from __future__ import annotations
@@ -97,10 +109,51 @@ def checker_image(tex_size: int) -> np.ndarray:
                      np.full_like(checker, 255)], -1)
 
 
-def _material_table(metallic: float, roughness: float) -> T.MaterialTable:
-    """Default material (row 0) + the sphere's metallic-roughness material
-    with the base-colour texture 0 (row 1), loader defaults elsewhere."""
-    m, s = 2, T.N_TEX_SLOTS
+def _grid_idx(nu, nv):
+    """Two triangles per cell of an (nu + 1) x (nv + 1) vertex grid (u major)."""
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a = (i * (nv + 1) + j).reshape(-1)
+    b = ((i + 1) * (nv + 1) + j).reshape(-1)
+    c = ((i + 1) * (nv + 1) + j + 1).reshape(-1)
+    d = (i * (nv + 1) + j + 1).reshape(-1)
+    return np.stack([a, b, c, a, c, d], 1).reshape(-1).astype(np.uint32)
+
+
+def _quad_grid(origin, ax_u, ax_v, nu, nv):
+    """Subdivided quad origin + u*ax_u + v*ax_v, u, v in [0, 1]. Returns
+    (pos, normal, uv, idx)."""
+    origin = np.asarray(origin, np.float32)
+    ax_u = np.asarray(ax_u, np.float32)
+    ax_v = np.asarray(ax_v, np.float32)
+    uu, vv = np.meshgrid(np.linspace(0, 1, nu + 1, dtype=np.float32),
+                         np.linspace(0, 1, nv + 1, dtype=np.float32), indexing="ij")
+    p = origin[None, None] + uu[..., None] * ax_u + vv[..., None] * ax_v
+    nrm = np.cross(ax_u, ax_v)
+    nrm = nrm / max(np.linalg.norm(nrm), 1e-9)
+    n = np.broadcast_to(nrm, p.shape).astype(np.float32)
+    uv = np.stack([uu, vv], -1).astype(np.float32)
+    return p.reshape(-1, 3), n.reshape(-1, 3), uv.reshape(-1, 2), _grid_idx(nu, nv)
+
+
+def _cylinder(center, radius, height, n_seg, n_h):
+    """Open cylinder around +Z. Returns (pos, normal, uv, idx)."""
+    center = np.asarray(center, np.float32)
+    th = np.linspace(0, 2 * np.pi, n_seg + 1, dtype=np.float32)
+    z = np.linspace(0, height, n_h + 1, dtype=np.float32)
+    tt, zz = np.meshgrid(th, z, indexing="ij")
+    p = np.stack([center[0] + radius * np.cos(tt), center[1] + radius * np.sin(tt),
+                  center[2] + zz], -1).astype(np.float32)
+    n = np.stack([np.cos(tt), np.sin(tt), np.zeros_like(tt)], -1).astype(np.float32)
+    uv = np.stack([tt / (2 * np.pi), zz / height], -1).astype(np.float32)
+    return p.reshape(-1, 3), n.reshape(-1, 3), uv.reshape(-1, 2), _grid_idx(n_seg, n_h)
+
+
+def _material_table(mats) -> T.MaterialTable:
+    """The loader's default material (row 0) followed by one row per entry
+    of `mats`, dicts with any of: base (RGBA factor), metallic, roughness,
+    albedo (base-colour texture id), mask_cutoff (alpha MASK with this
+    cutoff), double_sided. Loader defaults elsewhere."""
+    m, s = len(mats) + 1, T.N_TEX_SLOTS
 
     def f32(v, shape=(m,)):
         return np.full(shape, v, np.float32)
@@ -121,53 +174,212 @@ def _material_table(metallic: float, roughness: float) -> T.MaterialTable:
         tex_uvset=np.zeros((m, s), np.int32), tex_rotation=np.zeros((m, s), np.float32),
         tex_offset=np.zeros((m, s, 2), np.float32), tex_scale=np.ones((m, s, 2), np.float32),
     )
-    tbl["base_color_factor"][1] = [1, 1, 1, 1]
-    tbl["metalness_factor"][1] = metallic
-    tbl["roughness_factor"][1] = roughness
-    tbl["tex_index"][1, T.TEX_ALBEDO] = 0
+    for r, mat in enumerate(mats, start=1):
+        tbl["base_color_factor"][r] = mat.get("base", [1, 1, 1, 1])
+        tbl["metalness_factor"][r] = mat["metallic"]
+        tbl["roughness_factor"][r] = mat["roughness"]
+        tbl["tex_index"][r, T.TEX_ALBEDO] = mat.get("albedo", -1)
+        if "mask_cutoff" in mat:
+            tbl["alpha_mode"][r] = T.ALPHA_MODE_MASK
+            tbl["alpha_cutoff"][r] = mat["mask_cutoff"]
+        if mat.get("double_sided", False):
+            tbl["flags"][r] |= T.MATERIAL_FLAG_DOUBLE_SIDED
     table = T.MaterialTable(**tbl)
     return table._replace(rows=T.pack_material_rows(table))
 
 
-def _texture_table(img: np.ndarray) -> T.TextureTable:
-    """One-texture atlas as the loader's shelf packer lays it out."""
-    h, w = img.shape[:2]
-    height = -(-max(h, 1) // 8) * 8
+def _texture_table(images, wrap_t=T.WRAP_REPEAT) -> T.TextureTable:
+    """sRGB textures shelf-packed into one atlas as the loader's
+    AtlasBuilder packs them (gltf_renderer_tpu/scene/textures.py), in the
+    order given; wrap_s REPEAT, wrap_t `wrap_t`, linear filtering."""
+    rects, x, y, shelf_h = [], 0, 0, 0
+    for img in images:
+        h, w = img.shape[:2]
+        if x + w > ATLAS_WIDTH:
+            y, shelf_h, x = y + shelf_h, 0, 0
+        rects.append((x, y, w, h))
+        x += w
+        shelf_h = max(shelf_h, h)
+    height = -(-max(y + shelf_h, 1) // 8) * 8
     atlas = np.zeros((height, ATLAS_WIDTH, 4), np.uint8)
-    atlas[:h, :w] = img
-    i32 = lambda v: np.asarray([v], np.int32)
+    for (rx, ry, w, h), img in zip(rects, images):
+        atlas[ry:ry + h, rx:rx + w] = img
+    rects = np.asarray(rects, np.int32).reshape(-1, 4)
+    n = len(images)
+
+    def i32(v):
+        return np.full(n, v, np.int32)
+
     table = T.TextureTable(
-        atlas=atlas, x=i32(0), y=i32(0), width=i32(w), height=i32(h),
-        wrap_s=i32(T.WRAP_REPEAT), wrap_t=i32(T.WRAP_CLAMP), nearest=i32(0), srgb=i32(1),
+        atlas=atlas, x=rects[:, 0], y=rects[:, 1], width=rects[:, 2], height=rects[:, 3],
+        wrap_s=i32(T.WRAP_REPEAT), wrap_t=i32(wrap_t), nearest=i32(0), srgb=i32(1),
     )
     return table._replace(rows=T.pack_texture_rows(table))
+
+
+def _node(mesh=-1, translation=(0, 0, 0), rotation=(0, 0, 0, 1), **kw) -> T.Node:
+    return T.Node(translation=np.asarray(translation, np.float32),
+                  rotation=np.asarray(rotation, np.float32), scale=np.ones(3, np.float32),
+                  mesh=mesh, **kw)
+
+
+def _mesh_scene(prims, materials, textures, nodes, roots, lights=None,
+                light_nodes=()) -> T.Scene:
+    """Scene from per-primitive (pos, normal, uv, idx, material row), one
+    mesh per entry of `prims` (a list of primitive lists), as the loader
+    reads primitives with POSITION, NORMAL and TEXCOORD_0."""
+    cols = {k: [] for k in ("p", "n", "t", "uv", "tri", "tp")}
+    rows, meshes, v_off, t_off = [], [], 0, 0
+    for mesh in prims:
+        ids = []
+        for pos, nrm, uv, idx, mat in mesh:
+            nv = len(pos)
+            n_q, t_q = quantize_tangent_space(np.asarray(nrm, np.float32), None)
+            tris = np.asarray(idx).astype(np.int64).reshape(-1, 3) + v_off
+            cols["p"].append(np.asarray(pos, np.float32))
+            cols["n"].append(n_q)
+            cols["t"].append(t_q)
+            cols["uv"].append(np.asarray(uv, np.float32))
+            cols["tri"].append(tris.astype(np.int32))
+            cols["tp"].append(np.full(len(tris), len(rows), np.int32))
+            ids.append(len(rows))
+            rows.append((v_off, nv, t_off, len(tris), mat, 1, 1, 0, 0, 0, 0, 0))
+            v_off += nv
+            t_off += len(tris)
+        meshes.append(T.MeshDef(primitives=ids))
+    pools = T.GeometryPools(
+        positions=np.concatenate(cols["p"]), normals=np.concatenate(cols["n"]),
+        tangents=np.concatenate(cols["t"]), uv0=np.concatenate(cols["uv"]),
+        uv1=np.zeros((v_off, 2), np.float32), color=np.ones((v_off, 4), np.float32),
+        joints=np.zeros((v_off, 4), np.int32), weights=np.zeros((v_off, 4), np.float32),
+        tri_vertex=np.concatenate(cols["tri"]), tri_prim=np.concatenate(cols["tp"]),
+        morph_pos=np.zeros((0, 3), np.float32), morph_normal=np.zeros((0, 3), np.float32),
+        morph_tangent=np.zeros((0, 3), np.float32),
+    )
+    rows = np.asarray(rows, np.int32)
+    for i, nd in enumerate(nodes):
+        for c in nd.children:
+            nodes[c].parent = i
+    order = []
+    for r in roots:  # parents first, children in order (the loader's topo order)
+        stack = [r]
+        while stack:
+            j = stack.pop()
+            order.append(j)
+            stack.extend(reversed(nodes[j].children))
+    return T.Scene(
+        pools=pools, primitives=T.PrimitiveTable(*[rows[:, k] for k in range(12)]),
+        materials=materials, textures=textures,
+        light_params=lights if lights is not None else T.LightParams(
+            np.zeros(0, np.int32), np.zeros((0, 3), np.float32), *[np.zeros(0, np.float32)] * 4),
+        light_nodes=np.asarray(light_nodes, np.int32), nodes=nodes, scenes=[list(roots)],
+        default_scene=0, meshes=meshes, topo_order=np.asarray(order, np.int32),
+    )
 
 
 def textured_sphere_scene(tex_size=64, n_lat=16, n_lon=32, metallic=0.0,
                           roughness=0.8) -> T.Scene:
     """The Scene of `write_textured_sphere_glb(...)` + `load_gltf`."""
     p, n, uv, idx = uv_sphere(n_lat, n_lon)
-    nv = len(p)
-    nrm, tan = quantize_tangent_space(n.astype(np.float32), None)
-    tris = idx.astype(np.int64).reshape(-1, 3).astype(np.int32)
-    nt = len(tris)
-    pools = T.GeometryPools(
-        positions=p, normals=nrm, tangents=tan, uv0=uv, uv1=np.zeros((nv, 2), np.float32),
-        color=np.ones((nv, 4), np.float32), joints=np.zeros((nv, 4), np.int32),
-        weights=np.zeros((nv, 4), np.float32), tri_vertex=tris,
-        tri_prim=np.zeros(nt, np.int32), morph_pos=np.zeros((0, 3), np.float32),
-        morph_normal=np.zeros((0, 3), np.float32), morph_tangent=np.zeros((0, 3), np.float32),
-    )
-    row = np.asarray([[0, nv, 0, nt, 1, 1, 1, 0, 0, 0, 0, 0]], np.int32)
-    prims = T.PrimitiveTable(*[row[:, k] for k in range(12)])
-    node = T.Node(translation=np.zeros(3, np.float32),
-                  rotation=np.asarray([0, 0, 0, 1], np.float32),
-                  scale=np.ones(3, np.float32), mesh=0)
-    z = np.zeros(0, np.float32)
-    lights = T.LightParams(np.zeros(0, np.int32), np.zeros((0, 3), np.float32), z, z, z, z)
-    return T.Scene(
-        pools=pools, primitives=prims, materials=_material_table(metallic, roughness),
-        textures=_texture_table(checker_image(tex_size)), light_params=lights,
-        light_nodes=np.zeros(0, np.int32), nodes=[node], scenes=[[0]], default_scene=0,
-        meshes=[T.MeshDef(primitives=[0])], topo_order=np.asarray([0], np.int32),
-    )
+    return _mesh_scene(
+        [[(p, n, uv, idx, 1)]],
+        _material_table([dict(metallic=metallic, roughness=roughness, albedo=0)]),
+        _texture_table([checker_image(tex_size)], wrap_t=T.WRAP_CLAMP),
+        [_node(mesh=0)], roots=[0])
+
+
+def courtyard_images(tex_size: int):
+    """The courtyard's three RGBA u8 textures (stone checker, marble
+    stripes, banner with a diamond cutout alpha), drawn as the writer draws
+    them from RandomState(11)."""
+    rs = np.random.RandomState(11)
+    yy, xx = np.meshgrid(np.arange(tex_size), np.arange(tex_size), indexing="ij")
+    checker = (((xx // 16) + (yy // 16)) % 2).astype(np.uint8)
+    noise = rs.randint(0, 40, (tex_size, tex_size)).astype(np.uint8)
+    stone = np.stack([150 + 30 * checker + noise // 2,
+                      140 + 25 * checker + noise // 2,
+                      125 + 20 * checker + noise // 2,
+                      np.full_like(checker, 255)], -1).astype(np.uint8)
+    stripes = (128 + 90 * np.sin(yy * 0.25 + 3 * np.sin(xx * 0.07))).astype(np.uint8)
+    marble = np.stack([stripes, stripes, np.minimum(stripes + 20, 255),
+                       np.full_like(stripes, 255)], -1).astype(np.uint8)
+    cx = np.abs((xx % 64) - 32) + np.abs((yy % 64) - 32)
+    alpha = np.where(cx < 40, 255, 0).astype(np.uint8)
+    banner = np.stack([200 + 0 * xx, 40 + ((xx // 8) % 2) * 120, 40 + 0 * xx, alpha],
+                      -1).astype(np.uint8)
+    return [stone, marble, banner]
+
+
+def courtyard_scene(density: int = 1, tex_size: int = 256) -> T.Scene:
+    """The Scene of `write_courtyard_glb(density, tex_size)` + `load_gltf`."""
+    d = density
+    groups = {k: [] for k in ("floor", "wall", "pillar", "metal", "banner")}
+    groups["floor"].append(_quad_grid([-10, -10, 0], [20, 0, 0], [0, 20, 0], 128 * d, 128 * d))
+    for o, au in (([-10, -10, 0], [20, 0, 0]), ([10, 10, 0], [-20, 0, 0]),
+                  ([10, -10, 0], [0, 20, 0]), ([-10, 10, 0], [0, -20, 0])):
+        groups["wall"].append(_quad_grid(o, au, [0, 0, 6], 128 * d, 64 * d))
+    for y in (-6.0, 6.0):
+        for k in range(8):
+            groups["pillar"].append(_cylinder([-8.4 + 2.4 * k, y, 0], 0.35, 5.0, 64 * d, 56 * d))
+    for k in range(6):
+        p, n, uv, idx = uv_sphere(32 * d, 48 * d, radius=0.5)
+        groups["metal"].append((p + np.asarray([-7.5 + 3.0 * k, 0.0, 0.8], np.float32),
+                                n, uv, idx))
+    for k in range(7):
+        x = -7.2 + 2.4 * k
+        for y in (-6.0, 6.0):
+            groups["banner"].append(_quad_grid([x - 0.8, y, 4.6], [1.6, 0, 0], [0, 0, -2.2],
+                                               32 * d, 48 * d))
+    prims = []
+    for mat, parts in enumerate(groups.values(), start=1):
+        base, idxs = 0, []
+        for part in parts:
+            idxs.append(part[3] + base)
+            base += part[0].shape[0]
+        prims.append(tuple(np.concatenate([part[i] for part in parts]) for i in range(3))
+                     + (np.concatenate(idxs), mat))
+    materials = _material_table([
+        dict(albedo=0, metallic=0.0, roughness=0.9),
+        dict(albedo=0, base=[0.9, 0.85, 0.8, 1.0], metallic=0.0, roughness=0.85),
+        dict(albedo=1, metallic=0.05, roughness=0.4),
+        dict(base=[0.95, 0.93, 0.88, 1.0], metallic=1.0, roughness=0.15),
+        dict(albedo=2, metallic=0.0, roughness=1.0, mask_cutoff=0.5, double_sided=True),
+    ])
+    r2 = float(np.sqrt(0.5))
+    nodes = [_node(rotation=(-r2, 0.0, 0.0, r2), children=[1, 2], name="zup_root"),
+             _node(mesh=0),
+             _node(translation=(-9.0, 0.0, 1.7), rotation=(0.5, -0.5, -0.5, 0.5), camera=0)]
+    return _mesh_scene([prims], materials, _texture_table(courtyard_images(tex_size)), nodes,
+                       roots=[0])
+
+
+def foliage_image(tex_size: int) -> np.ndarray:
+    """The leaf texture: green with circular alpha holes, RGBA u8."""
+    yy, xx = np.meshgrid(np.arange(tex_size), np.arange(tex_size), indexing="ij")
+    cx = tex_size / 2
+    r = np.sqrt((xx - cx) ** 2 + (yy - cx) ** 2)
+    alpha = np.where((r % 16) < 8, 255, 0).astype(np.uint8)
+    return np.stack([np.full_like(alpha, 40), np.full_like(alpha, 160),
+                     np.full_like(alpha, 40), alpha], -1)
+
+
+def foliage_scene(tex_size: int = 64) -> T.Scene:
+    """The Scene of `write_foliage_gltf(tex_size)` + `load_gltf`."""
+    quad_uv = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    leaf = (np.asarray([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32),
+            np.tile(np.asarray([[0, 0, 1]], np.float32), (4, 1)), quad_uv,
+            np.asarray([0, 1, 2, 0, 2, 3]), 1)
+    floor = (np.asarray([[-4, -2, -4], [4, -2, -4], [4, -2, 4], [-4, -2, 4]], np.float32),
+             np.tile(np.asarray([[0, 1, 0]], np.float32), (4, 1)), quad_uv,
+             np.asarray([0, 2, 1, 0, 3, 2]), 2)
+    materials = _material_table([
+        dict(albedo=0, metallic=0.0, roughness=0.8, mask_cutoff=0.5, double_sided=True),
+        dict(base=[0.8, 0.8, 0.8, 1], metallic=0.0, roughness=0.9),
+    ])
+    lights = T.LightParams(
+        type=np.asarray([T.LIGHT_TYPE_POINT], np.int32), color=np.ones((1, 3), np.float32),
+        intensity=np.asarray([60.0], np.float32), cutoff=np.zeros(1, np.float32),
+        inner_angle=np.zeros(1, np.float32), outer_angle=np.full(1, np.pi / 4.0, np.float32))
+    nodes = [_node(mesh=0), _node(mesh=1), _node(translation=(0, 1.5, 2.5), light=0)]
+    return _mesh_scene([[leaf], [floor]], materials, _texture_table([foliage_image(tex_size)]),
+                       nodes, roots=[0, 1, 2], lights=lights, light_nodes=[2])

@@ -36,6 +36,10 @@ ALPHA_MODE_OPAQUE = 0
 ALPHA_MODE_MASK = 1
 ALPHA_MODE_BLEND = 2
 
+LIGHT_TYPE_POINT = 0
+LIGHT_TYPE_SPOT = 1
+LIGHT_TYPE_DIRECTIONAL = 2
+
 WRAP_REPEAT = 0
 WRAP_CLAMP = 1
 WRAP_MIRROR = 2

@@ -72,7 +72,7 @@ def test_run_prints_the_bench_contract(small_scene, capsys):
 
     want_result, want_detail, want_gates = _jax_bench_keys()
     assert set(result) == want_result
-    assert set(detail) == want_detail | {"kernel_launches"}
+    assert set(detail) == want_detail | {"kernel_launches", "alpha_hops"}
     assert set(detail["gates"]) == want_gates
     assert result["metric"] == "pt_mrays_per_s_per_chip_1080p"
     assert result["value"] > 0 and result["unit"] == "Mrays/s"
@@ -93,7 +93,20 @@ def test_raster_probe_runs_raycast_frames(small_scene):
     assert fps > 0
 
 
-def test_courtyard_scene_is_refused(monkeypatch):
-    monkeypatch.setenv("BENCH_SCENE", "courtyard")
-    with pytest.raises(NotImplementedError, match="queue A, item 6"):
-        bench.main(device="cpu")
+def test_courtyard_bench_runs(monkeypatch, capsys):
+    """BENCH_SCENE=courtyard through bench.main at 32x18, one step: the
+    courtyard metric, no NaN, and the masked-retry loop reached."""
+    for k, v in dict(BENCH_SCENE="courtyard", BENCH_WIDTH="32", BENCH_HEIGHT="18",
+                     BENCH_STEPS="1").items():
+        monkeypatch.setenv(k, v)
+    assert bench.main(device="cpu") == 0
+    stdout, stderr = capsys.readouterr()
+    lines = stdout.splitlines()
+    assert len(lines) == 1
+    result = json.loads(lines[0])
+    detail = json.loads(next(x for x in stderr.splitlines()
+                             if x.startswith('{"detail"')))["detail"]
+    assert result["metric"] == "pt_mrays_per_s_courtyard_1080p" and result["value"] > 0
+    assert detail["triangles"] == 273856 and detail["gates"]["nan_pixels_zero"] is True
+    assert detail["ssim_vs_cpu_32spp"] is None and detail["raster_fps"] is None
+    assert detail["alpha_hops"]["retry"] > 0 and detail["alpha_hops"]["shadow"] == 0

@@ -149,7 +149,7 @@ def test_entry_points_default_to_the_card():
 def test_unported_features_raise(scenes):
     _, _, pscene, pmeta = scenes
     pset, pparams = port_settings()
-    for change in (dict(has_sheen=True), dict(has_masked=True), dict(num_lights=1)):
+    for change in (dict(has_sheen=True), dict(has_clearcoat=True), dict(has_transmission=True)):
         with pytest.raises(NotImplementedError):
             ppt.trace(pscene, pmeta._replace(**change), pset, pparams, bench_camera(*RES),
                       RES, 1)
@@ -159,6 +159,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import gltf_renderer_tpu_torch.render.pathtracer\n"
+        "import gltf_renderer_tpu_torch.ops.lights\n"
         "import gltf_renderer_tpu_torch.bench_scene\n"
         "import gltf_renderer_tpu_torch.convert\n"
         "import gltf_renderer_tpu_torch.ops.raster\n"
