@@ -43,15 +43,26 @@ Phases (any failure exits non-zero and prints no result line):
    1080p courtyard step, trace_chunked(spp=4), one warm and two timed steps,
    with every traversal launch accounted for (3 a chunk plus one a retry or
    alpha-shadow hop) and no plain version run;
-8. brute-force closest-hit kernel (csrc/brute.cu) vs its plain version, key
-   and blk bit-identical on the study tool's correctness data, on 16,384
-   rays x 49,152 triangles with clipped ray intervals, and on the tool's
-   own scale-timing inputs at both widths it times, 262,144 rays x the
-   helmet's 49,152 and the courtyard's 274,432 triangles (the plain version
-   timed there, one call each of about 7 s and 40 s), then the main of the
-   study tool `python -m gltf_renderer_tpu_torch.tools.bench_mxu` with the
-   launch counters reset: correctness against numpy, the torch.mm depth
-   curve, and the kernel timed at both widths;
+8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
+   plain version under ops/brute.compare_winners on five sets: the study
+   tool's correctness data, 16,384 rays x 49,152 triangles with clipped
+   ray intervals, 16,384 grazing rays (tools.bench_mxu.grazing_data)
+   against a 49,152-triangle soup, and the tool's own scale-timing inputs
+   at both widths it times, 262,144 rays x the helmet's 49,152 and the
+   courtyard's 274,432 triangles (the plain version timed on each, one
+   call; about 7 s and 40 s at the last two). Every ray must agree or be
+   explained by rounding (0 unexplained), at least 99.9% of rays must
+   agree on each set but the grazing one (built to disagree) and over all
+   five, and the kernel's own sums (brute_sums) on 256 rays of each set
+   must lie within compare_winners' delta of the exact sums; the largest
+   such deviation is the kernel table's max_abs_err (and max_sum_dev). At
+   both widths the kernel is timed in turns with the old CUDA-core kernel
+   where build/parent/brute.cu holds its source (copied there by hand;
+   build/ is not committed). Then the main of the study tool `python -m
+   gltf_renderer_tpu_torch.tools.bench_mxu` with the launch counters
+   reset: correctness against numpy, the torch.mm depth curve (its depth-16
+   rate is written beside the kernel's product rate), and the kernel timed
+   at both widths;
 9. per-lane fetch kernels (csrc/perlane.cu) vs their plain versions,
    bit-identical at the tool's three table shapes (plain versions timed),
    then `python -m gltf_renderer_tpu_torch.tools.bench_perlane`'s main with
@@ -100,6 +111,8 @@ ONEHOT_REPLACES = "tools/bench_perlane.py:47"
 SHUFFLE_REPLACES = "tools/bench_perlane.py:92"
 WARM_REPLACES = "bench.py:230"
 PARENT_K1 = os.path.join(ROOT, "build", "parent", "traverse.cu")  # optional, for phase 2's turns
+PARENT_K3 = os.path.join(ROOT, "build", "parent", "brute.cu")  # optional, for phase 8's turns
+BRUTE_AGREE_BAR = 0.999  # share of rays on which K3 and its plain version name the same winner
 SOURCES = ("traverse.cu", "raster.cu", "warm.cu", "brute.cu", "perlane.cu")
 PERLANE_ROW = "courtyard-node"  # the table shape phase 9 reports in the kernel table
 BENCH_TIMEOUT_S = 600
@@ -120,13 +133,14 @@ OPS_LEAF_VISIT = 16 * 53
 OPS_PAIR_PIXEL = 29
 # The brute-force kernel's four 16-term products are 128 operations a (ray,
 # triangle) pair, timed at the bf16 tensor-core rate apart from the f32
-# epilogue, since the two units overlap on Hopper; its epilogue is 22
-# f32 operations a pair (m3, m4, m5: 6; 12 compares; select, mask, or, min),
-# the division, made for hits only, not counted. A per-lane step sums 8
-# columns into s and s into acc (one-hot: 9 adds a lane); the shuffle step
-# adds one value per (column, lane).
+# epilogue, since the two units overlap on Hopper; its epilogue is 19
+# f32 operations a pair (m3, m4, m5: 6; 12 compares; the or); the key
+# (division, mask, or, compare) is made for hits only and not counted (the
+# CUDA-core kernel it replaced built it for every pair: 22). A per-lane
+# step sums 8 columns into s and s into acc (one-hot: 9 adds a lane); the
+# shuffle step adds one value per (column, lane).
 OPS_BRUTE_PRODUCTS = 4 * 2 * 16
-OPS_BRUTE_EPILOGUE = 22
+OPS_BRUTE_EPILOGUE = 19
 OPS_ONEHOT_LANE_STEP = 9
 
 
@@ -661,9 +675,40 @@ def brute_bound(rays, tris, n_bytes):
     return bound(n_bytes, OPS_BRUTE_EPILOGUE * rays * tris, OPS_BRUTE_PRODUCTS * rays * tris)
 
 
+def brute_parent_launcher(ins):
+    """A no-argument launch of PARENT_K3's brute_closest_launch (the four
+    slabs as they are, abi 1) on `ins`, into fresh outputs, and the outputs;
+    or (None, None) when that source is absent."""
+    import ctypes
+
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import _build
+
+    if not os.path.exists(PARENT_K3):
+        return None, None
+    lib = _build.load(PARENT_K3)
+    if (lib.brute_closest_abi() if hasattr(lib, "brute_closest_abi") else 1) != 1:
+        raise RuntimeError(f"{PARENT_K3} is not a version-1 brute-force kernel")
+    fn = lib.brute_closest_launch
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    r, t = ins[0].shape[0], ins[3].shape[1]
+    key = torch.empty((r, 1), dtype=torch.int32, device=ins[0].device)
+    blk = torch.empty_like(key)
+    args = [x.data_ptr() for x in ins] + [r, t, key.data_ptr(), blk.data_ptr()]
+
+    def run():
+        if fn(*args, torch._C._cuda_getCurrentRawStream(ins[0].get_device())) != 0:
+            raise RuntimeError("the parent brute-force kernel failed to launch")
+
+    return run, (key, blk)
+
+
 def phase_brute(device):
-    """Brute-force kernel vs plain, then the study tool's main path.
-    Returns its kernel-table row."""
+    """Brute-force kernel vs plain under ops/brute.compare_winners, the old
+    kernel in turns where PARENT_K3 holds it, then the study tool's main
+    path. Returns its kernel-table row."""
     import torch
 
     from gltf_renderer_tpu_torch.ops import brute
@@ -679,8 +724,11 @@ def phase_brute(device):
     tmax = np.where(rng.random(r) < 0.2, 2.0, 100.0).astype(np.float32)
     cases = [("correctness data", bench_mxu.brute_inputs(*bench_mxu.correctness_data(), device)),
              (f"{r} rays x {t} tris, clipped intervals",
-              bench_mxu.brute_inputs(o, d, tmin, tmax, *tri, device))]
-    plain = {}
+              bench_mxu.brute_inputs(o, d, tmin, tmax, *tri, device)),
+             (f"grazing, {r} rays x {t} tris",
+              bench_mxu.brute_inputs(*bench_mxu.grazing_data(r, t, seed=13), device))]
+    plain, turns, totals = {}, {}, {"rays": 0, "agree": 0}
+    worst_dev = 0.0
     for name, ins in itertools.chain(cases, bench_mxu.scale_inputs(device)):
         got = brute.brute_closest(*ins)
         torch.cuda.synchronize()
@@ -688,33 +736,80 @@ def phase_brute(device):
         want = brute.brute_closest_ref(*ins)
         torch.cuda.synchronize()
         plain[name] = (time.perf_counter() - t0) * 1e3
-        same = [identical(g, p) for g, p in zip(got, want)]
-        hits = int((want[1] >= 0).sum())
-        log(f"[brute] {name} ({ins[0].shape[0]} rays x {ins[3].shape[1]} tris): key "
-            f"identical={same[0]} blk identical={same[1]} rays hitting={hits}/{ins[0].shape[0]}"
-            f"; plain {plain[name]:.3f} ms (host clock around one synchronised call)")
-        if not all(same) or hits == 0:
-            raise AssertionError(f"brute-force kernel disagrees with its plain version on {name}")
+        sample = torch.arange(brute.RAYS_PER_CTA, device=device)
+        res = brute.compare_winners(ins, got, want,
+                                    sums=(sample, brute.brute_sums(ins[0][sample], *ins[3:])))
+        worst_dev = max(worst_dev, res["max_sum_dev"])
+        for k in totals:
+            totals[k] += res[k]
+        share = res["agree"] / res["rays"]
+        log(f"[brute] {name} ({ins[0].shape[0]} rays x {ins[3].shape[1]} tris): agree="
+            f"{res['agree']} ({share:.6f}) explained={res['explained']} unexplained="
+            f"{res['unexplained']} both_hit={res['both_hit']} max_sum_dev="
+            f"{res['max_sum_dev']:.3e} (delta {brute.DELTA:.3e}); plain {plain[name]:.3f} ms "
+            f"(host clock around one synchronised call)")
+        if res["unexplained"] or res["both_hit"] == 0 or res["max_sum_dev"] > brute.DELTA:
+            raise AssertionError(f"brute-force kernel breaks its contract on {name}: {res}")
+        if not name.startswith("grazing") and share < BRUTE_AGREE_BAR:
+            raise AssertionError(f"brute-force kernel agrees on {share:.6f} of {name}")
+        if name in dict(bench_mxu.SCALE_WIDTHS).values():
+            turns[name] = brute_turns(name, ins, got, device)
+    share = totals["agree"] / totals["rays"]
+    log(f"[brute] all sets: {totals['agree']} of {totals['rays']} rays agree ({share:.6f})")
+    if share < BRUTE_AGREE_BAR:
+        raise AssertionError("brute-force kernel agrees on too few rays over all sets")
 
     brute.KERNEL_LAUNCHES = 0
     refs = brute.REFERENCE_CALLS
-    scale = bench_mxu.main(device)
+    curve, scale = bench_mxu.main(device)
     launches = brute.KERNEL_LAUNCHES
     if launches <= 0 or brute.REFERENCE_CALLS != refs:
         raise AssertionError("the study tool did not run through the brute-force kernel only")
+    mm16 = next(tf for k, _, tf in curve if k == 16)
     for row in scale:
         rb_ms, rb_by = brute_bound(row["rays"], row["tris"], row["bytes"])
         row.update(bound_ms=rb_ms, bound_by=rb_by)
         log(f"[brute] tool {row['name']}: {row['rays']} rays x {row['tris']} tris "
-            f"kernel={row['ms']:.3f} ms bound={rb_ms:.4f} ms ({rb_by}) bytes={row['bytes']}")
-    helmet = scale[0]
+            f"kernel={row['ms']:.3f} ms products at {row['product_tflops']:.1f} TFLOP/s "
+            f"(torch.mm depth 16: {mm16:.1f}) bound={rb_ms:.4f} ms ({rb_by}) "
+            f"bytes={row['bytes']}")
+    helmet, court = scale
     log(f"[brute] tool launches={launches}; the kernel table's row is the helmet width")
     return {"name": "brute_closest", "route": "cuda",
             "source": "gltf_renderer_tpu_torch/csrc/brute.cu", "replaces": BRUTE_REPLACES,
-            "launches": launches, "max_abs_err": 0.0, "ms": helmet["ms"],
-            "plain_ms": plain[helmet["name"]],
+            "launches": launches, "max_abs_err": worst_dev, "max_sum_dev": worst_dev,
+            "ms": helmet["ms"], "plain_ms": plain[helmet["name"]],
             "bound_ms": helmet["bound_ms"], "bound_by": helmet["bound_by"],
-            "library_ms": None}
+            "library_ms": None, "courtyard_ms": court["ms"],
+            "courtyard_plain_ms": plain[court["name"]], "courtyard_bound_ms": court["bound_ms"],
+            "product_tflops": helmet["product_tflops"], "mm_k16_tflops": mm16,
+            "turns": turns}
+
+
+def brute_turns(name, ins, got, device):
+    """The kernel through its wrapper and, where PARENT_K3 holds the old
+    kernel, that kernel's launcher, timed in turns (parent, new, new,
+    parent; CUDA events, 2 calls a timing); the old kernel's answer held to
+    the new one's by compare_winners. Returns {name: [ms, ms]}."""
+    from gltf_renderer_tpu_torch.ops import brute
+
+    fns = {}
+    run, out = brute_parent_launcher(ins)
+    if run is not None:
+        fns["parent"] = run
+    fns["kernel"] = lambda: brute.brute_closest(*ins)
+    times = bench_traverse.time_in_turns(fns, rounds=2, reps=2)
+    log(f"[brute] turns {name}: " + " ".join(f"{k}={[round(x, 3) for x in v]} ms"
+                                             for k, v in times.items())
+        + " (CUDA events, 2 calls each; kernel through brute_closest)")
+    if run is None:
+        log(f"[brute] turns: no parent kernel source at {PARENT_K3}, parent not timed")
+    else:
+        res = brute.compare_winners(ins, got, out)
+        log(f"[brute] turns {name}: the parent kernel against this one: {res}")
+        if res["unexplained"]:
+            raise AssertionError(f"the parent brute-force kernel disagrees on {name}")
+    return times
 
 
 def phase_perlane(device):
@@ -811,13 +906,34 @@ def phase_bench(scene_kind="helmet", steps=3):
     return detail
 
 
+def brute_sass():
+    """Opcode counts of the brute-force kernel's SASS (cuobjdump -sass of
+    its library): {opcode: count} for the closest-hit kernel. Raises when
+    the kernel has no HGMMA (wgmma) instruction."""
+    import re
+    import subprocess
+
+    from gltf_renderer_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.library_path("brute.cu")], check=True,
+                          capture_output=True, text=True, timeout=60).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                if f.startswith("_Z") and "ILb0E" in f.split("\n")[0])
+    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+    counts = {op: ops.count(op) for op in sorted(set(ops))}
+    if not counts.get("HGMMA"):
+        raise AssertionError("the brute-force kernel has no wgmma (HGMMA) instruction")
+    return counts
+
+
 def build_kernels():
     """Build every kernel library at once, one nvcc process each."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gltf_renderer_tpu_torch.ops import _build
 
-    sources = SOURCES + ((PARENT_K1,) if os.path.exists(PARENT_K1) else ())
+    sources = SOURCES + tuple(p for p in (PARENT_K1, PARENT_K3) if os.path.exists(p))
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.load, sources))
 
@@ -846,6 +962,10 @@ def main() -> int:
     for source in SOURCES:
         for line in _build.ptxas_report(source):
             log(f"[ptxas] {source}: {line.strip()}")
+    ops = brute_sass()
+    log(f"[sass] brute.cu closest-hit kernel, static opcode counts (one tile's 32 pairs a "
+        f"thread): " + ", ".join(f"{k} {ops.get(k, 0)}" for k in (
+            "HGMMA", "FSETP", "FADD", "FMUL", "VOTE", "MUFU", "FCHK", "CALL", "BRA")))
 
     warm_row = phase_warm(device)
 

@@ -19,6 +19,10 @@ one warm-up launch (ops/warm.py):
    (48,768 padded to 49,152) and the courtyard's (274,432) triangle
    counts, timed with CUDA events.
 
+`grazing_data` makes rays that graze edges, where the kernel and its plain
+version, which sum in different orders, can name different winners
+(ops/brute.compare_winners).
+
 On the CPU only the correctness check runs, on the plain version.
 """
 
@@ -61,6 +65,66 @@ def correctness_data():
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmin = np.zeros(RB, np.float32)
     tmax = np.full(RB, 100.0, np.float32)
+    return o, d, tmin, tmax, v0, e1, e2
+
+
+def grazing_data(n_rays, n_tris, seed=0):
+    """Rays that graze triangle edges, where sums in different orders can
+    pick different winners: (o, d, tmin, tmax, v0, e1, e2) as
+    `correctness_data` gives them, a soup of n_tris triangles like the
+    scale timing's (v0 ~ N(0, 1), edges 0.1 N(0, 1)).
+
+    Fifteen rays in sixteen aim at points within 1e-4 of a soup triangle's
+    edge from 1 to 4 units away (t in [0, 100]). Every sixteenth ray
+    crosses an edge exactly: every input is exact in bf16 and the edge
+    term is 0 in exact arithmetic, while the features span 2^-36..2^24, so f32 partial sums
+    round and the term's sign depends on the order of the sum. Such a ray
+    comes from o = q + (2^12 a, 2^-12 b, c) (axes shuffled), heads for q
+    along d = (q - o) 2^-12 and crosses, at t = 4096, the midpoint of the
+    edge v0 -> v0 + e1 of its own triangle (small integer edges, put in
+    the soup at a random index), t restricted to 4096 +- 2^-6."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.normal(size=(n_tris, 3)).astype(np.float32)
+    e1 = rng.normal(size=(n_tris, 3)).astype(np.float32) * 0.1
+    e2 = rng.normal(size=(n_tris, 3)).astype(np.float32) * 0.1
+    tmin = np.zeros(n_rays, np.float32)
+    tmax = np.full(n_rays, 100.0, np.float32)
+
+    near = np.flatnonzero(np.arange(n_rays) % 16 != 15)
+    k = near.size
+    tri = rng.integers(0, n_tris, k)
+    edge = rng.integers(0, 3, k)[:, None]
+    s = rng.random((k, 1)).astype(np.float32)
+    a, b, c = v0[tri], v0[tri] + e1[tri], v0[tri] + e2[tri]
+    p = np.where(edge == 0, a + s * (b - a),
+                 np.where(edge == 1, a + s * (c - a), b + s * (c - b)))
+    p += rng.normal(size=(k, 3)).astype(np.float32) * 1e-4
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.zeros((n_rays, 3), np.float32)
+    o[near] = p - rng.uniform(1.0, 4.0, (k, 1)).astype(np.float32) * d[near]
+
+    exact = np.arange(15, n_rays, 16)
+    own = rng.choice(n_tris, exact.size, replace=False)
+    ints = np.array([1, 2, 3, 5, 6, 7], np.float32)
+    for j, t in zip(exact, own):
+        big, tiny, mid = rng.permutation(3)
+        a, b, c = rng.choice(ints, 3) * rng.choice([-1.0, 1.0], 3)
+        q = np.zeros(3, np.float32)
+        q[mid] = rng.integers(-2, 3)
+        off = np.zeros(3, np.float32)
+        off[big], off[tiny], off[mid] = a * 2.0 ** 12, b * 2.0 ** -12, c
+        while True:
+            f1, f2 = rng.integers(-2, 3, (2, 3)).astype(np.float32)
+            n = np.cross(f1, f2)
+            if n[big] != 0:
+                break
+        if np.dot(off, n) < 0:  # det = 2^-12 (o - q).n > 0
+            f2 = -f2
+        o[j] = q + off
+        d[j] = -off * np.float32(2.0 ** -12)
+        v0[t], e1[t], e2[t] = q - f1 / 2, f1, f2
+        tmin[j], tmax[j] = 4096.0 - 2.0 ** -6, 4096.0 + 2.0 ** -6
     return o, d, tmin, tmax, v0, e1, e2
 
 
@@ -127,24 +191,30 @@ def scale_inputs(device="cuda"):
 
 def scale_timing(device="cuda", reps: int = 4):
     """The kernel on each of `scale_inputs`, by CUDA events. Returns one
-    dict per width: name, rays, tris (padded), ms and bytes (inputs once +
-    outputs)."""
+    dict per width: name, rays, tris (padded), ms, bytes (inputs once +
+    outputs) and product_tflops, the four depth-16 products' rate
+    (4 * 2 * 16 * R * T operations over ms), comparable with
+    `k_utilization_curve`'s depth-16 row."""
     rows = []
     for name, ins in scale_inputs(device):
         r, t_pad = ins[0].shape[0], ins[3].shape[1]
         ms = cuda_ms(lambda: brute.brute_closest(*ins), reps)
         slab_mb = sum(c.numel() * c.element_size() for c in ins[3:]) / 1e6
         n_bytes = sum(x.numel() * x.element_size() for x in ins) + 2 * 4 * r
+        tflops = 4 * 2 * 16 * r * t_pad / (ms * 1e-3) / 1e12
         print(f"{name} (T={t_pad}, coefficient slabs {slab_mb:.1f} MB): {ms:8.2f} ms per "
               f"{r}-ray batch = {ms / r * 1e6:.0f} ns/ray "
-              f"({r * t_pad / (ms * 1e-3) / 1e12:.3f} Tpairs/s)", flush=True)
-        rows.append({"name": name, "rays": r, "tris": t_pad, "ms": ms, "bytes": n_bytes})
+              f"({r * t_pad / (ms * 1e-3) / 1e12:.3f} Tpairs/s, products at {tflops:.1f} "
+              f"TFLOP/s)", flush=True)
+        rows.append({"name": name, "rays": r, "tris": t_pad, "ms": ms, "bytes": n_bytes,
+                     "product_tflops": tflops})
     return rows
 
 
 def main(device="cuda"):
     """Warm-up, correctness, then (on a card) the K curve and the scale
-    timings. Returns scale_timing's rows, or None on the CPU."""
+    timings. Returns (k_utilization_curve's rows, scale_timing's rows), or
+    None on the CPU."""
     dev = resolve(device)
     warm.warm(dev)
     print(f"device: {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}",
@@ -153,8 +223,7 @@ def main(device="cuda"):
     if dev.type == "cpu":
         print("(CPU: correctness only, on the plain version; run on the card for timings)")
         return None
-    k_utilization_curve(dev)
-    return scale_timing(dev)
+    return k_utilization_curve(dev), scale_timing(dev)
 
 
 if __name__ == "__main__":

@@ -7,9 +7,14 @@ only the port's dependencies:
     python -m pytest tests/test_torch_study_cuda.py -q
 
 Without a CUDA device every test here skips (the kernels have no CPU mode).
-Tolerance: none. Each kernel repeats its plain version's operations in the
-same order, each rounded on its own (built with -fmad=false, and the sums
-written with __fadd_rn / __fmul_rn), so the outputs are identical.
+Tolerance: none for the warm-up and per-lane kernels, which repeat their
+plain versions' operations in the same order, each rounded on its own
+(built with -fmad=false), so the outputs are identical. The brute-force
+kernel sums its products on the tensor cores, in an order the hardware
+fixes, so it is held to its plain version by ops/brute.compare_winners:
+every ray agrees or is explained by rounding, at least 99.9% agree where
+the rays are not built to graze, and the kernel's sums lie within the
+contract's delta (2^-16 of sum |f c|) of the exact ones.
 """
 
 import numpy as np
@@ -52,14 +57,21 @@ def test_brute_kernel_matches_plain(cuda_device):
     tmax = np.where(rng.random(n_rays) < 0.3, 2.5, 100.0).astype(np.float32)
     tris = [rng.normal(size=(n_tris, 3)).astype(np.float32) * s for s in (1.0, 0.3, 0.3)]
     launches = brute.KERNEL_LAUNCHES
-    for data in (bench_mxu.correctness_data(), (o, d, tmin, tmax, *tris)):
+    sets = {"correctness": bench_mxu.correctness_data(), "clipped": (o, d, tmin, tmax, *tris),
+            "grazing": bench_mxu.grazing_data(n_rays, n_tris, seed=4)}
+    for name, data in sets.items():
         ins = bench_mxu.brute_inputs(*data, cuda_device)
         got = brute.brute_closest(*ins)
         want = brute.brute_closest_ref(*ins)
-        for g, w in zip(got, want):
-            _identical(g, w)
+        sample = torch.arange(brute.RAYS_PER_CTA, device=cuda_device)
+        res = brute.compare_winners(ins, got, want,
+                                    sums=(sample, brute.brute_sums(ins[0][sample], *ins[3:])))
+        assert res["unexplained"] == 0, (name, res)
+        assert res["max_sum_dev"] <= brute.DELTA, (name, res)
+        if name != "grazing":
+            assert res["agree"] >= 0.999 * res["rays"], (name, res)
         assert 0 < int((want[1] >= 0).sum()) < ins[0].shape[0]
-    assert brute.KERNEL_LAUNCHES == launches + 2
+    assert brute.KERNEL_LAUNCHES == launches + len(sets)
 
 
 def test_brute_kernel_refuses_ragged_rays(cuda_device):
