@@ -23,8 +23,15 @@ Phases (any failure exits non-zero and prints no result line):
 4. the path tracer at full size: 1920x1080, trace_chunked(spp=4), one warm
    step and three timed steps, with the kernel launch counters reset first;
 5. tile-rasterizer kernel vs its plain PyTorch version at 1920x1080 on the
-   bench view and on a near-clipped view: tri, z, u and v bit-identical;
-   pair and crosser counts beside their caps; both timed on the bench view;
+   helmet's bench view and on a near-clipped view (and, in phase 7b, the
+   courtyard's bench view): tri, z, u and v bit-identical; pair and crosser
+   counts beside their caps; on both bench views the kernel timed through
+   its wrapper and its C launcher, the plain version timed, and the bound
+   from the inputs and outputs and the pixel centres inside the live pairs'
+   boxes (the all-pixel count, and the key buffer's scratch bytes, beside
+   it); where build/parent/raster.cu holds an older kernel source,
+   its launcher is timed in turns with this one's (parent, new, new,
+   parent) and its outputs held to this one's;
 6. raster fidelity: the helmet-raster golden configuration (192x108, frame
    0) through raster_step + post_step in both visibilities, against the
    committed CPU golden tests/goldens/helmet_raster.png by SSIM (bar 0.99);
@@ -36,13 +43,14 @@ Phases (any failure exits non-zero and prints no result line):
    courtyard bench scene built at 1920x1080; the traversal kernel vs its
    plain version on its tables for primary and lane-mixed rays at the main
    path's two launch sizes (t, u, v and word identical), timed through its
-   wrapper; the courtyard golden configuration (128x72, two accumulated
-   frames, tone mapped) against tests/goldens/courtyard_pt.png by SSIM (bar
-   0.99); the foliage scene (masked leaf, point light) at 48x48 with alpha
-   shadows on and off, card against CPU at the CPU tests' bar; then the
-   1080p courtyard step, trace_chunked(spp=4), one warm and two timed steps,
-   with every traversal launch accounted for (3 a chunk plus one a retry or
-   alpha-shadow hop) and no plain version run;
+   wrapper; phase 5's tile-kernel check on its bench view; the courtyard
+   golden configuration (128x72, two accumulated frames, tone mapped)
+   against tests/goldens/courtyard_pt.png by SSIM (bar 0.99); the foliage
+   scene (masked leaf, point light) at 48x48 with alpha shadows on and off,
+   card against CPU at the CPU tests' bar; then the 1080p courtyard step,
+   trace_chunked(spp=4), one warm and two timed steps, with every traversal
+   launch accounted for (3 a chunk plus one a retry or alpha-shadow hop)
+   and no plain version run;
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -66,7 +74,10 @@ Phases (any failure exits non-zero and prints no result line):
 9. per-lane fetch kernels (csrc/perlane.cu) vs their plain versions,
    bit-identical at the tool's three table shapes (plain versions timed),
    then `python -m gltf_renderer_tpu_torch.tools.bench_perlane`'s main with
-   the launch counters reset;
+   the launch counters reset: its pointer chases measure the card's L1 and
+   L2 hit latencies, and each kernel's latency floor (32 dependent loads,
+   as many L1 hits as its chains allow and L2 hits for the rest) is logged
+   beside its byte bound (the kernels line's `latency_floor_ms`);
 10. the port's bench entry point, `python -m gltf_renderer_tpu_torch.bench`,
    as a subprocess at 1920x1080 with BENCH_STEPS=3: one JSON line on
    stdout with the headline metric > 0, both gates true and raster FPS > 0;
@@ -111,6 +122,7 @@ ONEHOT_REPLACES = "tools/bench_perlane.py:47"
 SHUFFLE_REPLACES = "tools/bench_perlane.py:92"
 WARM_REPLACES = "bench.py:230"
 PARENT_K1 = os.path.join(ROOT, "build", "parent", "traverse.cu")  # optional, for phase 2's turns
+PARENT_K2 = os.path.join(ROOT, "build", "parent", "raster.cu")  # optional, for phase 5's turns
 PARENT_K3 = os.path.join(ROOT, "build", "parent", "brute.cu")  # optional, for phase 8's turns
 BRUTE_AGREE_BAR = 0.999  # share of rays on which K3 and its plain version name the same winner
 SOURCES = ("traverse.cu", "raster.cu", "warm.cu", "brute.cu", "perlane.cu")
@@ -126,8 +138,9 @@ PEAK_BF16_S = 989e12
 # f32 operations the kernels execute, counted from their sources (compares
 # included): a BVH node visit tests 4 child boxes at 25 each; a leaf visit
 # tests 16 triangles at 53 each; a live (triangle, tile) pair costs 29 per
-# tile pixel before the depth test (edge functions, inside test,
-# barycentrics, depth and its range test; the winner's u, v are not counted).
+# pixel centre inside its box (edge functions, inside test, barycentric
+# weights, depth and its range test, as the plain version counts them; the
+# winner's u, v are not counted).
 OPS_NODE_VISIT = 4 * 25
 OPS_LEAF_VISIT = 16 * 53
 OPS_PAIR_PIXEL = 29
@@ -344,72 +357,214 @@ def near_view(res):
     return camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=res[0] / res[1], z_near=0.01)
 
 
-def live_pairs(ins, cull_sign=1):
-    """(triangle, tile) pairs whose triangle the kernel does not skip (not
-    culled, |area| > 1e-12): the pairs whose pixels cost work."""
+def raster_work(ins):
+    """What the tile kernel's function needs on one view (cull +1): live
+    (triangle, tile) pairs (not culled, |area| > 1e-12), the pixel centres
+    inside each live pair's screen box and tile, and the tiles whose list
+    spans more than one work item."""
     import torch
 
+    from gltf_renderer_tpu_torch.ops import raster
+
     n = int(ins.offsets[-1])
-    r = ins.rows[ins.tri_list[:n].long()]
-    ri = ins.rows_i[ins.tri_list[:n].long()]
+    pos = torch.arange(n, device=ins.offsets.device)
+    slot = ins.tri_list[:n].long()
+    tile = torch.searchsorted(ins.offsets.long(), pos, right=True) - 1
+    r = ins.rows[slot]
     ax, ay, bx, by, cx, cy = (r[:, i] for i in range(6))
     area = (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
-    side = area > 0.0 if cull_sign > 0 else area <= 0.0
-    culled = side & ((ri[:, 1] & 1) == 0) if cull_sign else torch.zeros_like(side)
-    return int(((torch.abs(area) > 1e-12) & ~culled).sum())
+    culled = (area > 0.0) & ((ins.rows_i[slot, 1] & 1) == 0)
+    live = (torch.abs(area) > 1e-12) & ~culled
+
+    def centres(lo, hi, origin, size):
+        # pixel centres origin + i + 0.5, 0 <= i < size, within [lo, hi]
+        first = torch.clamp(torch.ceil(lo - origin - 0.5), 0, size)
+        last = torch.clamp(torch.floor(hi - origin - 0.5), -1, size - 1)
+        return torch.clamp(last - first + 1, min=0)
+
+    tiles_x = ins.tiles[0]
+    x0 = ((tile % tiles_x) * raster.TILE_W).float()
+    y0 = ((tile // tiles_x) * raster.TILE_H).float()
+    nx = centres(torch.minimum(torch.minimum(ax, bx), cx),
+                 torch.maximum(torch.maximum(ax, bx), cx), x0, raster.TILE_W)
+    ny = centres(torch.minimum(torch.minimum(ay, by), cy),
+                 torch.maximum(torch.maximum(ay, by), cy), y0, raster.TILE_H)
+    counts = torch.diff(ins.offsets)
+    return dict(valid=n, live=int(live.sum()), in_box_px=int((nx * ny)[live].sum()),
+                merged_tiles=int((counts > raster.CHUNK).sum()), longest=int(counts.max()))
 
 
-def phase_raster_kernel(scene, device):
-    """Tile kernel vs plain version at 1080p on two views; times on the
-    bench view. Returns (worst abs error, kernel ms, plain ms, bound ms,
-    bound by)."""
+def raster_bound(ins, outs, work):
+    """(bound ms, bound by, all-pixel bound ms, bytes, ops, key bytes).
+    Bytes: what the function must move, the inputs once (every setup row,
+    the valid list entries, the offsets) and the four outputs. Operations:
+    OPS_PAIR_PIXEL on each pixel centre inside a live pair's box; the
+    all-pixel count (every one of a live pair's 2,048 tile pixels, the count
+    until this kernel) beside it. Key bytes: the design's own scratch
+    traffic, not in the bound: the clear, one atomic write and one read of
+    each merged tile's 8-byte keys."""
+    from gltf_renderer_tpu_torch.ops import raster
+
+    tile_px = raster.TILE_H * raster.TILE_W
+    n_bytes = nbytes(ins.rows, ins.rows_i, ins.offsets) + 4 * work["valid"] + nbytes(*outs)
+    n_ops = work["in_box_px"] * OPS_PAIR_PIXEL
+    b_ms, b_by = bound(n_bytes, n_ops)
+    all_ms, _ = bound(n_bytes, work["live"] * tile_px * OPS_PAIR_PIXEL)
+    key_bytes = 3 * 8 * tile_px * work["merged_tiles"]
+    return b_ms, b_by, all_ms, n_bytes, n_ops, key_bytes
+
+
+def raster_launcher(lib, args):
+    """A no-argument launch of `lib`'s raster_tiles_launch (its argument
+    list read from raster_tiles_abi; a library without it is version 1) on
+    the wrapper's arguments `args` (cull +1) into fresh outputs, and the
+    outputs."""
+    import ctypes
+
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import raster
+
+    rows, rows_i, tri_list, offsets, (tiles_x, tiles_y) = args
+    abi = lib.raster_tiles_abi() if hasattr(lib, "raster_tiles_abi") else 1
+    shape = (tiles_y * raster.TILE_H, tiles_x * raster.TILE_W)
+    outs = [torch.empty(shape, dtype=dt, device=rows.device)
+            for dt in (torch.float32, torch.int32, torch.float32, torch.float32)]
+    ptrs = [x.data_ptr() for x in (rows, rows_i, tri_list, offsets)]
+    if abi == 1:
+        ints = [tiles_x, tiles_y, 1]
+        scratch = []
+    elif abi == 2:
+        ints = [tri_list.shape[0], tiles_x, tiles_y, 1]
+        scratch = [torch.empty(shape, dtype=torch.int64, device=rows.device)]
+    else:
+        raise RuntimeError(f"raster_tiles_launch version {abi} is not known here")
+    fn = lib.raster_tiles_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p] * (len(scratch) + 5))
+    fn.restype = ctypes.c_int
+    call = ptrs + ints + [x.data_ptr() for x in scratch + outs]
+
+    def run():
+        if fn(*call, torch._C._cuda_getCurrentRawStream(rows.get_device())) != 0:
+            raise RuntimeError("raster_tiles_launch failed")
+
+    return run, outs
+
+
+def raster_turns(args):
+    """The tile kernel's C launcher on ready tensors, and where PARENT_K2
+    holds an older kernel's source that kernel's launcher, timed in turns
+    (parent, new, new, parent, ...; CUDA events, 20 launches each, 4
+    rounds); the parent's outputs held to this kernel's bit for bit.
+    Returns {name: [ms, ...]}."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import _build
+
+    fns, outs = {}, {}
+    if os.path.exists(PARENT_K2):
+        fns["parent"], outs["parent"] = raster_launcher(_build.load(PARENT_K2), args)
+    fns["new"], outs["new"] = raster_launcher(_build.load("raster.cu"), args)
+    times = bench_traverse.time_in_turns(fns, rounds=4)
+    torch.cuda.synchronize()
+    if "parent" in outs:
+        same = all(identical(a, b) for a, b in zip(outs["parent"], outs["new"]))
+        if not same:
+            raise AssertionError("the parent tile kernel and this one disagree")
+    else:
+        log(f"[raster] turns: no parent kernel source at {PARENT_K2}, parent not timed")
+    return times
+
+
+def raster_view(name, world, c2w, timed):
+    """Tile kernel vs plain version (cull +1) at 1080p on one view: z, tri,
+    u and v identical or raise. When `timed`: the kernel through its wrapper
+    (20 calls), its launcher in turns with the parent's, the plain version
+    (its one checking call), and the bound. Returns a dict of the numbers."""
     import torch
 
     from gltf_renderer_tpu_torch import camera
-    from gltf_renderer_tpu_torch.bench_scene import bench_camera
     from gltf_renderer_tpu_torch.ops import raster
 
     w, h = FULL_RES
-    world = scene.world
-    worst = 0.0
-    timed = None
-    for name, c2w in (("bench", bench_camera(w, h)), ("near_clipped", near_view(FULL_RES))):
-        ins = raster.prepare_tiles(world.position, world.tri_vertex, camera.world_to_clip(c2w),
-                                   w, h, double_sided=world.tri_double_sided)
-        args = (ins.rows, ins.rows_i, ins.tri_list, ins.offsets, ins.tiles)
-        got = raster.rasterize_tiles(*args, cull_sign=1)
-        want = raster.rasterize_tiles_ref(*args, cull_sign=1)
+    ins = raster.prepare_tiles(world.position, world.tri_vertex, camera.world_to_clip(c2w),
+                               w, h, double_sided=world.tri_double_sided)
+    args = (ins.rows, ins.rows_i, ins.tri_list, ins.offsets, ins.tiles)
+    got = raster.rasterize_tiles(*args, cull_sign=1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want = raster.rasterize_tiles_ref(*args, cull_sign=1)
+    end.record()
+    torch.cuda.synchronize()
+    same = {n: identical(g, p) for n, g, p in zip(("z", "tri", "u", "v"), got, want)}
+    err = max(float(torch.abs(g.float() - p.float()).max()) for g, p in zip(got, want))
+    covered = int((want[1] >= 0).sum())
+    pairs, crossers = int(ins.n_pairs), int(ins.n_cross)
+    log(f"[raster] {name} {w}x{h} tiles={ins.tiles} rows={ins.rows.shape[0]} "
+        f"pairs={pairs}/{ins.pair_cap} crossers={crossers}/{ins.clip_cap} "
+        f"covered_px={covered} identical={same} max_abs_err={err}")
+    if not all(same.values()) or covered == 0:
+        raise AssertionError(f"tile kernel disagrees with its plain version on {name}")
+    if pairs > ins.pair_cap or crossers > ins.clip_cap:
+        log(f"[raster] {name}: pairs or crossers past their cap were dropped")
+    out = dict(err=err, crossers=crossers)
+    if not timed:
+        return out
+    ms_k = cuda_ms(lambda: raster.rasterize_tiles(*args, cull_sign=1), 20)
+    turns = raster_turns(args)
+    work = raster_work(ins)
+    b_ms, b_by, all_ms, n_bytes, n_ops, key_bytes = raster_bound(ins, got, work)
+    log(f"[raster] time {name} kernel={ms_k:.4f} ms (through rasterize_tiles) "
+        f"plain={start.elapsed_time(end):.3f} ms (one call) bound={b_ms:.4f} ms ({b_by}; "
+        f"bytes={n_bytes} ops={n_ops}) all-pixel bound={all_ms:.4f} ms; "
+        f"key buffer overhead {key_bytes} bytes ({key_bytes / PEAK_BYTES_S * 1e3:.4f} ms at "
+        f"the HBM rate, not in the bound); "
+        f"live_pairs={work['live']}/{work['valid']} in_box_px={work['in_box_px']} "
+        f"longest_list={work['longest']} merged_tiles={work['merged_tiles']}")
+    log(f"[raster] turns {name}: " + " ".join(f"{k}={[round(x, 5) for x in v]} ms"
+                                              for k, v in turns.items())
+        + " (CUDA events, 20 launches each, C launchers on ready tensors)")
+    log(f"[raster] device time by operation, {name} (torch.profiler, 10 calls): "
+        + ", ".join(f"{k} {v:.2f} us" for k, v in device_us_by_op(
+            lambda: raster.rasterize_tiles(*args, cull_sign=1)).items()))
+    return dict(out, ms=ms_k, plain_ms=start.elapsed_time(end), bound_ms=b_ms, bound_by=b_by,
+                bound_all_px_ms=all_ms, launcher_ms=statistics.median(turns["new"]),
+                parent_ms=turns.get("parent"))
+
+
+def device_us_by_op(fn, calls=10):
+    """{operation: device microseconds a call of fn} from torch.profiler's
+    CUDA activity over `calls` calls (kernel names cut at their argument
+    list)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        names = ("z", "tri", "u", "v")
-        same = {n: bool(torch.equal(g.view(torch.int32), p.view(torch.int32)))
-                for n, g, p in zip(names, got, want)}
-        err = max(float(torch.abs(g.float() - p.float()).max()) for g, p in zip(got, want))
-        covered = int((want[1] >= 0).sum())
-        pairs, crossers = int(ins.n_pairs), int(ins.n_cross)
-        log(f"[raster] {name} {w}x{h} tiles={ins.tiles} rows={ins.rows.shape[0]} "
-            f"pairs={pairs}/{ins.pair_cap} crossers={crossers}/{ins.clip_cap} "
-            f"covered_px={covered} identical={same} max_abs_err={err}")
-        if not all(same.values()) or covered == 0:
-            raise AssertionError(f"tile kernel disagrees with its plain version on {name}")
-        if pairs > ins.pair_cap or crossers > ins.clip_cap:
-            log(f"[raster] {name}: pairs or crossers past their cap were dropped")
-        if name == "near_clipped" and crossers == 0:
-            raise AssertionError("the near-clipped view clips no triangle")
-        worst = max(worst, err)
-        if name == "bench":
-            ms_k = cuda_ms(lambda: raster.rasterize_tiles(*args, cull_sign=1), 20)
-            ms_p = cuda_ms(lambda: raster.rasterize_tiles_ref(*args, cull_sign=1), 1)
-            n_live = live_pairs(ins)
-            n_valid = int(ins.offsets[-1])
-            n_bytes = (nbytes(ins.rows, ins.rows_i, ins.offsets) + 4 * n_valid
-                       + nbytes(*got))
-            n_ops = n_live * raster.TILE_H * raster.TILE_W * OPS_PAIR_PIXEL
-            b_ms, b_by = bound(n_bytes, n_ops)
-            log(f"[raster] time bench kernel={ms_k:.4f} ms plain={ms_p:.3f} ms "
-                f"live_pairs={n_live}/{n_valid} bytes={n_bytes} ops={n_ops} "
-                f"bound={b_ms:.4f} ms ({b_by})")
-            timed = (ms_k, ms_p, b_ms, b_by)
-    return (worst,) + timed
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        if us and ev.count:
+            out[ev.key.replace("(anonymous namespace)::", "").split("(")[0]] = us / calls
+    return out
+
+
+def phase_raster_kernel(scene):
+    """Tile kernel vs plain version at 1080p on the helmet's bench view
+    (timed) and a near-clipped view. Returns the bench view's numbers."""
+    from gltf_renderer_tpu_torch.bench_scene import bench_camera
+
+    row = raster_view("bench", scene.world, bench_camera(*FULL_RES), timed=True)
+    near = raster_view("near_clipped", scene.world, near_view(FULL_RES), timed=False)
+    if near["crossers"] == 0:
+        raise AssertionError("the near-clipped view clips no triangle")
+    return dict(row, err=max(row["err"], near["err"]))
 
 
 def phase_raster_fidelity(device):
@@ -544,6 +699,8 @@ def phase_courtyard(device, card):
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
     k1 = {rays[0]: k1_main_size(scene, meta, rays, "[courtyard] kernel")
           for rays in (sets[0], sets[2])}
+    # Phase 5's tile-kernel check and timing on the courtyard's bench view.
+    k2 = raster_view("courtyard", scene.world, c2w, timed=True)
 
     # The golden configuration, drawn as the renderer draws it.
     img, stats = render_courtyard_golden(device)
@@ -595,7 +752,8 @@ def phase_courtyard(device, card):
                              f"only: {launches} launches, {expected} expected")
     if sum(a for a, _ in hops) == 0:
         raise AssertionError("the courtyard step ran no masked retry")
-    return dict(k1=k1, launches=launches, steps=steps, hops=hops, mrays=mrays, step_s=step_s)
+    return dict(k1=k1, k2=k2, launches=launches, steps=steps, hops=hops, mrays=mrays,
+                step_s=step_s)
 
 
 def phase_foliage(device):
@@ -847,6 +1005,12 @@ def phase_perlane(device):
             "shuffle": (cuda_ms(lambda: perlane.shuffle_fetch_ref(s_ids, s_table, n, c, steps), 3),
                         bound(s_bytes, c * perlane.LANES * steps)),
         }
+        if label == PERLANE_ROW:
+            log(f"[perlane] device time a call, {label} (torch.profiler, 10 calls): "
+                + ", ".join(f"{k} {v:.2f} us" for k, v in {
+                    **device_us_by_op(lambda: perlane.onehot_fetch(ids, table, steps)),
+                    **device_us_by_op(lambda: perlane.shuffle_fetch(s_ids, s_table, n, c, steps)),
+                }.items()))
 
     perlane.KERNEL_LAUNCHES.update(dict.fromkeys(perlane.KERNEL_LAUNCHES, 0))
     refs = perlane.REFERENCE_CALLS
@@ -857,11 +1021,16 @@ def phase_perlane(device):
     out = {}
     for row in rows:
         p_ms, (b_ms, b_by) = plain[row["label"]][row["kind"]]
+        floor_ms = row["latency_floor_ms"]
         log(f"[perlane] tool {row['kind']} {row['label']}: kernel={row['ms']:.4f} ms "
-            f"({row['us_step']:.3f} us/step) plain={p_ms:.3f} ms bound={b_ms:.6f} ms ({b_by})")
+            f"({row['us_step']:.3f} us/step) plain={p_ms:.3f} ms bound={b_ms:.6f} ms ({b_by}); "
+            f"latency floor {floor_ms:.6f} ms ({bp.STEPS} dependent loads, at most "
+            f"{row['l1_hit_ceiling']:.3f} of them L1 hits, the rest L2 hits), "
+            f"kernel / max(bound, floor) = {row['ms'] / max(b_ms, floor_ms):.2f}")
         if row["label"] == PERLANE_ROW:
             out[row["kind"]] = {"ms": row["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
-                                "bound_by": b_by}
+                                "bound_by": b_by, "latency_floor_ms": floor_ms,
+                                "l1_hit_ceiling": row["l1_hit_ceiling"]}
     log(f"[perlane] tool launches={launches}; the kernel table's rows are the {PERLANE_ROW} "
         f"shape")
     common = {"route": "cuda", "source": "gltf_renderer_tpu_torch/csrc/perlane.cu",
@@ -933,7 +1102,8 @@ def build_kernels():
 
     from gltf_renderer_tpu_torch.ops import _build
 
-    sources = SOURCES + tuple(p for p in (PARENT_K1, PARENT_K3) if os.path.exists(p))
+    sources = SOURCES + tuple(p for p in (PARENT_K1, PARENT_K2, PARENT_K3)
+                              if os.path.exists(p))
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.load, sources))
 
@@ -978,7 +1148,7 @@ def main() -> int:
     worst_abs, times = phase_kernel_vs_plain(scene, meta, params, c2w, device)
     phase_fidelity(scene, meta, settings, params)
     launches, mrays, _ = phase_main_path(scene, meta, settings, params, c2w, card)
-    r_err, r_ms, r_plain, r_bound, r_by = phase_raster_kernel(scene, device)
+    k2 = phase_raster_kernel(scene)
     phase_raster_fidelity(device)
     frames = phase_raster_frame(scene, meta, params, c2w, card)
     log(f"[done] phases 1-7 in {time.perf_counter() - t_start:.1f}s")
@@ -998,6 +1168,7 @@ def main() -> int:
         f"{court_detail['kernel_launches']['traverse_wide']}")
     lane = times["lane_mixed"]
     c_lane = court["k1"]["lane_mixed"]
+    c_k2 = court["k2"]
     print(json.dumps({"kernels": [{
         "name": "traverse_wide", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
@@ -1010,8 +1181,15 @@ def main() -> int:
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,
-        "launches": frames["tiled"][1], "max_abs_err": r_err, "ms": r_ms, "plain_ms": r_plain,
-        "bound_ms": r_bound, "bound_by": r_by, "library_ms": None,
+        "launches": frames["tiled"][1], "max_abs_err": max(k2["err"], c_k2["err"]),
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"], "library_ms": None, "bound_all_px_ms": k2["bound_all_px_ms"],
+        "launcher_ms": k2["launcher_ms"], "parent_launcher_ms": k2["parent_ms"],
+        "courtyard_ms": c_k2["ms"], "courtyard_plain_ms": c_k2["plain_ms"],
+        "courtyard_bound_ms": c_k2["bound_ms"], "courtyard_bound_by": c_k2["bound_by"],
+        "courtyard_bound_all_px_ms": c_k2["bound_all_px_ms"],
+        "courtyard_launcher_ms": c_k2["launcher_ms"],
+        "courtyard_parent_launcher_ms": c_k2["parent_ms"],
     }, brute_row, *perlane_rows,
         dict(warm_row, launches=bench_detail["kernel_launches"]["add_one"])]}))
     print(card)

@@ -21,8 +21,10 @@
 // bf16 -> f32 fetch is exact, so the plain PyTorch twins in ops/perlane.py
 // and the JAX kernels agree with these bit for bit.
 //
-// What bounds them on an H100: the chain of `steps` dependent loads, each a
-// trip to L2 (the tables are 0.2-2.1 MB), not bytes and not operations.
+// What bounds them on an H100: the chain of `steps` dependent loads, not
+// bytes and not operations. Each load is a trip to L2 (the tables, 0.2-2.9
+// MB, stay there), or to L1 where the SM fetched its line before; the
+// tools' latency floor counts the most such L1 hits the chains allow.
 // The bytes that acc actually needs are small: onehot reads 8 bf16 of one
 // row per lane per step (2048 x 16 B = 32 KB a step), shuffle reads c f32
 // of one column per lane per step (c x 128 x 4 B, 56-80 KB a step). On the
@@ -91,7 +93,40 @@ __global__ void shuffle_fetch_kernel(const int* __restrict__ ids,
     out[(size_t)k * SHUFFLE_LANES + lane] = acc;
 }
 
+// The yardstick for both kernels' latency floor: the latency of one load
+// that hits L1 (via_l1: ld.global.ca over a chain inside L1) or L2 (else:
+// ld.global.cg, which bypasses L1, over a chain larger than L1 and inside
+// L2) on this card. One thread follows `steps` links of a chain of indices:
+// once to bring the lines into the cache, then again from the start
+// between two reads of the global timer. Writes the timed pass's
+// nanoseconds and both passes' last index (so neither is optimised away).
+__global__ void chase_latency_kernel(const int* __restrict__ chain, int steps, int via_l1,
+                                     long long* __restrict__ ns, int* __restrict__ sink) {
+    int warm = 0;
+    for (int i = 0; i < steps; ++i) warm = via_l1 ? __ldca(chain + warm) : __ldcg(chain + warm);
+    long long t0, t1;
+    int idx = 0;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0) :: "memory");
+    if (via_l1) {
+        for (int i = 0; i < steps; ++i) idx = __ldca(chain + idx);
+    } else {
+        for (int i = 0; i < steps; ++i) idx = __ldcg(chain + idx);
+    }
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1) :: "memory");
+    ns[0] = t1 - t0;
+    sink[0] = warm;
+    sink[1] = idx;
+}
+
 }  // namespace
+
+extern "C" int chase_latency_launch(const void* chain, int steps, int via_l1, void* ns,
+                                    void* sink, void* stream) {
+    if (steps <= 0) return (int)cudaErrorInvalidValue;
+    chase_latency_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int*)chain, steps, via_l1,
+                                                            (long long*)ns, (int*)sink);
+    return (int)cudaGetLastError();
+}
 
 extern "C" int onehot_fetch_launch(const void* ids, const void* table, int n_rows, int n_cols,
                                    int steps, int n_lanes, void* out, void* stream) {

@@ -49,6 +49,20 @@ def _nvcc() -> str:
     return path
 
 
+def source_define(source: str, name: str):
+    """The number that csrc/<source> gives the macro `name` in a line
+    `#define name <number>` (an int, or a float for a literal with a point
+    or an f suffix), so Python reads a kernel's constant from the one
+    place that sets it."""
+    with open(os.path.join(CSRC, source)) as f:
+        for line in f:
+            words = line.split()
+            if words[:2] == ["#define", name] and len(words) > 2:
+                lit = words[2]
+                return float(lit.rstrip("fF")) if "." in lit or lit[-1] in "fF" else int(lit)
+    raise KeyError(f"{source} does not #define {name}")
+
+
 def library_path(source: str) -> str:
     """Path of the shared library built from csrc/<source> (or from the
     absolute path `source`)."""

@@ -98,6 +98,52 @@ def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int):
                    int(steps))
 
 
+def _onehot_chain(ids, table, steps: int):
+    """The one-hot chain, step by step: yields (valid, ids, s) for each
+    step, the flat lanes' row ids before the fetch and the sums fetched."""
+    n = table.shape[0]
+    cols = table[:, :SUM_COLS].float()
+    idv = ids.reshape(-1)
+    for i in range(steps):
+        valid = (idv >= 0) & (idv < n)
+        rows = torch.where(valid[:, None], cols[idv.clamp(0, n - 1).long()], 0.0)
+        s = torch.zeros(idv.shape, dtype=torch.float32, device=ids.device)
+        for k in range(SUM_COLS):
+            s = s + rows[:, k]
+        yield valid, idv, s
+        idv = torch.remainder(idv + s.to(torch.int32) + i, n)
+
+
+def _shuffle_chain(ids, table, n_rows: int, n_cols: int, steps: int):
+    """The shuffle chain, step by step: yields (valid, ids, fetched) for
+    each step, the 128 lane ids before the fetch and the (c, 128) values
+    fetched."""
+    groups = _groups(n_rows)
+    k = torch.arange(n_cols, device=ids.device)[:, None]
+    idv = ids[0]
+    for i in range(steps):
+        grp = torch.div(idv, LANES, rounding_mode="floor")
+        valid = (grp >= 0) & (grp < groups)
+        rows = grp.clamp(0, groups - 1).long()[None, :] * n_cols + k
+        cols = torch.remainder(idv, LANES).long()[None, :]
+        fetched = torch.where(valid[None, :], table[rows, cols], 0.0)
+        yield valid, idv, fetched
+        idv = torch.remainder(idv + fetched[0].to(torch.int32) + i, n_rows)
+
+
+def chain_ids(kind: str, ids, table, n_rows: int, n_cols: int, steps: int):
+    """The ids each lane fetches at each step of `kind`'s chain ("onehot" or
+    "shuffle"), (steps, lanes) int32, from the plain version's steps. A
+    measurement of the inputs, not a plain-version call: not counted."""
+    if kind == "onehot":
+        _check_onehot(ids, table)
+        chain = _onehot_chain(ids, table, steps)
+    else:
+        _check_shuffle(ids, table, n_rows, n_cols)
+        chain = _shuffle_chain(ids, table, n_rows, n_cols, steps)
+    return torch.stack([idv for _, idv, _ in chain])
+
+
 def onehot_fetch_ref(ids, table, steps: int, visited=None):
     """Plain PyTorch version of `onehot_fetch`. visited: an optional (n,)
     bool tensor in which the rows the lanes fetch are set, the rows the
@@ -105,20 +151,11 @@ def onehot_fetch_ref(ids, table, steps: int, visited=None):
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
     _check_onehot(ids, table)
-    n = table.shape[0]
-    cols = table[:, :SUM_COLS].float()
-    idv = ids.reshape(-1)
-    acc = torch.zeros(idv.shape, dtype=torch.float32, device=ids.device)
-    for i in range(steps):
-        valid = (idv >= 0) & (idv < n)
+    acc = torch.zeros(ids.numel(), dtype=torch.float32, device=ids.device)
+    for valid, idv, s in _onehot_chain(ids, table, steps):
         if visited is not None:
             visited[idv[valid].long()] = True
-        rows = torch.where(valid[:, None], cols[idv.clamp(0, n - 1).long()], 0.0)
-        s = torch.zeros_like(acc)
-        for k in range(SUM_COLS):
-            s = s + rows[:, k]
         acc = acc + s
-        idv = torch.remainder(idv + s.to(torch.int32) + i, n)
     return acc.reshape(ids.shape)
 
 
@@ -129,18 +166,9 @@ def shuffle_fetch_ref(ids, table, n_rows: int, n_cols: int, steps: int, visited=
     global REFERENCE_CALLS
     REFERENCE_CALLS += 1
     _check_shuffle(ids, table, n_rows, n_cols)
-    groups = _groups(n_rows)
-    k = torch.arange(n_cols, device=ids.device)[:, None]
-    idv = ids[0]
     acc = torch.zeros((n_cols, LANES), dtype=torch.float32, device=ids.device)
-    for i in range(steps):
-        grp = torch.div(idv, LANES, rounding_mode="floor")
-        valid = (grp >= 0) & (grp < groups)
+    for valid, idv, fetched in _shuffle_chain(ids, table, n_rows, n_cols, steps):
         if visited is not None:
             visited[idv[valid].long()] = True
-        rows = grp.clamp(0, groups - 1).long()[None, :] * n_cols + k
-        cols = torch.remainder(idv, LANES).long()[None, :]
-        fetched = torch.where(valid[None, :], table[rows, cols], 0.0)
         acc = acc + fetched
-        idv = torch.remainder(idv + fetched[0].to(torch.int32) + i, n_rows)
     return acc

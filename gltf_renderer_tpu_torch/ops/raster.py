@@ -15,6 +15,9 @@ tensors' device with no host sync:
 4. `rasterize_tiles`: the per-tile z-buffer. A CPU tensor goes to the plain
    version `rasterize_tiles_ref`; a CUDA tensor goes to the CUDA kernel
    (csrc/raster.cu), or the call raises. There is no fallback between them.
+   The kernel cuts each tile's list into work items of CHUNK entries and
+   merges a tile's items through a per-pixel 64-bit key buffer that the
+   wrapper allocates.
 
 `KERNEL_LAUNCHES` and `REFERENCE_CALLS` count kernel launches and
 plain-version calls, so a run can show which one it used.
@@ -48,7 +51,8 @@ KERNEL_LAUNCHES = 0
 REFERENCE_CALLS = 0
 
 _SOURCE = "raster.cu"
-_ARGTYPES = [_build.VP] * 4 + [_build.CI] * 3 + [_build.VP] * 5
+CHUNK = _build.source_define(_SOURCE, "RASTER_CHUNK")  # list entries of one work item
+_ARGTYPES = [_build.VP] * 4 + [_build.CI] * 4 + [_build.VP] * 6
 
 
 def default_pair_cap(n_tris: int) -> int:
@@ -320,10 +324,12 @@ def rasterize_tiles(rows, rows_i, tri_list, offsets, tiles: Tuple[int, int],
     out_tri = torch.empty(shape, dtype=torch.int32, device=dev)
     out_u = torch.empty_like(out_z)
     out_v = torch.empty_like(out_z)
+    keys = torch.empty(shape, dtype=torch.int64, device=dev)  # the launch clears what it uses
     ins = [x.contiguous() for x in (rows, rows_i, tri_list, offsets)]
     _build.launch(_build.entry(_SOURCE, "raster_tiles_launch", _ARGTYPES), "raster_tiles",
-                  dev.index, *[x.data_ptr() for x in ins], tiles_x, tiles_y, int(cull_sign),
-                  out_z.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(), out_v.data_ptr())
+                  dev.index, *[x.data_ptr() for x in ins], tri_list.shape[0], tiles_x, tiles_y,
+                  int(cull_sign), keys.data_ptr(), out_z.data_ptr(), out_tri.data_ptr(),
+                  out_u.data_ptr(), out_v.data_ptr())
     KERNEL_LAUNCHES += 1
     return out_z, out_tri, out_u, out_v
 

@@ -104,5 +104,54 @@ def test_wrappers_refuse_bad_inputs():
 def test_tool_runs_on_cpu(capsys):
     rows = port_perlane.main("cpu")
     assert len(rows) == 2 * len(port_perlane.SHAPES)
-    assert all(r["ms"] is None for r in rows)
+    assert all(r["ms"] is None and r["latency_floor_ms"] is None for r in rows)
+    assert all(0.0 <= r["l1_hit_ceiling"] < 1.0 for r in rows)
     assert "no time on the CPU" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("level", ["l1", "l2"])
+def test_latency_probe_needs_the_card(level):
+    with pytest.raises(ValueError, match="CUDA device"):
+        port_perlane.hit_latency_ns("cpu", level)
+
+
+def test_l1_hit_ceiling_counts_each_blocks_first_touches():
+    """A line a block touches misses L1 once: lanes that all walk the same
+    rows in one block share every line; in separate blocks each block pays
+    its own first touches. The shuffle chains' lines are those of column 0."""
+    n, c, steps = 512, 16, 4
+    table = torch.zeros((n, c), dtype=torch.bfloat16)   # s = 0: id advances by i
+    same = torch.zeros((16, 128), dtype=torch.int32)
+    rows_a_line = port_perlane.LINE_BYTES // (c * 2)    # 4 rows of 32 B share a line
+    # ids 0, 0, 1, 3: lines 0, 0, 0, 0 -> one line for the whole block
+    got = port_perlane.l1_hit_ceiling("onehot", same, table, n, c, steps)
+    assert got == 1.0 - 16 / (2048 * steps)             # 16 blocks, one line each
+    spread = torch.arange(2048, dtype=torch.int32).reshape(16, 128) * rows_a_line % n
+    got = port_perlane.l1_hit_ceiling("onehot", spread, table, n, c, steps)
+    assert 0.0 <= got < 1.0 - 16 / (2048 * steps)
+    s_table = torch.zeros((-(-n // 128) * c, 128), dtype=torch.float32)
+    s_ids = torch.zeros((1, 128), dtype=torch.int32)
+    got = port_perlane.l1_hit_ceiling("shuffle", s_ids, s_table, n, c, steps)
+    assert got == 1.0 - 1 / (128 * steps)               # ids 0..3: one 128-byte line
+
+
+@pytest.mark.parametrize("kind", ["onehot", "shuffle"])
+def test_chain_ids_are_the_plain_versions_fetches(kind):
+    """`chain_ids` lists the ids the plain version fetches, step by step,
+    and is not counted as a plain-version call."""
+    rng = np.random.RandomState(7)
+    n, c, steps = 768, 112, 6
+    if kind == "onehot":
+        ids, table = port_perlane.onehot_inputs(rng, n, c, "cpu")
+        visited = torch.zeros(n, dtype=torch.bool)
+        perlane.onehot_fetch_ref(ids, table, steps, visited=visited)
+    else:
+        ids, table = port_perlane.shuffle_inputs(rng, n, c, "cpu")
+        visited = torch.zeros(table.shape[0] // c * perlane.LANES, dtype=torch.bool)
+        perlane.shuffle_fetch_ref(ids, table, n, c, steps, visited=visited)
+    calls = perlane.REFERENCE_CALLS
+    got = perlane.chain_ids(kind, ids, table, n, c, steps)
+    assert perlane.REFERENCE_CALLS == calls
+    assert got.shape == (steps, ids.numel())
+    assert torch.equal(got[0], ids.reshape(-1))
+    assert set(got.reshape(-1).tolist()) == set(torch.nonzero(visited)[:, 0].tolist())

@@ -8,9 +8,13 @@ only the port's dependencies:
 Without a CUDA device every test here skips (the kernel has no CPU mode).
 Tolerance: none. The kernel and `rasterize_tiles_ref` test triangles in the
 same order and round every operation the same way (the kernel is built with
--fmad=false), so z, tri, u and v are identical bit for bit. Cases: a tile
-list longer than one shared-memory batch, mostly empty tiles, a near-clipped
-view, and a ragged last tile row, each under cull -1, 0 and +1.
+-fmad=false) and merge work items by the largest (depth, first listed)
+key, so z, tri, u and v are identical bit for bit. Cases: a tile list of
+several work items, mostly empty tiles, a near-clipped view, a ragged last
+tile row, a "pole" (thousands of tiny triangles in one tile, duplicates at
+equal depth on both sides of every item boundary), needles at the edge of
+the sub-tile rejection rule's error bound, and lists of exactly one work
+item and one entry more, each under cull -1, 0 and +1.
 """
 
 import numpy as np
@@ -20,9 +24,11 @@ import torch
 from gltf_renderer_tpu_torch import camera
 from gltf_renderer_tpu_torch.ops import raster
 
+import raster_soups
+
 pytestmark = pytest.mark.cuda
 
-BATCH = 128  # RASTER_BATCH in csrc/raster.cu
+BATCH = raster.CHUNK  # list entries of one work item (RASTER_CHUNK in csrc/raster.cu)
 
 
 @pytest.fixture
@@ -30,24 +36,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda:0")
-
-
-def _soup(n, box, seed, size=12.0):
-    """Random screen triangles inside box = (x0, y0, x1, y1): setup rows,
-    integer rows (random double-sided flags) and a validity mask (numpy)."""
-    rs = np.random.default_rng(seed)
-    c = rs.uniform(box[:2], box[2:], (n, 2))
-    xy = c[:, None, :] + rs.uniform(-size, size, (n, 3, 2))
-    rows = np.zeros((n, raster.SETUP_WIDTH), np.float32)
-    rows[:, 0:6] = xy.reshape(n, 6)
-    rows[:, 6:9] = rs.uniform(0.0, 1.1, (n, 3))
-    rows[:, 9:12] = rs.uniform(0.5, 2.0, (n, 3))
-    rows[:, 12:18] = rs.random((n, 6))
-    rows[-16:] = rows[:16]  # exact duplicates: equal depths, the first must win
-    rows_i = np.zeros((n, raster.SETUP_INT_WIDTH), np.int32)
-    rows_i[:, 0] = np.arange(n)
-    rows_i[:, 1] = rs.random(n) < 0.3
-    return rows, rows_i, np.ones(n, bool)
 
 
 def _binned(rows, rows_i, valid, w, h, device):
@@ -71,7 +59,7 @@ def _assert_kernel_equals_plain(args):
 
 
 def test_list_longer_than_one_batch(cuda_device):
-    rows, rows_i, valid = _soup(700, (0, 0, 128, 16), seed=1, size=6.0)
+    rows, rows_i, valid = raster_soups.soup(700, (0, 0, 128, 16), seed=1, size=6.0)
     args = _binned(rows, rows_i, valid, 256, 32, cuda_device)
     counts = torch.diff(args[3])
     assert int(counts.max()) > 3 * BATCH
@@ -79,7 +67,7 @@ def test_list_longer_than_one_batch(cuda_device):
 
 
 def test_mostly_empty_tiles(cuda_device):
-    rows, rows_i, valid = _soup(40, (500, 150, 640, 200), seed=2)
+    rows, rows_i, valid = raster_soups.soup(40, (500, 150, 640, 200), seed=2)
     args = _binned(rows, rows_i, valid, 640, 200, cuda_device)
     counts = torch.diff(args[3])
     assert int((counts == 0).sum()) > counts.numel() // 2
@@ -124,3 +112,28 @@ def test_ragged_last_tile_row(cuda_device):
                                            torch.from_numpy(tv).to(cuda_device),
                                            camera.world_to_clip(c2w), w, h)
     assert tri.shape == (h, w) and (tri >= 0).any()
+
+
+def test_pole_across_many_items(cuda_device):
+    rows, rows_i, valid, pairs = raster_soups.pole()
+    args = _binned(rows, rows_i, valid, *raster_soups.POLE_SIZE, cuda_device)
+    assert int(torch.diff(args[3])[3]) > 30 * BATCH
+    _assert_kernel_equals_plain(args)
+    tri = raster.rasterize_tiles(*args, cull_sign=0)[1]
+    won = set(torch.unique(tri).tolist())
+    assert not won & {copy for _, copy in pairs}
+    assert len(won & {first for first, _ in pairs}) >= 0.9 * len(pairs)
+
+
+def test_needles_at_the_rejection_bound(cuda_device):
+    for seed in (3, 4):
+        rows, rows_i, valid = raster_soups.needles(seed=seed)
+        _assert_kernel_equals_plain(_binned(rows, rows_i, valid, 256, 64, cuda_device))
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_list_of_exactly_one_item(cuda_device, extra):
+    rows, rows_i, valid = raster_soups.one_tile(BATCH + extra, seed=9)
+    args = _binned(rows, rows_i, valid, 128, 16, cuda_device)
+    assert args[3].tolist() == [0, BATCH + extra]
+    _assert_kernel_equals_plain(args)

@@ -92,3 +92,15 @@ def test_perlane_kernels_match_plain(cuda_device, label, n, c):
     _identical(perlane.shuffle_fetch(ids, table, n, c, 32),
                perlane.shuffle_fetch_ref(ids, table, n, c, 32))
     assert perlane.KERNEL_LAUNCHES == {k: v + 1 for k, v in launches.items()}
+
+
+def test_l2_latency_probe(cuda_device):
+    """The pointer chase's L2 hit latency is a load's, not a kernel launch's
+    or a memory-bound stream's: between 50 ns and 2 us, and the same length
+    of chain twice gives the same latency within 20%. The L1 chase hits L1:
+    faster than L2, and above 5 ns."""
+    a = bench_perlane.hit_latency_ns(cuda_device, "l2")
+    b = bench_perlane.hit_latency_ns(cuda_device, "l2")
+    assert 50.0 < a < 2000.0 and abs(a - b) < 0.2 * a
+    l1 = bench_perlane.hit_latency_ns(cuda_device, "l1")
+    assert 5.0 < l1 < 0.8 * a
