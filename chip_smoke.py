@@ -101,7 +101,7 @@ import time
 
 import numpy as np
 
-from gltf_renderer_tpu_torch.device import cuda_ms
+from gltf_renderer_tpu_torch.device import cuda_ms, device_us_by_op, graph_us
 from gltf_renderer_tpu_torch.tools import bench_traverse
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -124,6 +124,7 @@ WARM_REPLACES = "bench.py:230"
 PARENT_K1 = os.path.join(ROOT, "build", "parent", "traverse.cu")  # optional, for phase 2's turns
 PARENT_K2 = os.path.join(ROOT, "build", "parent", "raster.cu")  # optional, for phase 5's turns
 PARENT_K3 = os.path.join(ROOT, "build", "parent", "brute.cu")  # optional, for phase 8's turns
+PARENT_K5 = os.path.join(ROOT, "build", "parent", "perlane.cu")  # optional, for phase 9's turns
 BRUTE_AGREE_BAR = 0.999  # share of rays on which K3 and its plain version name the same winner
 SOURCES = ("traverse.cu", "raster.cu", "warm.cu", "brute.cu", "perlane.cu")
 PERLANE_ROW = "courtyard-node"  # the table shape phase 9 reports in the kernel table
@@ -527,32 +528,11 @@ def raster_view(name, world, c2w, timed):
                                               for k, v in turns.items())
         + " (CUDA events, 20 launches each, C launchers on ready tensors)")
     log(f"[raster] device time by operation, {name} (torch.profiler, 10 calls): "
-        + ", ".join(f"{k} {v:.2f} us" for k, v in device_us_by_op(
+        + ", ".join(f"{k} {us:.2f} us ({n} launches recorded)" for k, (us, n) in device_us_by_op(
             lambda: raster.rasterize_tiles(*args, cull_sign=1)).items()))
     return dict(out, ms=ms_k, plain_ms=start.elapsed_time(end), bound_ms=b_ms, bound_by=b_by,
                 bound_all_px_ms=all_ms, launcher_ms=statistics.median(turns["new"]),
                 parent_ms=turns.get("parent"))
-
-
-def device_us_by_op(fn, calls=10):
-    """{operation: device microseconds a call of fn} from torch.profiler's
-    CUDA activity over `calls` calls (kernel names cut at their argument
-    list)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
-        if us and ev.count:
-            out[ev.key.replace("(anonymous namespace)::", "").split("(")[0]] = us / calls
-    return out
 
 
 def phase_raster_kernel(scene):
@@ -971,8 +951,11 @@ def brute_turns(name, ins, got, device):
 
 
 def phase_perlane(device):
-    """Per-lane fetch kernels vs plain at the tool's shapes, then the tool's
-    main path. Returns their two kernel-table rows."""
+    """Per-lane fetch kernels vs plain at the tool's shapes; the shuffle
+    kernel's study (tools.bench_perlane.study: graph-replay and profiler
+    device time at every shape, in turns with PARENT_K5's kernel where that
+    source exists, the steps sweep, SASS, clocks); then the tool's main
+    path. Returns their two kernel-table rows."""
     import torch
 
     from gltf_renderer_tpu_torch.ops import perlane
@@ -980,7 +963,7 @@ def phase_perlane(device):
 
     rng = np.random.RandomState(5)
     steps = bp.STEPS
-    plain = {}
+    plain, device_us = {}, {}
     for label, n, c in bp.SHAPES:
         ids, table = bp.onehot_inputs(rng, n, c, device)
         visited = torch.zeros(n, dtype=torch.bool, device=device)
@@ -1006,12 +989,41 @@ def phase_perlane(device):
                         bound(s_bytes, c * perlane.LANES * steps)),
         }
         if label == PERLANE_ROW:
-            log(f"[perlane] device time a call, {label} (torch.profiler, 10 calls): "
-                + ", ".join(f"{k} {v:.2f} us" for k, v in {
-                    **device_us_by_op(lambda: perlane.onehot_fetch(ids, table, steps)),
-                    **device_us_by_op(lambda: perlane.shuffle_fetch(s_ids, s_table, n, c, steps)),
-                }.items()))
+            by_op = {**device_us_by_op(lambda: perlane.onehot_fetch(ids, table, steps)),
+                     **device_us_by_op(lambda: perlane.shuffle_fetch(s_ids, s_table, n, c, steps))}
+            log(f"[perlane] device time a launch, {label} (torch.profiler, 10 calls): "
+                + ", ".join(f"{k} {us:.2f} us ({n} launches recorded)"
+                            for k, (us, n) in by_op.items()))
+            o_us, o_n = next(v for k, v in by_op.items() if "onehot" in k)
+            device_us["onehot"] = {
+                "graph_us": graph_us(lambda: perlane.onehot_fetch(ids, table, steps)),
+                "profiler_us": o_us, "profiler_launches": o_n}
+            log(f"[perlane] onehot device time a call, {label}: "
+                f"{device_us['onehot']['graph_us']:.3f} us (64 launches in one CUDA graph)")
 
+    parent = PARENT_K5 if os.path.exists(PARENT_K5) else None
+    if parent is None:
+        log(f"[perlane] no parent kernel source at {PARENT_K5}, parent not timed")
+    study = bp.study(device, parent)
+    for name, info in study["sass"].items():
+        log(f"[sass] {name}: path {info['path_len']}; opcodes "
+            + ", ".join(f"{k} {v}" for k, v in info["opcodes"].items()))
+    row = study["shapes"][PERLANE_ROW]
+    sweep = study["sweep"]["new"]
+    device_us["shuffle"] = {"graph_us": statistics.mean(row["new_graph_us"]),
+                            "profiler_us": row["new_profiler_us"][0],
+                            "profiler_launches": row["new_profiler_us"][1],
+                            "slope_ns": sweep["slope_ns"], "intercept_us": sweep["intercept_us"],
+                            "steps0_us": sweep["steps0_us"], "k6_graph_us": study["k6_graph_us"]}
+    if parent:
+        device_us["shuffle"].update(
+            parent_graph_us=statistics.mean(row["parent_graph_us"]),
+            parent_slope_ns=study["sweep"]["parent"]["slope_ns"],
+            parent_intercept_us=study["sweep"]["parent"]["intercept_us"])
+
+    # The tool's main path: its launches counted from 0. The study above
+    # captured CUDA graphs, whose replays launch kernels that the counters
+    # saw once, at capture; it runs before the counters are reset.
     perlane.KERNEL_LAUNCHES.update(dict.fromkeys(perlane.KERNEL_LAUNCHES, 0))
     refs = perlane.REFERENCE_CALLS
     rows = bp.main(device)
@@ -1023,16 +1035,21 @@ def phase_perlane(device):
         p_ms, (b_ms, b_by) = plain[row["label"]][row["kind"]]
         floor_ms = row["latency_floor_ms"]
         log(f"[perlane] tool {row['kind']} {row['label']}: kernel={row['ms']:.4f} ms "
-            f"({row['us_step']:.3f} us/step) plain={p_ms:.3f} ms bound={b_ms:.6f} ms ({b_by}); "
+            f"({row['us_step']:.3f} us/step; 16 calls back to back, launch-bound) "
+            f"plain={p_ms:.3f} ms bound={b_ms:.6f} ms ({b_by}); "
             f"latency floor {floor_ms:.6f} ms ({bp.STEPS} dependent loads, at most "
-            f"{row['l1_hit_ceiling']:.3f} of them L1 hits, the rest L2 hits), "
-            f"kernel / max(bound, floor) = {row['ms'] / max(b_ms, floor_ms):.2f}")
+            f"{row['l1_hit_ceiling']:.3f} of them L1 hits, the rest L2 hits)")
         if row["label"] == PERLANE_ROW:
-            out[row["kind"]] = {"ms": row["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
-                                "bound_by": b_by, "latency_floor_ms": floor_ms,
-                                "l1_hit_ceiling": row["l1_hit_ceiling"]}
+            dev = device_us[row["kind"]]
+            ms = dev["graph_us"] * 1e-3
+            log(f"[perlane] {row['kind']} {PERLANE_ROW}: device time a call {ms:.6f} ms, "
+                f"{ms / floor_ms:.2f}x its latency floor")
+            out[row["kind"]] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                "tool_ms": row["ms"], "latency_floor_ms": floor_ms,
+                                "l1_hit_ceiling": row["l1_hit_ceiling"],
+                                **{k: v for k, v in dev.items() if k != "graph_us"}}
     log(f"[perlane] tool launches={launches}; the kernel table's rows are the {PERLANE_ROW} "
-        f"shape")
+        f"shape, ms the device time a call (CUDA graph replay), tool_ms the tool's own timing")
     common = {"route": "cuda", "source": "gltf_renderer_tpu_torch/csrc/perlane.cu",
               "max_abs_err": 0.0, "library_ms": None}
     return [dict(common, name="onehot_fetch", replaces=ONEHOT_REPLACES,
@@ -1079,17 +1096,11 @@ def brute_sass():
     """Opcode counts of the brute-force kernel's SASS (cuobjdump -sass of
     its library): {opcode: count} for the closest-hit kernel. Raises when
     the kernel has no HGMMA (wgmma) instruction."""
-    import re
-    import subprocess
-
     from gltf_renderer_tpu_torch.ops import _build
 
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", _build.library_path("brute.cu")], check=True,
-                          capture_output=True, text=True, timeout=60).stdout
-    body = next(f for f in re.split(r"\n\s*Function : ", sass)[1:]
-                if f.startswith("_Z") and "ILb0E" in f.split("\n")[0])
-    ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+    body = next(lines for name, lines in _build.sass("brute.cu").items()
+                if name.startswith("_Z") and "ILb0E" in name)
+    ops = [_build.opcode(x) for x in body]
     counts = {op: ops.count(op) for op in sorted(set(ops))}
     if not counts.get("HGMMA"):
         raise AssertionError("the brute-force kernel has no wgmma (HGMMA) instruction")
@@ -1102,7 +1113,7 @@ def build_kernels():
 
     from gltf_renderer_tpu_torch.ops import _build
 
-    sources = SOURCES + tuple(p for p in (PARENT_K1, PARENT_K2, PARENT_K3)
+    sources = SOURCES + tuple(p for p in (PARENT_K1, PARENT_K2, PARENT_K3, PARENT_K5)
                               if os.path.exists(p))
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.load, sources))

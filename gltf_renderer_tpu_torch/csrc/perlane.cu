@@ -14,29 +14,38 @@
 //   acc[k] += fetched[k], id = (id + int(fetched[0]) + i) mod n. Out: acc,
 //   (c, 128) f32.
 //
-// int() truncates toward zero and mod is the floor modulo, as the JAX
-// kernels' astype(int32) and %. An id outside the table fetches zeros, as
+// int() truncates toward zero, saturates to int32 and takes NaN to 0, the
+// sum wraps as int32, and mod is the floor modulo, as the JAX kernels'
+// astype(int32), + and %. An id outside the table fetches zeros, as
 // the one-hot row and the group select do there. Every sum is taken in the
 // JAX kernels' order with each add rounded on its own (__fadd_rn), and a
 // bf16 -> f32 fetch is exact, so the plain PyTorch twins in ops/perlane.py
 // and the JAX kernels agree with these bit for bit.
 //
 // What bounds them on an H100: the chain of `steps` dependent loads, not
-// bytes and not operations. Each load is a trip to L2 (the tables, 0.2-2.9
-// MB, stay there), or to L1 where the SM fetched its line before; the
-// tools' latency floor counts the most such L1 hits the chains allow.
-// The bytes that acc actually needs are small: onehot reads 8 bf16 of one
-// row per lane per step (2048 x 16 B = 32 KB a step), shuffle reads c f32
-// of one column per lane per step (c x 128 x 4 B, 56-80 KB a step). On the
-// TPU the one-hot product and the group scan read the whole table every
-// step. So the design is one thread per chain: onehot one thread per lane;
-// shuffle one thread per (column k, lane), each re-walking its lane's id
-// chain from column 0 so that no thread waits on another.
+// bytes and not operations. The tables (0.2-2.9 MB) stay in L2 between
+// calls; the onehot kernel reads 8 bf16 of one row per lane per step, one
+// thread a lane, each load an L2 or L1 hit.
+//
+// The shuffle kernel was first one block of 128 lanes per column, every
+// block walking its lanes' chains from the table in place. Measured on the
+// card (tools/bench_perlane --study, PERF.md): 186 ns a step against a
+// 26 ns floor, set by the loads, not by the 24-instruction id step. The
+// chains visit nearly every 128-byte line of a column within 32 steps, so
+// most early steps missed L1 (an L2 round trip on the chain) and each
+// scattered warp load took ~27 L1 wavefronts. So now a block first copies
+// column 0 and its K columns whole into shared memory (coalesced 16-byte
+// cp.async, about what the chains would pull from L2 anyway), laid out by
+// id, and then walks each lane's chain once for the K columns from shared
+// memory: a step is one LDS, the F2I, an add and an unsigned min (next_id).
+// A table too large to stage (over 227 KB for 1 + K columns) is read in
+// place by the same code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define SHUFFLE_LANES 128
+#define SHUFFLE_SMEM_MAX 232448  // bytes of shared memory a block can use on an H100
 
 namespace {
 
@@ -65,32 +74,138 @@ __global__ void onehot_fetch_kernel(const int* __restrict__ ids,
             for (int k = 0; k < 8; ++k) s = __fadd_rn(s, bf16_to_f32(row[k]));
         }
         acc = __fadd_rn(acc, s);
-        id = floor_mod(id + (int)s + i, n_rows);
+        id = floor_mod((int)((unsigned)id + (unsigned)__float2int_rz(s) + (unsigned)i), n_rows);
     }
     out[lane] = acc;
 }
 
+// int() is __float2int_rz (cvt.rzi), which saturates and maps NaN to 0 as
+// XLA's convert does; the sum wraps as the JAX kernels' int32 sum does.
+__device__ __forceinline__ int exact_next_id(int id, float f0, int i, int n) {
+    return floor_mod((int)((unsigned)id + (unsigned)__float2int_rz(f0) + (unsigned)i), n);
+}
+
+// The shuffle kernel's common step, after step 0 (id in [0, n)): for f0 in
+// [0, 2^23), f0 + 2^23 rounded toward zero is 2^23 + int(f0), so its bits
+// are F2I_BIAS + int(f0) (an FADD in place of the slower F2I); and
+// x = id + int(f0) + i in [0, bound) (bound = 2n, or n where 2n would pass
+// 2^31) has floor_mod(x, n) = the unsigned min of x and x - n (which wraps
+// above x when x < n). `rare` records a step outside both ranges; the id
+// is then clamped into [0, n) so that the next fetch stays in the table,
+// and the caller walks the lane again with exact_next_id. No branch and no
+// division on the chain.
+#define F2I_BIAS 0x4B000000u  // the bits of 2^23
+
+template <bool B>
+struct Exact {
+    static constexpr bool value = B;
+};
+
+__device__ __forceinline__ int fast_next_id(int id, float f0, int i, unsigned n, unsigned bound,
+                                            bool& rare) {
+    const unsigned t = __float_as_uint(__fadd_rz(f0, 8388608.0f));
+    const unsigned x = (unsigned)id + t + ((unsigned)i - F2I_BIAS);
+    rare |= (__float_as_uint(f0) >= F2I_BIAS) | (x >= bound);
+    return (int)min(min(x, x - n), n - 1);
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(s), "l"(gmem) : "memory");
+}
+
+// Thread = lane (blockDim.x == SHUFFLE_LANES); block b = columns
+// [b K, b K + kc), kc = min(K, n_cols - b K). STAGED: the block first
+// copies column 0 and its own columns whole into shared memory (cp.async,
+// 16 B a thread at a time), laid out by id, s[j][id] (j = 0: column 0; j > 0:
+// column k0 + j - 1); a step is then one LDS of f0 at [id], fast_next_id
+// and the next LDS. Else every fetch reads the table in place.
+template <int K, bool STAGED>
 __global__ void shuffle_fetch_kernel(const int* __restrict__ ids,
                                      const float* __restrict__ table, int n_rows,
-                                     int n_cols, int groups, int steps,
+                                     int n_cols, int groups, int steps, unsigned bound,
                                      float* __restrict__ out) {
-    const int lane = threadIdx.x;  // blockDim.x == SHUFFLE_LANES
-    const int k = blockIdx.x;      // column, < n_cols
-    int id = ids[lane];
-    float acc = 0.0f;
-    for (int i = 0; i < steps; ++i) {
-        const int grp = id >= 0 ? id / SHUFFLE_LANES : -1;
-        float f0 = 0.0f;
-        float fk = 0.0f;
-        if (grp < groups && grp >= 0) {
-            const float* col = table + (size_t)grp * n_cols * SHUFFLE_LANES + id % SHUFFLE_LANES;
-            f0 = col[0];
-            fk = col[(size_t)k * SHUFFLE_LANES];
+    extern __shared__ float4 smem4[];
+    float* s = reinterpret_cast<float*>(smem4);
+    const int lane = threadIdx.x;
+    const int k0 = blockIdx.x * K;
+    const int kc = min(K, n_cols - k0);
+    const size_t stride = (size_t)n_cols * SHUFFLE_LANES;  // floats a group
+    const unsigned slots = (unsigned)groups * SHUFFLE_LANES;  // ids with a column
+    const int id0 = ids[lane];
+    float acc[K];
+    if constexpr (STAGED) {
+        constexpr int QUADS = SHUFFLE_LANES / 4;  // 16-byte pieces of a group's column
+        for (int j = 0; j <= kc; ++j) {
+            const int col = j == 0 ? 0 : k0 + j - 1;
+            for (int q = lane; q < groups * QUADS; q += SHUFFLE_LANES) {
+                const int g = q / QUADS, r = (q % QUADS) * 4;
+                cp_async16(s + (size_t)j * slots + g * SHUFFLE_LANES + r,
+                           table + g * stride + (size_t)col * SHUFFLE_LANES + r);
+            }
         }
-        acc = __fadd_rn(acc, fk);
-        id = floor_mod(id + (int)f0 + i, n_rows);
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        __syncthreads();
     }
-    out[(size_t)k * SHUFFLE_LANES + lane] = acc;
+    // Column 0 (j = 0) or column k0 + j - 1 at `at`, an id inside the table.
+    auto fetch = [&](int j, unsigned at) -> float {
+        if constexpr (STAGED) return s[(size_t)j * slots + at];
+        const int col = j == 0 ? 0 : k0 + j - 1;
+        return __ldg(table + (at >> 7) * stride + (size_t)col * SHUFFLE_LANES + (at & 127));
+    };
+    // Walks the lane's chain into acc: step 0, the only one whose id may
+    // lie outside the table (fetching zeros), exactly; the rest by
+    // fast_next_id, or exactly. Returns whether a fast step was rare.
+    auto walk = [&](auto exact_tag) -> bool {
+        constexpr bool exact = decltype(exact_tag)::value;
+        int id = id0;
+        bool rare = false;
+#pragma unroll
+        for (int j = 0; j < K; ++j) acc[j] = 0.0f;
+        if (steps <= 0) return false;
+        const bool valid = (unsigned)id < slots;
+        const float f0 = valid ? fetch(0, (unsigned)id) : 0.0f;
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+            acc[j] = __fadd_rn(0.0f, (valid && j < kc) ? fetch(j + 1, (unsigned)id) : 0.0f);
+        id = exact_next_id(id, f0, 0, n_rows);
+#pragma unroll 4
+        for (int i = 1; i < steps; ++i) {
+            const float f = fetch(0, (unsigned)id);
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+                if (j < kc) acc[j] = __fadd_rn(acc[j], fetch(j + 1, (unsigned)id));
+            if constexpr (exact) id = exact_next_id(id, f, i, n_rows);
+            else id = fast_next_id(id, f, i, (unsigned)n_rows, bound, rare);
+        }
+        return rare;
+    };
+    if (walk(Exact<false>{})) walk(Exact<true>{});
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+        if (j < kc) out[(size_t)(k0 + j) * SHUFFLE_LANES + lane] = acc[j];
+}
+
+template <int K>
+int shuffle_launch_k(const int* ids, const float* table, int n_rows, int n_cols, int groups,
+                     int steps, unsigned bound, int smem, float* out, cudaStream_t stream) {
+    const int blocks = (n_cols + K - 1) / K;
+    if (smem == 0) {
+        shuffle_fetch_kernel<K, false><<<blocks, SHUFFLE_LANES, 0, stream>>>(
+            ids, table, n_rows, n_cols, groups, steps, bound, out);
+        return (int)cudaGetLastError();
+    }
+    // Above 48 KB a block's dynamic shared memory must be allowed first.
+    static int allowed = 48 * 1024;
+    if (smem > allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            shuffle_fetch_kernel<K, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        allowed = smem;
+    }
+    shuffle_fetch_kernel<K, true><<<blocks, SHUFFLE_LANES, smem, stream>>>(
+        ids, table, n_rows, n_cols, groups, steps, bound, out);
+    return (int)cudaGetLastError();
 }
 
 // The yardstick for both kernels' latency floor: the latency of one load
@@ -141,11 +256,31 @@ extern "C" int onehot_fetch_launch(const void* ids, const void* table, int n_row
     return (int)cudaGetLastError();
 }
 
+// Version of shuffle_fetch_launch's argument list: 1 (no such function)
+// took (ids, table, n_rows, n_cols, groups, steps, out, stream); 2 adds
+// cols (K, columns a block: 1, 2, 4 or 8), bound and smem (the bytes of
+// the staged layout, (1 + K) groups 128 x 4; 0 reads the table in place),
+// as ops/perlane.shuffle_plan computes them.
+extern "C" int perlane_abi(void) { return 2; }
+
 extern "C" int shuffle_fetch_launch(const void* ids, const void* table, int n_rows,
-                                    int n_cols, int groups, int steps, void* out,
-                                    void* stream) {
-    if (n_rows <= 0 || n_cols <= 0 || groups <= 0) return (int)cudaErrorInvalidValue;
-    shuffle_fetch_kernel<<<n_cols, SHUFFLE_LANES, 0, (cudaStream_t)stream>>>(
-        (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps, (float*)out);
-    return (int)cudaGetLastError();
+                                    int n_cols, int groups, int steps, int cols, int bound,
+                                    int smem, void* out, void* stream) {
+    if (n_rows <= 0 || n_cols <= 0 || groups != (n_rows + SHUFFLE_LANES - 1) / SHUFFLE_LANES)
+        return (int)cudaErrorInvalidValue;
+    if (smem != 0 && (smem > SHUFFLE_SMEM_MAX || (size_t)smem != (size_t)(1 + cols) * groups
+                      * SHUFFLE_LANES * sizeof(float) || ((uintptr_t)table & 15) != 0))
+        return (int)cudaErrorInvalidValue;
+    const int* i = (const int*)ids;
+    const float* t = (const float*)table;
+    float* o = (float*)out;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const unsigned b = (unsigned)bound;
+    switch (cols) {
+        case 1: return shuffle_launch_k<1>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
+        case 2: return shuffle_launch_k<2>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
+        case 4: return shuffle_launch_k<4>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
+        case 8: return shuffle_launch_k<8>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }

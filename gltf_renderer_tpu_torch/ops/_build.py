@@ -125,3 +125,29 @@ def launch(fn, what: str, device_index: int, *args) -> None:
             rc = fn(*args, torch._C._cuda_getCurrentRawStream(device_index))
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def sass(source: str) -> dict:
+    """{mangled function name: [instruction lines]} from `cuobjdump -sass`
+    of csrc/<source>'s library (built if missing). Each line is one SASS
+    instruction as cuobjdump prints it, address comment first."""
+    import re
+
+    load(source)
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", library_path(source)], check=True,
+                          capture_output=True, text=True, timeout=60).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name, _, body = part.partition("\n")
+        out[name.strip()] = [line.strip() for line in body.splitlines()
+                             if re.match(r"\s*/\*[0-9a-f]{4,}\*/", line)]
+    return out
+
+
+def opcode(line: str) -> str:
+    """The opcode of one SASS line from `sass` (predicate and modifiers cut)."""
+    import re
+
+    m = re.match(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+    return m.group(1) if m else ""

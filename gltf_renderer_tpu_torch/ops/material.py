@@ -19,7 +19,7 @@ import torch
 from gltf_renderer_tpu_torch.ops.bsdf import MINIMUM_ROUGHNESS, SurfaceProperties
 from gltf_renderer_tpu_torch.ops.texture import _wrap, sample_atlas, transform_uv
 from gltf_renderer_tpu_torch.scene import types as T
-from gltf_renderer_tpu_torch.utils.math import cross, dot, normalize, reflect
+from gltf_renderer_tpu_torch.utils.math import cross, dot, normalize, reflect, trunc_i32
 
 ALL_SLOTS = tuple(range(T.N_TEX_SLOTS))
 COMPACT_SLOT_STRIDE = 16  # 7 address cols + 9 joined texture-metadata cols
@@ -74,7 +74,7 @@ def _sample_mips(textures, tid, trow, uv, scl, mip_base, wrap_modes, any_nearest
     lvl = torch.clamp(lvl, 0.0, maxl - 1.0)
     if any_nearest:
         lvl = torch.where(is_near, torch.zeros_like(lvl), lvl)
-    l0 = torch.floor(lvl).to(torch.int64)
+    l0 = trunc_i32(torch.floor(lvl)).long()
     l1 = torch.clamp(l0 + 1, max=maxl - 1)
     lfrac = (lvl - l0.to(torch.float32)).unsqueeze(-1)
     tid_c = torch.clamp(tid.to(torch.int64), 0, max(n_tex - 1, 0))
@@ -87,15 +87,13 @@ def _sample_mips(textures, tid, trow, uv, scl, mip_base, wrap_modes, any_nearest
         lh = mrow[..., 2].to(torch.int64)
         fx = uv[..., 0] * mrow[..., 1] - 0.5
         fy = uv[..., 1] * mrow[..., 2] - 0.5
-        x0f = torch.floor(fx)
-        y0f = torch.floor(fy)
-        x0 = x0f.to(torch.int64)
-        y0 = y0f.to(torch.int64)
-        tx = (fx - x0f).unsqueeze(-1)
-        ty = (fy - y0f).unsqueeze(-1)
+        x0 = trunc_i32(torch.floor(fx))  # as texture.sample_atlas
+        y0 = trunc_i32(torch.floor(fy))
+        tx = (fx - x0.to(torch.float32)).unsqueeze(-1)
+        ty = (fy - y0.to(torch.float32)).unsqueeze(-1)
         if any_nearest:
-            x0 = torch.where(is_near, torch.floor(uv[..., 0] * mrow[..., 1]).to(torch.int64), x0)
-            y0 = torch.where(is_near, torch.floor(uv[..., 1] * mrow[..., 2]).to(torch.int64), y0)
+            x0 = torch.where(is_near, trunc_i32(torch.floor(uv[..., 0] * mrow[..., 1])), x0)
+            y0 = torch.where(is_near, trunc_i32(torch.floor(uv[..., 1] * mrow[..., 2])), y0)
             tx = torch.where(is_near.unsqueeze(-1), torch.zeros_like(tx), tx)
             ty = torch.where(is_near.unsqueeze(-1), torch.zeros_like(ty), ty)
 

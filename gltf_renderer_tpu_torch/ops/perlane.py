@@ -14,11 +14,14 @@ fetches: the value it fetches decides the row it fetches next.
   fetched[k] = table[(id // 128) * c + k, id % 128], acc[k] += fetched[k],
   id = (id + int(fetched[0]) + i) mod n. Returns acc, (c, 128) f32.
 
-int() truncates toward zero, mod is the floor modulo, and an id outside the
-table fetches zeros, as in the JAX kernels. A CPU tensor goes to the plain
+int() truncates toward zero and saturates to int32 (NaN to 0), the sum
+wraps as int32, mod is the floor modulo, and an id outside the table
+fetches zeros, as in the JAX kernels. A CPU tensor goes to the plain
 version (`*_ref`); a CUDA tensor goes to the CUDA kernel (csrc/perlane.cu),
 or the call raises. The plain versions add in the JAX kernels' order, so
-kernel, plain version and JAX kernel agree bit for bit.
+kernel, plain version and JAX kernel agree bit for bit. `shuffle_plan`
+gives the shuffle kernel's launch constants (columns a block, the staged
+layout's bytes, the id step's fast-path bound).
 `KERNEL_LAUNCHES` counts each kernel's launches by name and
 `REFERENCE_CALLS` the plain-version calls.
 """
@@ -28,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from gltf_renderer_tpu_torch.ops import _build
+from gltf_renderer_tpu_torch.utils.math import trunc_i32
 
 ROWS, LANES = 16, 128  # the one-hot kernel's 2048-lane packet
 SUM_COLS = 8           # columns the one-hot step sums
@@ -36,7 +40,12 @@ KERNEL_LAUNCHES = {"onehot_fetch": 0, "shuffle_fetch": 0}
 REFERENCE_CALLS = 0
 
 _SOURCE = "perlane.cu"
-_ARGTYPES = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2  # both launchers
+_ONEHOT_ARGS = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2
+_SHUFFLE_ARGS = [_build.VP, _build.VP] + [_build.CI] * 7 + [_build.VP] * 2
+
+SHUFFLE_COLS = (1, 2, 4, 8)  # the columns a block (K) that csrc/perlane.cu instantiates
+SHUFFLE_DEFAULT_COLS = 1
+SHUFFLE_SMEM_MAX = _build.source_define(_SOURCE, "SHUFFLE_SMEM_MAX")
 
 
 def _groups(n_rows: int) -> int:
@@ -67,13 +76,32 @@ def _check_shuffle(ids, table, n_rows, n_cols):
     _check("table", table, torch.float32, (_groups(n_rows) * n_cols, LANES), ids.device)
 
 
-def _launch(fn_name, ids, table, out, *ints):
+def shuffle_plan(n_rows: int, n_cols: int, cols=None, staged: bool = True) -> dict:
+    """The constants `shuffle_fetch` launches with: cols, the columns K a
+    block carries (each of its 128 threads walks its lane's chain once for
+    them; SHUFFLE_DEFAULT_COLS unless given); blocks = ceil(n_cols / K),
+    block b taking columns [b K, min(b K + K, n_cols)); groups =
+    ceil(n_rows / 128); bound, below which the kernel's id step is one
+    unsigned min (2 n, or n when 2 n would pass 2^31); smem, the bytes of
+    the staged layout, (1 + K) columns of groups x 128 f32, or 0 when
+    `staged` is off or that exceeds SHUFFLE_SMEM_MAX (the table is then read
+    in place)."""
+    k = SHUFFLE_DEFAULT_COLS if cols is None else int(cols)
+    if k not in SHUFFLE_COLS:
+        raise ValueError(f"cols must be one of {SHUFFLE_COLS}, got {cols}")
+    groups = _groups(n_rows)
+    smem = (1 + k) * groups * LANES * 4
+    return {"cols": k, "blocks": -(-n_cols // k), "groups": groups,
+            "bound": 2 * n_rows if n_rows < 2 ** 30 else n_rows,
+            "smem": smem if staged and smem <= SHUFFLE_SMEM_MAX else 0}
+
+
+def _launch(fn_name, argtypes, ids, table, out, *ints):
     dev = ids.device
     if dev.type != "cuda":
         raise ValueError(f"{fn_name} runs on cpu or cuda tensors, got {dev}")
-    ids, table = ids.contiguous(), table.contiguous()
-    _build.launch(_build.entry(_SOURCE, f"{fn_name}_launch", _ARGTYPES), fn_name, dev.index,
-                  ids.data_ptr(), table.data_ptr(), *ints, out.data_ptr())
+    _build.launch(_build.entry(_SOURCE, f"{fn_name}_launch", argtypes), fn_name, dev.index,
+                  ids.contiguous().data_ptr(), table.data_ptr(), *ints, out.data_ptr())
     KERNEL_LAUNCHES[fn_name] += 1
     return out
 
@@ -84,18 +112,23 @@ def onehot_fetch(ids, table, steps: int):
     if ids.device.type == "cpu":
         return onehot_fetch_ref(ids, table, steps)
     out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
-    return _launch("onehot_fetch", ids, table, out, table.shape[0], table.shape[1],
-                   int(steps), ids.numel())
+    return _launch("onehot_fetch", _ONEHOT_ARGS, ids, table.contiguous(), out, table.shape[0],
+                   table.shape[1], int(steps), ids.numel())
 
 
-def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int):
-    """`steps` dependent c-value column fetches per lane; returns acc."""
+def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int, cols=None,
+                  staged: bool = True):
+    """`steps` dependent c-value column fetches per lane; returns acc. cols
+    and staged go to `shuffle_plan` (a table not 16-byte aligned is read in
+    place): design knobs for the study tool; the result is the same."""
     _check_shuffle(ids, table, n_rows, n_cols)
     if ids.device.type == "cpu":
         return shuffle_fetch_ref(ids, table, n_rows, n_cols, steps)
+    table = table.contiguous()
+    plan = shuffle_plan(n_rows, n_cols, cols, staged and table.data_ptr() % 16 == 0)
     out = torch.empty((n_cols, LANES), dtype=torch.float32, device=ids.device)
-    return _launch("shuffle_fetch", ids, table, out, n_rows, n_cols, _groups(n_rows),
-                   int(steps))
+    return _launch("shuffle_fetch", _SHUFFLE_ARGS, ids, table, out, n_rows, n_cols,
+                   plan["groups"], int(steps), plan["cols"], plan["bound"], plan["smem"])
 
 
 def _onehot_chain(ids, table, steps: int):
@@ -111,7 +144,7 @@ def _onehot_chain(ids, table, steps: int):
         for k in range(SUM_COLS):
             s = s + rows[:, k]
         yield valid, idv, s
-        idv = torch.remainder(idv + s.to(torch.int32) + i, n)
+        idv = torch.remainder(idv + trunc_i32(s) + i, n)
 
 
 def _shuffle_chain(ids, table, n_rows: int, n_cols: int, steps: int):
@@ -128,7 +161,7 @@ def _shuffle_chain(ids, table, n_rows: int, n_cols: int, steps: int):
         cols = torch.remainder(idv, LANES).long()[None, :]
         fetched = torch.where(valid[None, :], table[rows, cols], 0.0)
         yield valid, idv, fetched
-        idv = torch.remainder(idv + fetched[0].to(torch.int32) + i, n_rows)
+        idv = torch.remainder(idv + trunc_i32(fetched[0]) + i, n_rows)
 
 
 def chain_ids(kind: str, ids, table, n_rows: int, n_cols: int, steps: int):

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from gltf_renderer_tpu_torch.scene.types import WRAP_CLAMP, WRAP_MIRROR, WRAP_REPEAT
+from gltf_renderer_tpu_torch.utils.math import trunc_i32
 
 
 def decode_atlas_linear(tex):
@@ -157,16 +158,16 @@ def sample_atlas(atlas_linear, atlas_w: int, atlas_h: int, trow, uv, wrap_modes=
     hf = h.to(torch.float32)
     fx = uv[..., 0] * wf - 0.5
     fy = uv[..., 1] * hf - 0.5
-    x0f = torch.floor(fx)
-    y0f = torch.floor(fy)
-    x0 = x0f.to(torch.int64)
-    y0 = y0f.to(torch.int64)
-    tx = (fx - x0f).unsqueeze(-1)
-    ty = (fy - y0f).unsqueeze(-1)
+    # int32 corners cast as the reference casts them (saturating; the +1
+    # corner wraps in int32), and the weights taken from them, as there.
+    x0 = trunc_i32(torch.floor(fx))
+    y0 = trunc_i32(torch.floor(fy))
+    tx = (fx - x0.to(torch.float32)).unsqueeze(-1)
+    ty = (fy - y0.to(torch.float32)).unsqueeze(-1)
     if any_nearest:
         is_near = nearest == 1
-        x0 = torch.where(is_near, torch.floor(uv[..., 0] * wf).to(torch.int64), x0)
-        y0 = torch.where(is_near, torch.floor(uv[..., 1] * hf).to(torch.int64), y0)
+        x0 = torch.where(is_near, trunc_i32(torch.floor(uv[..., 0] * wf)), x0)
+        y0 = torch.where(is_near, trunc_i32(torch.floor(uv[..., 1] * hf)), y0)
         tx = torch.where(is_near.unsqueeze(-1), torch.zeros_like(tx), tx)
         ty = torch.where(is_near.unsqueeze(-1), torch.zeros_like(ty), ty)
 

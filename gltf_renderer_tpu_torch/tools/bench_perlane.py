@@ -33,11 +33,19 @@ block is taken to have its SM to itself, as 16 onehot blocks on a
 
 from __future__ import annotations
 
+import json
+import os
+import re
+import sys
+import threading
+import time
+
 import numpy as np
 import torch
 
-from gltf_renderer_tpu_torch.device import cuda_ms, resolve
-from gltf_renderer_tpu_torch.ops import _build, perlane
+from gltf_renderer_tpu_torch.device import (card_name_and_power_limit, cuda_ms, device_us_by_op,
+                                            gpu_clocks, graph_of, replay_us, resolve)
+from gltf_renderer_tpu_torch.ops import _build, perlane, warm
 from gltf_renderer_tpu_torch.ops.perlane import LANES, ROWS
 
 STEPS = 32
@@ -161,5 +169,311 @@ def main(device="cuda"):
     return rows
 
 
+SWEEP_STEPS = (1, 2, 4, 8, 16, 32, 64)
+SWEEP_SHAPE = SHAPES[-1]  # 6400x112
+GRAPH_LAUNCHES = 64
+_NO_DEST = {"ST", "STG", "STS", "STL", "BRA", "EXIT", "BAR", "RET", "BSYNC", "BSSY", "NOP", "RED",
+            "CALL", "WARPSYNC", "MEMBAR", "DEPBAR", "CCTL", "YIELD", "JMP", "BREAK"}
+_LOADS = {"LDG", "LDS", "LD"}
+_SETP = {"ISETP", "FSETP", "PSETP", "DSETP", "HSETP2", "PLOP3"}
+
+
+def shuffle_runner(source=None):
+    """A function (ids, table, n, c, steps) -> acc through a shuffle-fetch
+    kernel: the wrapper `perlane.shuffle_fetch` (counted) when `source` is
+    None, else the launcher of the perlane.cu at path `source`, an older
+    version (its argument list by its `perlane_abi`, absent = 1),
+    uncounted."""
+    if source is None:
+        return perlane.shuffle_fetch
+    lib = _build.load(os.path.abspath(source))
+    abi = lib.perlane_abi() if hasattr(lib, "perlane_abi") else 1
+    if abi != 1:
+        raise RuntimeError(f"{source} is not a version-1 per-lane kernel (abi {abi})")
+    fn = lib.shuffle_fetch_launch
+    fn.argtypes = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2
+    fn.restype = _build.CI
+
+    def run(ids, table, n, c, steps):
+        out = torch.empty((c, LANES), dtype=torch.float32, device=ids.device)
+        _build.launch(fn, "parent shuffle_fetch", ids.device.index, ids.data_ptr(),
+                      table.data_ptr(), n, c, -(-n // LANES), int(steps), out.data_ptr())
+        return out
+
+    return run
+
+
+def fit_line(xs, ys):
+    """(slope, intercept) of the least-squares line through (xs, ys)."""
+    slope, intercept = np.polyfit(np.asarray(xs, np.float64), np.asarray(ys, np.float64), 1)
+    return float(slope), float(intercept)
+
+
+def _regs(operand: str) -> list:
+    out = []
+    for name, wide in re.findall(r"\b(U?[RP]\d+)(\.64)?", operand):
+        out.append(name)
+        if wide:
+            out.append(f"{name[:-len(name.lstrip('UR'))]}{int(name.lstrip('UR')) + 1}")
+    return out
+
+
+def _parse_sass(line: str):
+    """(opcode with modifiers, destination registers, source registers)
+    of one SASS line; predicates count as registers, RZ and PT do not."""
+    text = re.sub(r"^/\*[0-9a-f]+\*/\s*", "", line).split(";")[0].strip()
+    srcs = []
+    guard = re.match(r"@!?(U?P\d+)\s+", text)
+    if guard:
+        srcs.append(guard.group(1))
+        text = text[guard.end():]
+    op, _, rest = text.partition(" ")
+    ops = [o.strip() for o in rest.split(",")] if rest.strip() else []
+    base = op.split(".")[0]
+    if base in _NO_DEST:
+        n_dest = 0
+    elif base in _SETP:
+        n_dest = 2
+    else:
+        n_dest = 1
+        while n_dest < len(ops) and re.fullmatch(r"U?P(\d+|T)", ops[n_dest]):
+            n_dest += 1
+    dests = [r for o in ops[:n_dest] for r in _regs(o)]
+    if n_dest and re.search(r"\.WIDE|\.64\b", op) and dests and dests[0].startswith("R"):
+        dests.insert(1, f"R{int(dests[0][1:]) + 1}")
+    srcs += [r for o in ops[n_dest:] for r in _regs(o)]
+    if guard:
+        srcs += dests  # a predicated write keeps the old value where it is off
+    return op, dests, srcs
+
+
+def chain_path(lines) -> list:
+    """The SASS instructions on one step's dependent path from load to load:
+    in a loop (the body of a backward branch; of the loops that have one,
+    the shortest path: a kernel's common step where it has a fast and an
+    exact walk), from a global or shared load (LDG, LDS) forward in program order,
+    around the loop, to the first load whose address depends on the value
+    it loaded. Code that a forward branch jumps over is taken as the rare
+    path the compiler laid out inside the loop and left out; predicated
+    code counts, and a branch whose predicate lies on the path (with the
+    BSYNC after it) counts where the next load waits for it longer than
+    for its address. Returns those instructions,
+    the two loads left out; [] when no load feeds an address."""
+    addr = [int(re.match(r"/\*([0-9a-f]+)\*/", x).group(1), 16) for x in lines]
+    parsed = [_parse_sass(x) for x in lines]
+    bodies = []
+    for i, (op, _, _) in enumerate(parsed):
+        target = re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", lines[i])
+        if op.startswith("BRA") and target and int(target.group(1), 16) in addr[:i + 1]:
+            bodies.append(list(range(addr.index(int(target.group(1), 16)), i + 1)))
+    found = []
+    for body in bodies:
+        before = len(found)
+        for k, j in enumerate(body):
+            op, dests, _ = parsed[j]
+            if op.split(".")[0] not in _LOADS or not dests:
+                continue
+            path = {r: [] for r in dests}
+            skipped_to = -1  # code up to here may be jumped over: its writes only add paths
+            for m in body[k + 1:] + body[:k + 1]:
+                op2, d2, s2 = parsed[m]
+                if addr[m] >= skipped_to:
+                    skipped_to = -1
+                if skipped_to >= 0:
+                    continue
+                is_load = op2.split(".")[0] in _LOADS
+                hit = [path[r] for r in s2 + (["CTRL"] if is_load or op2.startswith("BSYNC")
+                                               else []) if r in path]
+                if is_load and hit:
+                    found.append(max(hit, key=len))
+                    break
+                new = max(hit, key=len) + [lines[m]] if hit else None
+                if op2.startswith(("BRA", "BSYNC")):
+                    if new is not None:  # the instructions after it wait for it
+                        path["CTRL"] = new
+                    target = re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", lines[m])
+                    if target and int(target.group(1), 16) > addr[m]:
+                        skipped_to = int(target.group(1), 16)
+                    continue
+                for r in d2:
+                    if new is None:
+                        path.pop(r, None)
+                    else:
+                        path[r] = new
+            if len(found) > before:
+                break
+    return min(found, key=len) if found else []
+
+
+def kernel_sass(source, name: str) -> dict:
+    """{mangled name: {"opcodes": {opcode: count}, "path": [lines]}} for
+    every function of csrc/<source> (or a path) whose name holds `name`:
+    static opcode counts and `chain_path`."""
+    out = {}
+    for fname, lines in _build.sass(source).items():
+        if name in fname:
+            ops = [_build.opcode(x) for x in lines]
+            out[fname] = {"opcodes": {op: ops.count(op) for op in sorted(set(ops))},
+                          "path": chain_path(lines), "lines": lines}
+    return out
+
+
+def default_kernel_name() -> str:
+    """The part of the mangled name that picks the shuffle kernel
+    `perlane.shuffle_plan`'s defaults launch at the tool's shapes
+    (shuffle_fetch_kernel<SHUFFLE_DEFAULT_COLS, staged>)."""
+    return f"shuffle_fetch_kernelILi{perlane.SHUFFLE_DEFAULT_COLS}ELb1E"
+
+
+def clocks_under_load(graph, seconds: float = 1.5, samples: int = 3) -> list:
+    """`gpu_clocks` sampled `samples` times while `graph` replays back to
+    back for about `seconds`."""
+    got = []
+
+    def sample():
+        for _ in range(samples):
+            time.sleep(seconds / (samples + 1))
+            got.append(gpu_clocks())
+
+    t = threading.Thread(target=sample)
+    t.start()
+    t0 = time.perf_counter()
+    while t.is_alive() or time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            graph.replay()
+        torch.cuda.synchronize()
+    t.join()
+    return got
+
+
+def _kernel_us(by_op: dict, name: str = "shuffle_fetch") -> list:
+    """[device us a launch, launches recorded] of the kernel `name` from
+    `device_us_by_op`."""
+    return next([us, n] for k, (us, n) in by_op.items() if name in k)
+
+
+def design_us(ids, table, n, c, want) -> dict:
+    """{"K<cols><s|g>": graph-replay device us a call} of the shuffle kernel
+    at every width perlane.SHUFFLE_COLS, staged in shared memory (s) or
+    reading the table in place (g); each held to `want` first."""
+    out = {}
+    for cols in perlane.SHUFFLE_COLS:
+        for staged in (True, False):
+            def call(cols=cols, staged=staged):
+                return perlane.shuffle_fetch(ids, table, n, c, STEPS, cols=cols, staged=staged)
+            if not bool(torch.equal(call().view(torch.int32), want.view(torch.int32))):
+                raise AssertionError(f"the shuffle kernel (cols={cols}, staged={staged}) "
+                                     f"disagrees with its plain version at {n}x{c}")
+            out[f"K{cols}{'s' if staged else 'g'}"] = replay_us(graph_of(call, GRAPH_LAUNCHES),
+                                                                GRAPH_LAUNCHES)
+    return out
+
+
+def study(device="cuda", parent=None, sass_out=None, designs=True):
+    """K5's device time on the card, in turns with the older kernel at path
+    `parent` when given (parent, new, new, parent): at every shape, the
+    graph-replay device time a call (GRAPH_LAUNCHES launches captured in
+    one CUDA graph) and torch.profiler's; the same over SWEEP_STEPS at
+    SWEEP_SHAPE with each kernel's fitted slope (ns a step) and intercept
+    (us), and its time at 0 steps (launch, staging and store only); K6's graph-replay time (`warm.add_one`, 8x128) beside the
+    intercept; with `designs`, `design_us` at every shape; SM clock
+    samples idle and under load; each kernel's SASS
+    opcode counts and one step's load-to-load path (their whole SASS
+    written to the file `sass_out` when given). Every kernel's output is
+    held to the plain version first. Returns a dict (the JSON line)."""
+    dev = resolve(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the K5 study runs on a CUDA device, got {dev}")
+    runs = {"parent": shuffle_runner(parent)} if parent else {}
+    runs["new"] = shuffle_runner()
+    order = list(runs) + list(runs)[::-1]
+    res = {"card": card_name_and_power_limit(), "clocks_idle": gpu_clocks(), "shapes": {},
+           "sweep": {}}
+    rng = np.random.RandomState(0)
+    for label, n, c in SHAPES:
+        ids, table = shuffle_inputs(rng, n, c, dev)
+        want = perlane.shuffle_fetch_ref(ids, table, n, c, STEPS)
+        graphs, row = {}, {}
+        for k, run in runs.items():
+            def call(run=run):
+                return run(ids, table, n, c, STEPS)
+            if not bool(torch.equal(call().view(torch.int32), want.view(torch.int32))):
+                raise AssertionError(f"the {k} shuffle kernel disagrees with its plain "
+                                     f"version at {label}")
+            graphs[k] = graph_of(call, GRAPH_LAUNCHES)
+            row[f"{k}_profiler_us"] = _kernel_us(device_us_by_op(call))
+        for k in order:
+            row.setdefault(f"{k}_graph_us", []).append(replay_us(graphs[k], GRAPH_LAUNCHES))
+        if designs:
+            row["designs_us"] = design_us(ids, table, n, c, want)
+        res["shapes"][label] = row
+        print(f"[k5] {label} ({n}x{c}): " + ", ".join(
+            f"{k} {[round(x, 3) for x in v]}" for k, v in row.items() if k != "designs_us")
+            + " (us; profiler: [us a launch, launches recorded of 10])", flush=True)
+        if designs:
+            print(f"[k5] {label} designs: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in row["designs_us"].items()) + " us", flush=True)
+    label, n, c = SWEEP_SHAPE
+    ids, table = shuffle_inputs(rng, n, c, dev)
+    load_graph = None
+    for k, run in runs.items():
+        sweep = {}
+        for steps in SWEEP_STEPS:
+            def call(run=run, steps=steps):
+                return run(ids, table, n, c, steps)
+            g = graph_of(call, GRAPH_LAUNCHES)
+            sweep[steps] = replay_us(g, GRAPH_LAUNCHES)
+            if steps == STEPS:
+                load_graph = g
+        slope, icpt = fit_line(list(sweep), list(sweep.values()))
+        zero = replay_us(graph_of(lambda run=run: run(ids, table, n, c, 0), GRAPH_LAUNCHES),
+                         GRAPH_LAUNCHES)
+        res["sweep"][k] = {"us": sweep, "slope_ns": slope * 1e3, "intercept_us": icpt,
+                           "steps0_us": zero}
+        print(f"[k5] sweep {k} at {label}: " + ", ".join(f"{s}: {v:.3f}" for s, v in sweep.items())
+              + f" us; slope {slope * 1e3:.2f} ns a step, intercept {icpt:.3f} us; 0 steps "
+              f"(launch, staging, store) {zero:.3f} us", flush=True)
+    x = torch.zeros(warm.WARM_SHAPE, dtype=torch.float32, device=dev)
+    res["k6_graph_us"] = replay_us(graph_of(lambda: warm.add_one(x), GRAPH_LAUNCHES),
+                                   GRAPH_LAUNCHES)
+    res["k6_profiler_us"] = _kernel_us(device_us_by_op(lambda: warm.add_one(x)), "add_one")
+    res["clocks_load"] = clocks_under_load(load_graph)
+
+    def new_call():
+        return runs["new"](ids, table, n, c, STEPS)
+    res["profiler_hot_us"] = _kernel_us(device_us_by_op(new_call))
+    time.sleep(2.0)
+    res["clocks_after_idle"] = gpu_clocks()
+    res["profiler_cold_us"] = _kernel_us(device_us_by_op(new_call))
+    print(f"[k5] K6 graph {res['k6_graph_us']:.3f} us, profiler {res['k6_profiler_us']} "
+          f"[us, launches recorded of 10]; "
+          f"clocks idle {res['clocks_idle']} | under load {res['clocks_load']} | after 2 s "
+          f"idle {res['clocks_after_idle']}; new kernel's profiler time at {label}: "
+          f"{res['profiler_hot_us']} right after the load, {res['profiler_cold_us']} "
+          f"after 2 s idle", flush=True)
+    res["sass"] = {}
+    for k, src in (("parent", parent and os.path.abspath(parent)), ("new", "perlane.cu")):
+        if k not in runs:
+            continue
+        name = "shuffle_fetch" if k == "parent" else default_kernel_name()
+        for fname, info in kernel_sass(src, name).items():
+            res["sass"][f"{k}:{fname}"] = {"opcodes": info["opcodes"],
+                                          "path_len": len(info["path"]), "path": info["path"]}
+            if sass_out:
+                with open(sass_out, "a") as f:
+                    f.write(f"{k} {fname}\n" + "\n".join(info["lines"]) + "\n\n")
+            print(f"[k5] sass {k} {fname}: {len(info['lines'])} instructions; one step's "
+                  f"load-to-load path {len(info['path'])}: "
+                  + " | ".join(re.sub(r"^/\*[0-9a-f]+\*/\s*", "", x).split(" ;")[0]
+                               for x in info["path"]), flush=True)
+    return res
+
+
 if __name__ == "__main__":
-    main()
+    if "--study" in sys.argv:
+        args = sys.argv[sys.argv.index("--study") + 1:]
+        opt = {k: args[args.index(f"--{k.replace('_', '-')}") + 1] for k in ("parent", "sass_out")
+               if f"--{k.replace('_', '-')}" in args}
+        print(json.dumps(study("cuda", **opt)))
+    else:
+        main()

@@ -13,6 +13,18 @@ PI = 3.14159265359
 TAU = 2.0 * PI
 
 
+def trunc_i32(x: torch.Tensor) -> torch.Tensor:
+    """int32 of the float tensor x as XLA's convert (the JAX package's
+    astype(int32)) gives it: toward zero, saturated to [-2^31, 2^31 - 1],
+    NaN to 0. On a CUDA tensor torch's cast is one cvt.rzi.s32.f32, which
+    does exactly that. On the CPU torch maps NaN and values at or above 2^31
+    to -2^31, so the cast goes through float64, where 2^31 - 1 is exact (in
+    float32 it rounds to 2^31, so a clamp in float32 does not work)."""
+    if x.is_cuda:
+        return x.to(torch.int32)
+    return x.double().nan_to_num(0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(torch.int32)
+
+
 def sum_last(x: torch.Tensor) -> torch.Tensor:
     """Sum over the (small) last axis as ((x0 + x1) + x2) + ..."""
     out = x[..., 0]

@@ -19,8 +19,13 @@ import torch
 from jax.experimental import pallas as pl
 
 from gltf_renderer_tpu_torch.ops import perlane
+from gltf_renderer_tpu_torch.ops._build import opcode as _build_opcode
+from gltf_renderer_tpu_torch.utils.math import trunc_i32
 from gltf_renderer_tpu_torch.tools import bench_perlane as port_perlane
 from tools import bench_perlane as jax_perlane
+
+import perlane_tables
+from perlane_tables import adversarial_table
 
 torch.set_num_threads(2)
 
@@ -80,6 +85,43 @@ def test_ids_outside_the_table_fetch_zeros(interpret):
                                                         jnp.asarray(s_table.numpy()))
     _same_bits(perlane.shuffle_fetch_ref(torch.from_numpy(s_ids), s_table, n, c, steps).numpy(),
                want)
+
+
+def test_trunc_i32_is_xla_convert():
+    """The port's float-to-int (the plain versions', the texture samplers')
+    is XLA's astype(int32): toward zero, saturating, NaN to 0 (torch's CPU
+    cast maps NaN and >= 2^31 to -2^31)."""
+    x = np.array([0.5, -0.5, 1.5, -1.5, 2.0 ** 31 - 128, 2.0 ** 31, 3e9, -3e9, -2.0 ** 31,
+                  -2.0 ** 31 - 256, np.inf, -np.inf, np.nan], np.float32)
+    want = np.asarray(jnp.asarray(x).astype(jnp.int32))
+    np.testing.assert_array_equal(trunc_i32(torch.from_numpy(x)).numpy(), want)
+
+
+@pytest.mark.parametrize("kernel,kind", [("onehot", k) for k in perlane_tables.ONEHOT_KINDS]
+                         + [("shuffle", k) for k in perlane_tables.KINDS])
+def test_plain_versions_cast_as_xla(interpret, kernel, kind):
+    """Both plain versions against the JAX kernels on tables whose fetched
+    values are negative, wrap the int32 sum, saturate the cast or are NaN
+    (perlane_tables)."""
+    n, steps = 200, 4
+    rs = np.random.RandomState(sum(map(ord, kernel + kind)))
+    if kernel == "onehot":
+        c = perlane.SUM_COLS
+        ids = rs.randint(0, n, (perlane.ROWS, perlane.LANES)).astype(np.int32)
+        table = torch.from_numpy(adversarial_table(rs, n, c, kind)).to(torch.bfloat16)
+        want = jax_perlane.make_onehot_kernel(n, c, steps)(
+            jnp.asarray(ids), jnp.asarray(table.float().numpy(), jnp.bfloat16))
+        got = perlane.onehot_fetch(torch.from_numpy(ids), table, steps)
+    else:
+        c = 4
+        ids = rs.randint(0, n, (1, perlane.LANES)).astype(np.int32)
+        groups = -(-n // perlane.LANES)
+        # Column 0 feeds the next id: it takes the sums the one-hot step would
+        # see over such rows, added left to right in f32.
+        table = perlane_tables.shuffle_table(rs, n, c, kind)
+        want = jax_perlane.make_shuffle_kernel(n, c, steps)(jnp.asarray(ids), jnp.asarray(table))
+        got = perlane.shuffle_fetch(torch.from_numpy(ids), torch.from_numpy(table), n, c, steps)
+    _same_bits(got.numpy(), want)
 
 
 def test_visited_rows_are_the_rows_fetched():
@@ -155,3 +197,131 @@ def test_chain_ids_are_the_plain_versions_fetches(kind):
     assert got.shape == (steps, ids.numel())
     assert torch.equal(got[0], ids.reshape(-1))
     assert set(got.reshape(-1).tolist()) == set(torch.nonzero(visited)[:, 0].tolist())
+
+
+F2I_BIAS = 0x4B000000  # the bits of 2^23 (csrc/perlane.cu)
+M32 = 0xFFFFFFFF
+
+
+def _fast_mod(x, n, bound):
+    """csrc/perlane.cu's fast_next_id from the wrapped sum x (int32 values
+    in an int64 tensor), in torch: (the unsigned min of x and x - n,
+    clamped to n - 1; whether the step is rare, x >= bound unsigned)."""
+    xu = x & M32
+    got = torch.minimum(torch.minimum(xu, (xu - n) & M32), torch.tensor(n - 1))
+    return got, xu >= bound
+
+
+def _fast_trunc(f0):
+    """fast_next_id's int(f0) for float32 f0 (a numpy array): the bits of
+    f0 + 2^23 rounded toward zero, less F2I_BIAS; and whether f0 is rare
+    (its bits, unsigned, at or above F2I_BIAS: negative, >= 2^23, NaN)."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        y = f0.astype(np.float64) + 2.0 ** 23
+        y32 = y.astype(np.float32)
+        away = np.abs(y32.astype(np.float64)) > np.abs(y)
+        y32 = np.where(away, np.nextafter(y32, np.float32(0)), y32)
+    bits = y32.view(np.uint32).astype(np.int64)
+    return torch.from_numpy(bits - F2I_BIAS), torch.from_numpy(f0.view(np.uint32) >= F2I_BIAS)
+
+
+@pytest.mark.parametrize("n", [1, 2, 129, 6400, 2 ** 30 - 1, 2 ** 30, 2 ** 31 - 1])
+def test_kernel_id_step_is_the_floor_modulo(n):
+    """From shuffle_plan's bound, the kernel's fast id step equals
+    torch.remainder for every int32 sum it does not flag as rare (all
+    boundaries and 4096 random sums), flags none in [0, bound) (bound = 2n
+    below n = 2^30), and always stays in [0, n)."""
+    bound = perlane.shuffle_plan(n, 1)["bound"]
+    assert bound == (2 * n if n < 2 ** 30 else n)
+    edges = [0, 1, n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, -1, -n, -n - 1, -2 * n,
+             2 ** 31 - 1, 2 ** 31 - n, -2 ** 31, -2 ** 31 + n, 2 ** 30, -2 ** 30]
+    rs = np.random.RandomState(n % 1000)
+    x = np.concatenate([np.array(edges, np.int64), rs.randint(-2 ** 31, 2 ** 31, 4096),
+                        rs.randint(0, 2 * n, 1024)])
+    x = torch.from_numpy(((x + 2 ** 31) % 2 ** 32) - 2 ** 31)  # as int32 values
+    want = torch.remainder(x.to(torch.int32), n).long()
+    got, rare = _fast_mod(x, n, bound)
+    assert torch.equal(got[~rare], want[~rare])
+    assert bool(((got >= 0) & (got < n)).all())
+    assert not bool(rare[(x >= 0) & (x < bound)].any())
+
+
+def test_kernel_fast_trunc_is_exact_or_rare():
+    """fast_next_id's int(f0) by an FADD equals the saturating cast on every
+    f0 it does not flag as rare, and flags none in [0, 2^23)."""
+    edges = [0.0, -0.0, 1e-45, 0.5, 1.5, 2.0 ** 23 - 1, 2.0 ** 23 - 0.5, 2.0 ** 23, -0.5, -1.0,
+             3e9, -3e9, 2.0 ** 31 - 128, 1e30, np.inf, -np.inf, np.nan]
+    rs = np.random.RandomState(3)
+    f0 = np.concatenate([np.array(edges), rs.rand(2048) * 3, rs.rand(1024) * 2.0 ** 23,
+                         (rs.rand(1024) - 0.5) * 1e10]).astype(np.float32)
+    got, rare = _fast_trunc(f0)
+    want = trunc_i32(torch.from_numpy(f0)).long()
+    assert torch.equal(got[~rare], want[~rare])
+    small = torch.from_numpy((f0 >= 0) & (f0 < 2.0 ** 23) & ~np.signbit(f0))
+    assert not bool(rare[small].any()) and bool(rare[~small].all())
+
+
+@pytest.mark.parametrize("n,c,cols", [(768, 112, 1), (4480, 160, 2), (6400, 112, 4),
+                                      (300, 3, 2), (129, 7, 4), (1, 1, 8), (6400, 112, 8),
+                                      (60000, 5, 4)])
+def test_shuffle_plan_constants_and_tail(n, c, cols):
+    """The blocks cover every column once (the last one short when c % K
+    != 0), and the staged layout's bytes are (1 + K) columns of the padded
+    table, staged only where they fit in a block's shared memory."""
+    plan = perlane.shuffle_plan(n, c, cols)
+    k, blocks, groups = plan["cols"], plan["blocks"], plan["groups"]
+    assert k == cols and groups == -(-n // perlane.LANES)
+    spans = [(b * k, min(k, c - b * k)) for b in range(blocks)]  # (k0, kc) as the kernel takes
+    covered = [k0 + j for k0, kc in spans for j in range(kc)]
+    assert covered == list(range(c)) and all(kc >= 1 for _, kc in spans)
+    assert (spans[-1][1] < k) == (c % k != 0)
+    need = (1 + k) * groups * perlane.LANES * 4
+    assert plan["smem"] == (need if need <= perlane.SHUFFLE_SMEM_MAX else 0)
+    assert perlane.shuffle_plan(n, c, cols, staged=False)["smem"] == 0
+
+
+def test_shuffle_plan_refuses_other_widths():
+    assert perlane.shuffle_plan(100, 4)["cols"] == perlane.SHUFFLE_DEFAULT_COLS
+    with pytest.raises(ValueError):
+        perlane.shuffle_plan(100, 4, 3)
+
+
+def test_chain_path_follows_the_step_through_the_loop():
+    """The SASS reader finds one step's load-to-load path in the loop body
+    and leaves out what does not feed the next address."""
+    sass = [
+        "/*0100*/                   LDS R5, [R2] ;",
+        "/*0110*/                   LDS R6, [R2+0x6400] ;",
+        "/*0120*/                   F2I.TRUNC.NTZ R5, R5 ;",
+        "/*0130*/                   FADD R8, R8, R6 ;",
+        "/*0140*/                   IADD3 R4, R4, R5, R7 ;",
+        "/*0150*/                   VIADD R7, R7, 0x1 ;",
+        "/*0160*/                   IADD3 R9, R4, -R10, RZ ;",
+        "/*0170*/                   VIMNMX.U32 R4, R4, R9, PT ;",
+        "/*0180*/                   ISETP.NE.AND P0, PT, R7, R11, PT ;",
+        "/*0190*/                   LEA R2, R4, UR4, 0x2 ;",
+        "/*01a0*/               @P0 BRA 0x100 ;",
+        "/*01b0*/                   EXIT ;",
+    ]
+    path = port_perlane.chain_path(sass)
+    assert [_build_opcode(x) for x in path] == ["F2I", "IADD3", "IADD3", "VIMNMX", "LEA"]
+
+
+def test_chain_path_keeps_the_path_past_a_skipped_call():
+    """A rare path laid out in the loop behind a forward branch (a call
+    that overwrites the id) is left out of the step's path."""
+    sass = [
+        "/*0100*/                   LDS R5, [R2] ;",
+        "/*0110*/                   F2I.TRUNC.NTZ R5, R5 ;",
+        "/*0120*/                   IADD3 R4, R4, R5, R7 ;",
+        "/*0130*/                   ISETP.GE.U32.AND P0, PT, R4, R12, PT ;",
+        "/*0140*/                   IADD3 R9, R4, -R10, RZ ;",
+        "/*0150*/                   VIMNMX.U32 R4, R4, R9, PT ;",
+        "/*0160*/              @!P0 BRA 0x190 ;",
+        "/*0170*/                   MOV R4, R13 ;",
+        "/*0180*/                   CALL.REL.NOINC 0x300 ;",
+        "/*0190*/                   LEA R2, R4, UR4, 0x2 ;",
+        "/*01a0*/                   BRA 0x100 ;",
+    ]
+    path = port_perlane.chain_path(sass)
+    assert [_build_opcode(x) for x in path] == ["F2I", "IADD3", "IADD3", "VIMNMX", "LEA"]

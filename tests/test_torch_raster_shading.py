@@ -241,3 +241,37 @@ def test_raster_refuses_unported_features(scenes):
                    dict(num_lights=1)):
         with pytest.raises(NotImplementedError):
             prz.shade_forward(pscene, pmeta._replace(**change), phit, torch.ones(1, 3), 1.0)
+
+
+@pytest.mark.parametrize("mips", [False, True], ids=["level0", "mips"])
+def test_texture_fetch_casts_huge_uv_as_xla(scenes, mips):
+    """Texel coordinates at or beyond 2^31 (uv of +-3e8) are cast as XLA
+    casts them, saturating to int32, and the +1 corner wraps in int32, so
+    both texture paths fetch the reference's texels; torch's own cast
+    would not saturate and fetched other texels."""
+    from gltf_renderer_tpu.ops import material as jmat
+    from gltf_renderer_tpu.render import pathtracer as jpt
+    from gltf_renderer_tpu_torch.ops import material as pmat
+
+    jscene, jmeta, pscene, pmeta = scenes
+    tri, u, v, d, _, mip_scale = _hits(jscene, n=64, seed=4)
+    attrs = jpt.fetch_hit_attributes(jscene.world, jnp.asarray(tri), jnp.asarray(u),
+                                     jnp.asarray(v), jnp.asarray(d))
+    uv0 = np.asarray(attrs.uv0).copy()
+    uv0[:16], uv0[16:32] = 3e8, -3e8
+    mip_base = np.log2(mip_scale) if mips else None
+    args = [attrs.material, uv0, attrs.uv1, attrs.color, attrs.normal, attrs.tangent,
+            attrs.bitangent, attrs.geometric_normal, -d]
+    want, _ = jmat.get_surface_properties(
+        jscene.materials, jscene.textures, *map(jnp.asarray, args),
+        used_slots=jmeta.used_slots, rows_compact=True, identity_uv=jmeta.identity_uv,
+        wrap_modes=jmeta.wrap_modes, any_nearest=jmeta.any_nearest,
+        mip_base=None if mip_base is None else jnp.asarray(mip_base))
+    got, _ = pmat.get_surface_properties(
+        pscene.materials, pscene.textures, *[_t(np.asarray(a)) for a in args],
+        used_slots=pmeta.used_slots, identity_uv=pmeta.identity_uv,
+        wrap_modes=pmeta.wrap_modes, any_nearest=pmeta.any_nearest,
+        mip_base=None if mip_base is None else _t(mip_base))
+    for f in got._fields:
+        np.testing.assert_allclose(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                   rtol=1e-5, atol=1e-6, err_msg=f)

@@ -24,6 +24,8 @@ import torch
 from gltf_renderer_tpu_torch.ops import brute, perlane, warm
 from gltf_renderer_tpu_torch.tools import bench_mxu, bench_perlane
 
+import perlane_tables
+
 pytestmark = pytest.mark.cuda
 
 
@@ -92,6 +94,65 @@ def test_perlane_kernels_match_plain(cuda_device, label, n, c):
     _identical(perlane.shuffle_fetch(ids, table, n, c, 32),
                perlane.shuffle_fetch_ref(ids, table, n, c, 32))
     assert perlane.KERNEL_LAUNCHES == {k: v + 1 for k, v in launches.items()}
+
+
+def _shuffle_designs():
+    return [(cols, staged) for cols in perlane.SHUFFLE_COLS for staged in (True, False)]
+
+
+def _awkward_ids(rs, n):
+    """(1, 128) int32: ids in the table, in its padding above n, above it,
+    negative and at the int32 edges."""
+    ids = rs.randint(0, n, (1, perlane.LANES)).astype(np.int32)
+    pad = -(-n // perlane.LANES) * perlane.LANES
+    ids[0, :8] = [-1, -n - 5, n, pad - 1, pad, 10 * pad, -2 ** 31, 2 ** 31 - 1]
+    return ids
+
+
+@pytest.mark.parametrize("kind", perlane_tables.KINDS)
+def test_perlane_kernels_on_adversarial_tables(cuda_device, kind):
+    """Both kernels equal their plain versions bit for bit where the
+    fetched values are negative, wrap the int32 sum, saturate the cast or
+    are NaN (tests/perlane_tables.py); the shuffle kernel at every width,
+    staged and in place, on a small table and the tool's three shapes."""
+    rs = np.random.RandomState(len(kind))
+    calls = 0
+    launches = dict(perlane.KERNEL_LAUNCHES)
+    for n, c in [(200, 8)] + [(n, c) for _, n, c in bench_perlane.SHAPES]:
+        ids = torch.from_numpy(_awkward_ids(rs, n)).to(cuda_device)
+        table = torch.from_numpy(perlane_tables.shuffle_table(rs, n, c, kind)).to(cuda_device)
+        want = perlane.shuffle_fetch_ref(ids, table, n, c, 33)
+        for cols, staged in _shuffle_designs():
+            _identical(perlane.shuffle_fetch(ids, table, n, c, 33, cols=cols, staged=staged),
+                       want)
+            calls += 1
+        if kind in perlane_tables.ONEHOT_KINDS:
+            o_ids = torch.from_numpy(rs.randint(0, n, (perlane.ROWS, perlane.LANES))
+                                     .astype(np.int32)).to(cuda_device)
+            o_table = torch.from_numpy(perlane_tables.adversarial_table(rs, n, c, kind)).to(
+                cuda_device, torch.bfloat16)
+            _identical(perlane.onehot_fetch(o_ids, o_table, 33),
+                       perlane.onehot_fetch_ref(o_ids, o_table, 33))
+    onehots = len(bench_perlane.SHAPES) + 1 if kind in perlane_tables.ONEHOT_KINDS else 0
+    assert perlane.KERNEL_LAUNCHES == {"onehot_fetch": launches["onehot_fetch"] + onehots,
+                                       "shuffle_fetch": launches["shuffle_fetch"] + calls}
+
+
+@pytest.mark.parametrize("n", [1, 129])
+def test_shuffle_kernel_edge_shapes(cuda_device, n):
+    """One-row and one-past-a-group tables, 1, 3, 112 and 160 columns (a
+    short last block at every width but 1), 0, 1, 2 and 33 steps, ids
+    outside the table and negative: bit-identical at every width, staged
+    and in place."""
+    rs = np.random.RandomState(n)
+    for c in (1, 3, 112, 160):
+        ids = torch.from_numpy(_awkward_ids(rs, n)).to(cuda_device)
+        table = torch.from_numpy(perlane_tables.shuffle_table(rs, n, c, "wrap")).to(cuda_device)
+        for steps in (0, 1, 2, 33):
+            want = perlane.shuffle_fetch_ref(ids, table, n, c, steps)
+            for cols, staged in _shuffle_designs():
+                _identical(perlane.shuffle_fetch(ids, table, n, c, steps, cols=cols,
+                                                 staged=staged), want)
 
 
 def test_l2_latency_probe(cuda_device):
