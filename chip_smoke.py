@@ -72,12 +72,22 @@ Phases (any failure exits non-zero and prints no result line):
    rate is written beside the kernel's product rate), and the kernel timed
    at both widths;
 9. per-lane fetch kernels (csrc/perlane.cu) vs their plain versions,
-   bit-identical at the tool's three table shapes (plain versions timed),
-   then `python -m gltf_renderer_tpu_torch.tools.bench_perlane`'s main with
-   the launch counters reset: its pointer chases measure the card's L1 and
-   L2 hit latencies, and each kernel's latency floor (32 dependent loads,
-   as many L1 hits as its chains allow and L2 hits for the rest) is logged
-   beside its byte bound (the kernels line's `latency_floor_ms`);
+   bit-identical at the tool's three table shapes (plain versions timed;
+   the onehot kernel's device time a call from 64 launches in one CUDA
+   graph); the shuffle kernel's study (`tools.bench_perlane.study`): its
+   output held to the plain version and its device time a call (CUDA-graph
+   replay, and torch.profiler's with the launches it recorded) at all three
+   shapes, in turns with the older kernel where build/parent/perlane.cu
+   holds its source (parent, new, new, parent), a steps sweep at 6400x112
+   with each kernel's fitted slope and intercept beside the warm-up
+   kernel's graph time, SM clock samples idle and under load, and the SASS
+   opcode counts and load-to-load path; then `python -m
+   gltf_renderer_tpu_torch.tools.bench_perlane`'s main with the launch
+   counters reset: its pointer chases measure the card's L1 and L2 hit
+   latencies, and each kernel's latency floor (32 dependent loads, as many
+   L1 hits as its chains allow and L2 hits for the rest) is logged beside
+   its byte bound (the kernels line's `latency_floor_ms`; its `ms` is the
+   graph device time, `tool_ms` the tool's launch-bound 16-call time);
 10. the port's bench entry point, `python -m gltf_renderer_tpu_torch.bench`,
    as a subprocess at 1920x1080 with BENCH_STEPS=3: one JSON line on
    stdout with the headline metric > 0, both gates true and raster FPS > 0;

@@ -24,22 +24,24 @@
 //
 // What bounds them on an H100: the chain of `steps` dependent loads, not
 // bytes and not operations. The tables (0.2-2.9 MB) stay in L2 between
-// calls; the onehot kernel reads 8 bf16 of one row per lane per step, one
-// thread a lane, each load an L2 or L1 hit.
+// calls. The onehot kernel is one thread a lane reading 8 bf16 of one row a
+// step, each load an L2 or L1 hit.
 //
-// The shuffle kernel was first one block of 128 lanes per column, every
-// block walking its lanes' chains from the table in place. Measured on the
-// card (tools/bench_perlane --study, PERF.md): 186 ns a step against a
-// 26 ns floor, set by the loads, not by the 24-instruction id step. The
-// chains visit nearly every 128-byte line of a column within 32 steps, so
-// most early steps missed L1 (an L2 round trip on the chain) and each
-// scattered warp load took ~27 L1 wavefronts. So now a block first copies
-// column 0 and its K columns whole into shared memory (coalesced 16-byte
-// cp.async, about what the chains would pull from L2 anyway), laid out by
-// id, and then walks each lane's chain once for the K columns from shared
-// memory: a step is one LDS, the F2I, an add and an unsigned min (next_id).
-// A table too large to stage (over 227 KB for 1 + K columns) is read in
-// place by the same code.
+// The shuffle kernel is one block of 128 lanes a column. It first walked its
+// lanes' chains through the table in place: 185 ns a step on an H100 (the
+// steps sweep of `python -m gltf_renderer_tpu_torch.tools.bench_perlane
+// --study`), against a floor of 26 ns. Within 32 steps the chains visit
+// nearly every 128-byte line of a column, so the early steps missed L1 (an
+// L2 round trip on the chain), and 24 dependent instructions ran from one
+// load to the next: the F2I, a signed modulo by a run-time n, the signed /
+// and % by 128 and a 64-bit address. Now the block first copies column 0
+// and its own column into shared memory (cp.async; about what the chains
+// would pull from L2 anyway), laid out by id, and a step is LDS, FADD.RZ,
+// two adds, an unsigned min of three and the next LDS (fast_next_id): 34
+// ns a step. Two or more columns a block lost at every shape the tool
+// times (the copy runs at the L2's rate), and a table too large to stage
+// (two columns over 227 KB) or not 16-byte aligned is read in place by the
+// same code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,13 +116,12 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" :: "r"(s), "l"(gmem) : "memory");
 }
 
-// Thread = lane (blockDim.x == SHUFFLE_LANES); block b = columns
-// [b K, b K + kc), kc = min(K, n_cols - b K). STAGED: the block first
-// copies column 0 and its own columns whole into shared memory (cp.async,
-// 16 B a thread at a time), laid out by id, s[j][id] (j = 0: column 0; j > 0:
-// column k0 + j - 1); a step is then one LDS of f0 at [id], fast_next_id
-// and the next LDS. Else every fetch reads the table in place.
-template <int K, bool STAGED>
+// Thread = lane (blockDim.x == SHUFFLE_LANES); block = column k. STAGED:
+// the block first copies column 0 and column k whole into shared memory
+// (cp.async, 16 B a thread at a time), laid out by id, s[0][id] and
+// s[1][id]; a step is then one LDS of f0 at [id], fast_next_id and the
+// next LDS. Else every fetch reads the table in place.
+template <bool STAGED>
 __global__ void shuffle_fetch_kernel(const int* __restrict__ ids,
                                      const float* __restrict__ table, int n_rows,
                                      int n_cols, int groups, int steps, unsigned bound,
@@ -128,84 +129,51 @@ __global__ void shuffle_fetch_kernel(const int* __restrict__ ids,
     extern __shared__ float4 smem4[];
     float* s = reinterpret_cast<float*>(smem4);
     const int lane = threadIdx.x;
-    const int k0 = blockIdx.x * K;
-    const int kc = min(K, n_cols - k0);
+    const int k = blockIdx.x;
     const size_t stride = (size_t)n_cols * SHUFFLE_LANES;  // floats a group
     const unsigned slots = (unsigned)groups * SHUFFLE_LANES;  // ids with a column
     const int id0 = ids[lane];
-    float acc[K];
     if constexpr (STAGED) {
         constexpr int QUADS = SHUFFLE_LANES / 4;  // 16-byte pieces of a group's column
-        for (int j = 0; j <= kc; ++j) {
-            const int col = j == 0 ? 0 : k0 + j - 1;
+        for (int j = 0; j < 2; ++j) {
             for (int q = lane; q < groups * QUADS; q += SHUFFLE_LANES) {
                 const int g = q / QUADS, r = (q % QUADS) * 4;
                 cp_async16(s + (size_t)j * slots + g * SHUFFLE_LANES + r,
-                           table + g * stride + (size_t)col * SHUFFLE_LANES + r);
+                           table + g * stride + (size_t)(j * k) * SHUFFLE_LANES + r);
             }
         }
         asm volatile("cp.async.wait_all;" ::: "memory");
         __syncthreads();
     }
-    // Column 0 (j = 0) or column k0 + j - 1 at `at`, an id inside the table.
+    // Column 0 (j = 0) or column k (j = 1) at `at`, an id inside the table.
     auto fetch = [&](int j, unsigned at) -> float {
         if constexpr (STAGED) return s[(size_t)j * slots + at];
-        const int col = j == 0 ? 0 : k0 + j - 1;
-        return __ldg(table + (at >> 7) * stride + (size_t)col * SHUFFLE_LANES + (at & 127));
+        return __ldg(table + (at >> 7) * stride + (size_t)(j * k) * SHUFFLE_LANES + (at & 127));
     };
-    // Walks the lane's chain into acc: step 0, the only one whose id may
-    // lie outside the table (fetching zeros), exactly; the rest by
-    // fast_next_id, or exactly. Returns whether a fast step was rare.
-    auto walk = [&](auto exact_tag) -> bool {
+    // The lane's chain, summed: step 0, the only one whose id may lie
+    // outside the table (fetching zeros), exactly; the rest by fast_next_id,
+    // or exactly. Sets `rare` when a fast step was.
+    auto walk = [&](auto exact_tag, bool& rare) -> float {
         constexpr bool exact = decltype(exact_tag)::value;
+        if (steps <= 0) return 0.0f;
         int id = id0;
-        bool rare = false;
-#pragma unroll
-        for (int j = 0; j < K; ++j) acc[j] = 0.0f;
-        if (steps <= 0) return false;
         const bool valid = (unsigned)id < slots;
         const float f0 = valid ? fetch(0, (unsigned)id) : 0.0f;
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-            acc[j] = __fadd_rn(0.0f, (valid && j < kc) ? fetch(j + 1, (unsigned)id) : 0.0f);
+        float acc = __fadd_rn(0.0f, valid ? fetch(1, (unsigned)id) : 0.0f);
         id = exact_next_id(id, f0, 0, n_rows);
 #pragma unroll 4
         for (int i = 1; i < steps; ++i) {
             const float f = fetch(0, (unsigned)id);
-#pragma unroll
-            for (int j = 0; j < K; ++j)
-                if (j < kc) acc[j] = __fadd_rn(acc[j], fetch(j + 1, (unsigned)id));
+            acc = __fadd_rn(acc, fetch(1, (unsigned)id));
             if constexpr (exact) id = exact_next_id(id, f, i, n_rows);
             else id = fast_next_id(id, f, i, (unsigned)n_rows, bound, rare);
         }
-        return rare;
+        return acc;
     };
-    if (walk(Exact<false>{})) walk(Exact<true>{});
-#pragma unroll
-    for (int j = 0; j < K; ++j)
-        if (j < kc) out[(size_t)(k0 + j) * SHUFFLE_LANES + lane] = acc[j];
-}
-
-template <int K>
-int shuffle_launch_k(const int* ids, const float* table, int n_rows, int n_cols, int groups,
-                     int steps, unsigned bound, int smem, float* out, cudaStream_t stream) {
-    const int blocks = (n_cols + K - 1) / K;
-    if (smem == 0) {
-        shuffle_fetch_kernel<K, false><<<blocks, SHUFFLE_LANES, 0, stream>>>(
-            ids, table, n_rows, n_cols, groups, steps, bound, out);
-        return (int)cudaGetLastError();
-    }
-    // Above 48 KB a block's dynamic shared memory must be allowed first.
-    static int allowed = 48 * 1024;
-    if (smem > allowed) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            shuffle_fetch_kernel<K, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return (int)err;
-        allowed = smem;
-    }
-    shuffle_fetch_kernel<K, true><<<blocks, SHUFFLE_LANES, smem, stream>>>(
-        ids, table, n_rows, n_cols, groups, steps, bound, out);
-    return (int)cudaGetLastError();
+    bool rare = false;
+    float acc = walk(Exact<false>{}, rare);
+    if (rare) acc = walk(Exact<true>{}, rare);
+    out[(size_t)k * SHUFFLE_LANES + lane] = acc;
 }
 
 // The yardstick for both kernels' latency floor: the latency of one load
@@ -258,29 +226,35 @@ extern "C" int onehot_fetch_launch(const void* ids, const void* table, int n_row
 
 // Version of shuffle_fetch_launch's argument list: 1 (no such function)
 // took (ids, table, n_rows, n_cols, groups, steps, out, stream); 2 adds
-// cols (K, columns a block: 1, 2, 4 or 8), bound and smem (the bytes of
-// the staged layout, (1 + K) groups 128 x 4; 0 reads the table in place),
-// as ops/perlane.shuffle_plan computes them.
+// bound and smem (the bytes of the staged layout, 2 groups 128 x 4; 0
+// reads the table in place), as ops/perlane.shuffle_plan computes them.
 extern "C" int perlane_abi(void) { return 2; }
 
 extern "C" int shuffle_fetch_launch(const void* ids, const void* table, int n_rows,
-                                    int n_cols, int groups, int steps, int cols, int bound,
-                                    int smem, void* out, void* stream) {
+                                    int n_cols, int groups, int steps, int bound, int smem,
+                                    void* out, void* stream) {
     if (n_rows <= 0 || n_cols <= 0 || groups != (n_rows + SHUFFLE_LANES - 1) / SHUFFLE_LANES)
         return (int)cudaErrorInvalidValue;
-    if (smem != 0 && (smem > SHUFFLE_SMEM_MAX || (size_t)smem != (size_t)(1 + cols) * groups
-                      * SHUFFLE_LANES * sizeof(float) || ((uintptr_t)table & 15) != 0))
-        return (int)cudaErrorInvalidValue;
-    const int* i = (const int*)ids;
-    const float* t = (const float*)table;
-    float* o = (float*)out;
     const cudaStream_t st = (cudaStream_t)stream;
-    const unsigned b = (unsigned)bound;
-    switch (cols) {
-        case 1: return shuffle_launch_k<1>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
-        case 2: return shuffle_launch_k<2>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
-        case 4: return shuffle_launch_k<4>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
-        case 8: return shuffle_launch_k<8>(i, t, n_rows, n_cols, groups, steps, b, smem, o, st);
-        default: return (int)cudaErrorInvalidValue;
+    if (smem == 0) {
+        shuffle_fetch_kernel<false><<<n_cols, SHUFFLE_LANES, 0, st>>>(
+            (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps,
+            (unsigned)bound, (float*)out);
+        return (int)cudaGetLastError();
     }
+    if (smem > SHUFFLE_SMEM_MAX || (size_t)smem != 2 * (size_t)groups * SHUFFLE_LANES
+        * sizeof(float) || ((uintptr_t)table & 15) != 0)
+        return (int)cudaErrorInvalidValue;
+    // Above 48 KB a block's dynamic shared memory must be allowed first.
+    static int allowed = 48 * 1024;
+    if (smem > allowed) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            shuffle_fetch_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+        allowed = smem;
+    }
+    shuffle_fetch_kernel<true><<<n_cols, SHUFFLE_LANES, smem, st>>>(
+        (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps, (unsigned)bound,
+        (float*)out);
+    return (int)cudaGetLastError();
 }

@@ -20,8 +20,8 @@ fetches zeros, as in the JAX kernels. A CPU tensor goes to the plain
 version (`*_ref`); a CUDA tensor goes to the CUDA kernel (csrc/perlane.cu),
 or the call raises. The plain versions add in the JAX kernels' order, so
 kernel, plain version and JAX kernel agree bit for bit. `shuffle_plan`
-gives the shuffle kernel's launch constants (columns a block, the staged
-layout's bytes, the id step's fast-path bound).
+gives the shuffle kernel's launch constants (the staged layout's bytes,
+the id step's fast-path bound).
 `KERNEL_LAUNCHES` counts each kernel's launches by name and
 `REFERENCE_CALLS` the plain-version calls.
 """
@@ -41,10 +41,8 @@ REFERENCE_CALLS = 0
 
 _SOURCE = "perlane.cu"
 _ONEHOT_ARGS = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2
-_SHUFFLE_ARGS = [_build.VP, _build.VP] + [_build.CI] * 7 + [_build.VP] * 2
+_SHUFFLE_ARGS = [_build.VP, _build.VP] + [_build.CI] * 6 + [_build.VP] * 2
 
-SHUFFLE_COLS = (1, 2, 4, 8)  # the columns a block (K) that csrc/perlane.cu instantiates
-SHUFFLE_DEFAULT_COLS = 1
 SHUFFLE_SMEM_MAX = _build.source_define(_SOURCE, "SHUFFLE_SMEM_MAX")
 
 
@@ -76,24 +74,17 @@ def _check_shuffle(ids, table, n_rows, n_cols):
     _check("table", table, torch.float32, (_groups(n_rows) * n_cols, LANES), ids.device)
 
 
-def shuffle_plan(n_rows: int, n_cols: int, cols=None, staged: bool = True) -> dict:
-    """The constants `shuffle_fetch` launches with: cols, the columns K a
-    block carries (each of its 128 threads walks its lane's chain once for
-    them; SHUFFLE_DEFAULT_COLS unless given); blocks = ceil(n_cols / K),
-    block b taking columns [b K, min(b K + K, n_cols)); groups =
-    ceil(n_rows / 128); bound, below which the kernel's id step is one
-    unsigned min (2 n, or n when 2 n would pass 2^31); smem, the bytes of
-    the staged layout, (1 + K) columns of groups x 128 f32, or 0 when
-    `staged` is off or that exceeds SHUFFLE_SMEM_MAX (the table is then read
-    in place)."""
-    k = SHUFFLE_DEFAULT_COLS if cols is None else int(cols)
-    if k not in SHUFFLE_COLS:
-        raise ValueError(f"cols must be one of {SHUFFLE_COLS}, got {cols}")
+def shuffle_plan(n_rows: int, aligned: bool = True) -> dict:
+    """The constants `shuffle_fetch` launches with (one block of 128 lanes
+    a column): groups = ceil(n_rows / 128); bound, below which the kernel's
+    id step is one unsigned min (2 n, or n when 2 n would pass 2^31); smem,
+    the bytes of the staged layout (column 0 and the block's column, groups
+    x 128 f32 each), or 0 where that exceeds SHUFFLE_SMEM_MAX or the table
+    is not 16-byte `aligned` (the kernel then reads the table in place)."""
     groups = _groups(n_rows)
-    smem = (1 + k) * groups * LANES * 4
-    return {"cols": k, "blocks": -(-n_cols // k), "groups": groups,
-            "bound": 2 * n_rows if n_rows < 2 ** 30 else n_rows,
-            "smem": smem if staged and smem <= SHUFFLE_SMEM_MAX else 0}
+    smem = 2 * groups * LANES * 4
+    return {"groups": groups, "bound": 2 * n_rows if n_rows < 2 ** 30 else n_rows,
+            "smem": smem if aligned and smem <= SHUFFLE_SMEM_MAX else 0}
 
 
 def _launch(fn_name, argtypes, ids, table, out, *ints):
@@ -116,19 +107,16 @@ def onehot_fetch(ids, table, steps: int):
                    table.shape[1], int(steps), ids.numel())
 
 
-def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int, cols=None,
-                  staged: bool = True):
-    """`steps` dependent c-value column fetches per lane; returns acc. cols
-    and staged go to `shuffle_plan` (a table not 16-byte aligned is read in
-    place): design knobs for the study tool; the result is the same."""
+def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int):
+    """`steps` dependent c-value column fetches per lane; returns acc."""
     _check_shuffle(ids, table, n_rows, n_cols)
     if ids.device.type == "cpu":
         return shuffle_fetch_ref(ids, table, n_rows, n_cols, steps)
     table = table.contiguous()
-    plan = shuffle_plan(n_rows, n_cols, cols, staged and table.data_ptr() % 16 == 0)
+    plan = shuffle_plan(n_rows, aligned=table.data_ptr() % 16 == 0)
     out = torch.empty((n_cols, LANES), dtype=torch.float32, device=ids.device)
     return _launch("shuffle_fetch", _SHUFFLE_ARGS, ids, table, out, n_rows, n_cols,
-                   plan["groups"], int(steps), plan["cols"], plan["bound"], plan["smem"])
+                   plan["groups"], int(steps), plan["bound"], plan["smem"])
 
 
 def _onehot_chain(ids, table, steps: int):

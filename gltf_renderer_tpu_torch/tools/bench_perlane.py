@@ -1,6 +1,7 @@
 """Per-lane row fetch on one CUDA card: microseconds per dependent step.
 
     python -m gltf_renderer_tpu_torch.tools.bench_perlane
+    python -m gltf_renderer_tpu_torch.tools.bench_perlane --study [--parent OLD.cu] [--sass-out F]
 
 Port of tools/bench_perlane.py's `main`. A per-lane BVH step has to fetch
 each lane's node row; this tool times a chain of STEPS dependent fetches
@@ -13,9 +14,14 @@ B. `shuffle_fetch`: one 128-lane row fetching c values from the grouped
    (ceil(n/128) * c, 128) f32 table (on the TPU a group scan), also shown
    x 16 rows for a whole packet.
 
-Times are CUDA events over 16 calls after 2 warm ones. The TPU tool's
-printed break-even budgets were TPU numbers and are not carried over. On the
-CPU the plain versions run once per shape and no time is printed.
+Times are CUDA events over 16 calls after 2 warm ones: launch-bound, they
+time the wrapper and the launch more than the kernel. `--study` (`study`)
+measures the shuffle kernel's device time a call instead, from CUDA-graph
+replays, in turns with an older perlane.cu given by --parent, with a steps
+sweep, clock samples and the SASS of one step; it prints one JSON line
+last. The TPU tool's printed break-even budgets were TPU numbers and are not
+carried over. On the CPU the plain versions run once per shape and no time
+is printed.
 
 Both kernels are chains of STEPS dependent loads, so what bounds them is
 the latency of those loads, not bytes over the memory rate. A load hits L2
@@ -318,13 +324,6 @@ def kernel_sass(source, name: str) -> dict:
     return out
 
 
-def default_kernel_name() -> str:
-    """The part of the mangled name that picks the shuffle kernel
-    `perlane.shuffle_plan`'s defaults launch at the tool's shapes
-    (shuffle_fetch_kernel<SHUFFLE_DEFAULT_COLS, staged>)."""
-    return f"shuffle_fetch_kernelILi{perlane.SHUFFLE_DEFAULT_COLS}ELb1E"
-
-
 def clocks_under_load(graph, seconds: float = 1.5, samples: int = 3) -> list:
     """`gpu_clocks` sampled `samples` times while `graph` replays back to
     back for about `seconds`."""
@@ -352,32 +351,15 @@ def _kernel_us(by_op: dict, name: str = "shuffle_fetch") -> list:
     return next([us, n] for k, (us, n) in by_op.items() if name in k)
 
 
-def design_us(ids, table, n, c, want) -> dict:
-    """{"K<cols><s|g>": graph-replay device us a call} of the shuffle kernel
-    at every width perlane.SHUFFLE_COLS, staged in shared memory (s) or
-    reading the table in place (g); each held to `want` first."""
-    out = {}
-    for cols in perlane.SHUFFLE_COLS:
-        for staged in (True, False):
-            def call(cols=cols, staged=staged):
-                return perlane.shuffle_fetch(ids, table, n, c, STEPS, cols=cols, staged=staged)
-            if not bool(torch.equal(call().view(torch.int32), want.view(torch.int32))):
-                raise AssertionError(f"the shuffle kernel (cols={cols}, staged={staged}) "
-                                     f"disagrees with its plain version at {n}x{c}")
-            out[f"K{cols}{'s' if staged else 'g'}"] = replay_us(graph_of(call, GRAPH_LAUNCHES),
-                                                                GRAPH_LAUNCHES)
-    return out
-
-
-def study(device="cuda", parent=None, sass_out=None, designs=True):
+def study(device="cuda", parent=None, sass_out=None):
     """K5's device time on the card, in turns with the older kernel at path
     `parent` when given (parent, new, new, parent): at every shape, the
     graph-replay device time a call (GRAPH_LAUNCHES launches captured in
     one CUDA graph) and torch.profiler's; the same over SWEEP_STEPS at
     SWEEP_SHAPE with each kernel's fitted slope (ns a step) and intercept
-    (us), and its time at 0 steps (launch, staging and store only); K6's graph-replay time (`warm.add_one`, 8x128) beside the
-    intercept; with `designs`, `design_us` at every shape; SM clock
-    samples idle and under load; each kernel's SASS
+    (us), and its time at 0 steps (launch, staging and store only); K6's
+    graph-replay time (`warm.add_one`, 8x128) beside the intercept; SM
+    clock samples idle and under load; each kernel's SASS
     opcode counts and one step's load-to-load path (their whole SASS
     written to the file `sass_out` when given). Every kernel's output is
     held to the plain version first. Returns a dict (the JSON line)."""
@@ -404,15 +386,10 @@ def study(device="cuda", parent=None, sass_out=None, designs=True):
             row[f"{k}_profiler_us"] = _kernel_us(device_us_by_op(call))
         for k in order:
             row.setdefault(f"{k}_graph_us", []).append(replay_us(graphs[k], GRAPH_LAUNCHES))
-        if designs:
-            row["designs_us"] = design_us(ids, table, n, c, want)
         res["shapes"][label] = row
         print(f"[k5] {label} ({n}x{c}): " + ", ".join(
-            f"{k} {[round(x, 3) for x in v]}" for k, v in row.items() if k != "designs_us")
+            f"{k} {[round(x, 3) for x in v]}" for k, v in row.items())
             + " (us; profiler: [us a launch, launches recorded of 10])", flush=True)
-        if designs:
-            print(f"[k5] {label} designs: " + ", ".join(
-                f"{k} {v:.3f}" for k, v in row["designs_us"].items()) + " us", flush=True)
     label, n, c = SWEEP_SHAPE
     ids, table = shuffle_inputs(rng, n, c, dev)
     load_graph = None
@@ -455,7 +432,8 @@ def study(device="cuda", parent=None, sass_out=None, designs=True):
     for k, src in (("parent", parent and os.path.abspath(parent)), ("new", "perlane.cu")):
         if k not in runs:
             continue
-        name = "shuffle_fetch" if k == "parent" else default_kernel_name()
+        # The new kernel's staged form (shuffle_fetch_kernel<true>) runs at every shape.
+        name = "shuffle_fetch" if k == "parent" else "shuffle_fetch_kernelILb1E"
         for fname, info in kernel_sass(src, name).items():
             res["sass"][f"{k}:{fname}"] = {"opcodes": info["opcodes"],
                                           "path_len": len(info["path"]), "path": info["path"]}

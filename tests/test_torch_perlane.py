@@ -231,7 +231,7 @@ def test_kernel_id_step_is_the_floor_modulo(n):
     torch.remainder for every int32 sum it does not flag as rare (all
     boundaries and 4096 random sums), flags none in [0, bound) (bound = 2n
     below n = 2^30), and always stays in [0, n)."""
-    bound = perlane.shuffle_plan(n, 1)["bound"]
+    bound = perlane.shuffle_plan(n)["bound"]
     assert bound == (2 * n if n < 2 ** 30 else n)
     edges = [0, 1, n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, -1, -n, -n - 1, -2 * n,
              2 ** 31 - 1, 2 ** 31 - n, -2 ** 31, -2 ** 31 + n, 2 ** 30, -2 ** 30]
@@ -261,29 +261,19 @@ def test_kernel_fast_trunc_is_exact_or_rare():
     assert not bool(rare[small].any()) and bool(rare[~small].all())
 
 
-@pytest.mark.parametrize("n,c,cols", [(768, 112, 1), (4480, 160, 2), (6400, 112, 4),
-                                      (300, 3, 2), (129, 7, 4), (1, 1, 8), (6400, 112, 8),
-                                      (60000, 5, 4)])
-def test_shuffle_plan_constants_and_tail(n, c, cols):
-    """The blocks cover every column once (the last one short when c % K
-    != 0), and the staged layout's bytes are (1 + K) columns of the padded
-    table, staged only where they fit in a block's shared memory."""
-    plan = perlane.shuffle_plan(n, c, cols)
-    k, blocks, groups = plan["cols"], plan["blocks"], plan["groups"]
-    assert k == cols and groups == -(-n // perlane.LANES)
-    spans = [(b * k, min(k, c - b * k)) for b in range(blocks)]  # (k0, kc) as the kernel takes
-    covered = [k0 + j for k0, kc in spans for j in range(kc)]
-    assert covered == list(range(c)) and all(kc >= 1 for _, kc in spans)
-    assert (spans[-1][1] < k) == (c % k != 0)
-    need = (1 + k) * groups * perlane.LANES * 4
+@pytest.mark.parametrize("n", [1, 129, 768, 6400, 29056, 29057, 2 ** 20])
+def test_shuffle_plan_constants(n):
+    """The staged layout is two columns of the padded table (column 0 and
+    the block's), staged only where it fits a block's shared memory and the
+    table is 16-byte aligned; csrc/perlane.cu reads its limit from the
+    same #define."""
+    plan = perlane.shuffle_plan(n)
+    groups = -(-n // perlane.LANES)
+    need = 2 * groups * perlane.LANES * 4
+    assert plan["groups"] == groups and plan["bound"] == 2 * n
     assert plan["smem"] == (need if need <= perlane.SHUFFLE_SMEM_MAX else 0)
-    assert perlane.shuffle_plan(n, c, cols, staged=False)["smem"] == 0
-
-
-def test_shuffle_plan_refuses_other_widths():
-    assert perlane.shuffle_plan(100, 4)["cols"] == perlane.SHUFFLE_DEFAULT_COLS
-    with pytest.raises(ValueError):
-        perlane.shuffle_plan(100, 4, 3)
+    assert (plan["smem"] > 0) == (n <= 29056)  # 227 groups: 232,448 bytes
+    assert perlane.shuffle_plan(n, aligned=False)["smem"] == 0
 
 
 def test_chain_path_follows_the_step_through_the_loop():

@@ -96,8 +96,15 @@ def test_perlane_kernels_match_plain(cuda_device, label, n, c):
     assert perlane.KERNEL_LAUNCHES == {k: v + 1 for k, v in launches.items()}
 
 
-def _shuffle_designs():
-    return [(cols, staged) for cols in perlane.SHUFFLE_COLS for staged in (True, False)]
+def _layouts(table):
+    """The table as it is (16-byte aligned: the kernel stages it in shared
+    memory where it fits) and a copy 4 bytes off 16-byte alignment (the
+    kernel reads it in place)."""
+    flat = torch.empty(table.numel() + 1, dtype=table.dtype, device=table.device)
+    off = flat[1:].view(table.shape)
+    off.copy_(table)
+    assert table.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 4
+    return [table, off]
 
 
 def _awkward_ids(rs, n):
@@ -113,8 +120,8 @@ def _awkward_ids(rs, n):
 def test_perlane_kernels_on_adversarial_tables(cuda_device, kind):
     """Both kernels equal their plain versions bit for bit where the
     fetched values are negative, wrap the int32 sum, saturate the cast or
-    are NaN (tests/perlane_tables.py); the shuffle kernel at every width,
-    staged and in place, on a small table and the tool's three shapes."""
+    are NaN (tests/perlane_tables.py); the shuffle kernel staged and in
+    place, on a small table and the tool's three shapes."""
     rs = np.random.RandomState(len(kind))
     calls = 0
     launches = dict(perlane.KERNEL_LAUNCHES)
@@ -122,9 +129,8 @@ def test_perlane_kernels_on_adversarial_tables(cuda_device, kind):
         ids = torch.from_numpy(_awkward_ids(rs, n)).to(cuda_device)
         table = torch.from_numpy(perlane_tables.shuffle_table(rs, n, c, kind)).to(cuda_device)
         want = perlane.shuffle_fetch_ref(ids, table, n, c, 33)
-        for cols, staged in _shuffle_designs():
-            _identical(perlane.shuffle_fetch(ids, table, n, c, 33, cols=cols, staged=staged),
-                       want)
+        for t in _layouts(table):
+            _identical(perlane.shuffle_fetch(ids, t, n, c, 33), want)
             calls += 1
         if kind in perlane_tables.ONEHOT_KINDS:
             o_ids = torch.from_numpy(rs.randint(0, n, (perlane.ROWS, perlane.LANES))
@@ -138,21 +144,21 @@ def test_perlane_kernels_on_adversarial_tables(cuda_device, kind):
                                        "shuffle_fetch": launches["shuffle_fetch"] + calls}
 
 
-@pytest.mark.parametrize("n", [1, 129])
+@pytest.mark.parametrize("n", [1, 129, 30000])
 def test_shuffle_kernel_edge_shapes(cuda_device, n):
-    """One-row and one-past-a-group tables, 1, 3, 112 and 160 columns (a
-    short last block at every width but 1), 0, 1, 2 and 33 steps, ids
-    outside the table and negative: bit-identical at every width, staged
-    and in place."""
+    """One-row and one-past-a-group tables and one too large to stage
+    (30,000 rows: 470 KB for two columns), 1, 3, 112 and 160 columns, 0, 1,
+    2 and 33 steps, ids outside the table and negative: bit-identical,
+    staged and in place."""
     rs = np.random.RandomState(n)
+    assert perlane.shuffle_plan(30000)["smem"] == 0
     for c in (1, 3, 112, 160):
         ids = torch.from_numpy(_awkward_ids(rs, n)).to(cuda_device)
         table = torch.from_numpy(perlane_tables.shuffle_table(rs, n, c, "wrap")).to(cuda_device)
         for steps in (0, 1, 2, 33):
             want = perlane.shuffle_fetch_ref(ids, table, n, c, steps)
-            for cols, staged in _shuffle_designs():
-                _identical(perlane.shuffle_fetch(ids, table, n, c, steps, cols=cols,
-                                                 staged=staged), want)
+            for t in _layouts(table):
+                _identical(perlane.shuffle_fetch(ids, t, n, c, steps), want)
 
 
 def test_l2_latency_probe(cuda_device):
