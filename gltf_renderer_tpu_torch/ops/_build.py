@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -131,8 +132,6 @@ def sass(source: str) -> dict:
     """{mangled function name: [instruction lines]} from `cuobjdump -sass`
     of csrc/<source>'s library (built if missing). Each line is one SASS
     instruction as cuobjdump prints it, address comment first."""
-    import re
-
     load(source)
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", library_path(source)], check=True,
@@ -147,7 +146,5 @@ def sass(source: str) -> dict:
 
 def opcode(line: str) -> str:
     """The opcode of one SASS line from `sass` (predicate and modifiers cut)."""
-    import re
-
     m = re.match(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
     return m.group(1) if m else ""

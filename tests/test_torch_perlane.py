@@ -115,9 +115,6 @@ def test_plain_versions_cast_as_xla(interpret, kernel, kind):
     else:
         c = 4
         ids = rs.randint(0, n, (1, perlane.LANES)).astype(np.int32)
-        groups = -(-n // perlane.LANES)
-        # Column 0 feeds the next id: it takes the sums the one-hot step would
-        # see over such rows, added left to right in f32.
         table = perlane_tables.shuffle_table(rs, n, c, kind)
         want = jax_perlane.make_shuffle_kernel(n, c, steps)(jnp.asarray(ids), jnp.asarray(table))
         got = perlane.shuffle_fetch(torch.from_numpy(ids), torch.from_numpy(table), n, c, steps)
