@@ -80,14 +80,16 @@ Phases (any failure exits non-zero and prints no result line):
    shapes, in turns with the older kernel where build/parent/perlane.cu
    holds its source (parent, new, new, parent), a steps sweep at 6400x112
    with each kernel's fitted slope and intercept beside the warm-up
-   kernel's graph time, SM clock samples idle and under load, and the SASS
-   opcode counts and load-to-load path; then `python -m
+   kernel's graph time, the SM clock idle and under load, and the SASS
+   opcode counts; then `python -m
    gltf_renderer_tpu_torch.tools.bench_perlane`'s main with the launch
-   counters reset: its pointer chases measure the card's L1 and L2 hit
-   latencies, and each kernel's latency floor (32 dependent loads, as many
-   L1 hits as its chains allow and L2 hits for the rest) is logged beside
-   its byte bound (the kernels line's `latency_floor_ms`; its `ms` is the
-   graph device time, `tool_ms` the tool's launch-bound 16-call time);
+   counters reset: its pointer chases measure the card's L1, L2 and
+   shared-memory hit latencies, and each kernel's latency floor (32
+   dependent loads, in place with as many L1 hits as its chains allow and
+   L2 hits for the rest, or staged in shared memory after one L2 round
+   trip, whichever is less) is logged beside its byte bound (the kernels
+   line's `latency_floor_ms`; its `ms` is the tool's launch-bound 16-call
+   time, `device_ms` the graph device time a call);
 10. the port's bench entry point, `python -m gltf_renderer_tpu_torch.bench`,
    as a subprocess at 1920x1080 with BENCH_STEPS=3: one JSON line on
    stdout with the headline metric > 0, both gates true and raster FPS > 0;
@@ -1015,9 +1017,8 @@ def phase_perlane(device):
     if parent is None:
         log(f"[perlane] no parent kernel source at {PARENT_K5}, parent not timed")
     study = bp.study(device, parent)
-    for name, info in study["sass"].items():
-        log(f"[sass] {name}: path {info['path_len']}; opcodes "
-            + ", ".join(f"{k} {v}" for k, v in info["opcodes"].items()))
+    for name, ops in study["sass"].items():
+        log(f"[sass] {name}: opcodes " + ", ".join(f"{k} {v}" for k, v in ops.items()))
     row = study["shapes"][PERLANE_ROW]
     sweep = study["sweep"]["new"]
     device_us["shuffle"] = {"graph_us": statistics.mean(row["new_graph_us"]),
@@ -1047,19 +1048,23 @@ def phase_perlane(device):
         log(f"[perlane] tool {row['kind']} {row['label']}: kernel={row['ms']:.4f} ms "
             f"({row['us_step']:.3f} us/step; 16 calls back to back, launch-bound) "
             f"plain={p_ms:.3f} ms bound={b_ms:.6f} ms ({b_by}); "
-            f"latency floor {floor_ms:.6f} ms ({bp.STEPS} dependent loads, at most "
-            f"{row['l1_hit_ceiling']:.3f} of them L1 hits, the rest L2 hits)")
+            f"latency floor {floor_ms:.6f} ms ({bp.STEPS} dependent loads in place, at most "
+            f"{row['l1_hit_ceiling']:.3f} of them L1 hits, or staged in shared memory, "
+            f"whichever is less)")
         if row["label"] == PERLANE_ROW:
             dev = device_us[row["kind"]]
-            ms = dev["graph_us"] * 1e-3
-            log(f"[perlane] {row['kind']} {PERLANE_ROW}: device time a call {ms:.6f} ms, "
-                f"{ms / floor_ms:.2f}x its latency floor")
-            out[row["kind"]] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                                "tool_ms": row["ms"], "latency_floor_ms": floor_ms,
+            device_ms = dev["graph_us"] * 1e-3
+            log(f"[perlane] {row['kind']} {PERLANE_ROW}: device time a call {device_ms:.6f} ms, "
+                f"{device_ms / floor_ms:.2f}x its latency floor")
+            out[row["kind"]] = {"ms": row["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
+                                "bound_by": b_by, "device_ms": device_ms,
+                                "latency_floor_ms": floor_ms,
                                 "l1_hit_ceiling": row["l1_hit_ceiling"],
+                                "hit_latency_ns": row["hit_latency_ns"],
                                 **{k: v for k, v in dev.items() if k != "graph_us"}}
     log(f"[perlane] tool launches={launches}; the kernel table's rows are the {PERLANE_ROW} "
-        f"shape, ms the device time a call (CUDA graph replay), tool_ms the tool's own timing")
+        f"shape, ms the tool's own timing (16 calls back to back, launch-bound), device_ms "
+        f"the device time a call (CUDA graph replay)")
     common = {"route": "cuda", "source": "gltf_renderer_tpu_torch/csrc/perlane.cu",
               "max_abs_err": 0.0, "library_ms": None}
     return [dict(common, name="onehot_fetch", replaces=ONEHOT_REPLACES,

@@ -36,12 +36,13 @@
 // load to the next: the F2I, a signed modulo by a run-time n, the signed /
 // and % by 128 and a 64-bit address. Now the block first copies column 0
 // and its own column into shared memory (cp.async; about what the chains
-// would pull from L2 anyway), laid out by id, and a step is LDS, FADD.RZ,
-// two adds, an unsigned min of three and the next LDS (fast_next_id): 34
-// ns a step. Two or more columns a block lost at every shape the tool
-// times (the copy runs at the L2's rate), and a table too large to stage
-// (two columns over 227 KB) or not 16-byte aligned is read in place by the
-// same code.
+// would pull from L2 anyway), laid out by id, and carries each lane's id
+// as the byte offset 4 id: a step is LDS, FADD.RZ, two multiply-adds side
+// by side, an unsigned min of three and the next LDS at that offset
+// (fast_next_off), about 28 ns a step on an H100. Two or more columns a
+// block lost at every shape the tool times (the copy runs at the L2's
+// rate), and a table too large to stage (two columns over 227 KB) or not
+// 16-byte aligned is read in place by the same code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,15 +88,19 @@ __device__ __forceinline__ int exact_next_id(int id, float f0, int i, int n) {
     return floor_mod((int)((unsigned)id + (unsigned)__float2int_rz(f0) + (unsigned)i), n);
 }
 
-// The shuffle kernel's common step, after step 0 (id in [0, n)): for f0 in
-// [0, 2^23), f0 + 2^23 rounded toward zero is 2^23 + int(f0), so its bits
-// are F2I_BIAS + int(f0) (an FADD in place of the slower F2I); and
-// x = id + int(f0) + i in [0, bound) (bound = 2n, or n where 2n would pass
-// 2^31) has floor_mod(x, n) = the unsigned min of x and x - n (which wraps
-// above x when x < n). `rare` records a step outside both ranges; the id
-// is then clamped into [0, n) so that the next fetch stays in the table,
-// and the caller walks the lane again with exact_next_id. No branch and no
-// division on the chain.
+// The shuffle kernel's common step, after step 0 (id in [0, n)), on the
+// byte offset o = 4 id: for f0 in [0, 2^23), f0 + 2^23 rounded toward zero
+// is 2^23 + int(f0), so its bits are F2I_BIAS + int(f0) (an FADD in place
+// of the slower F2I); and for x = id + int(f0) + i in [0, bound) (bound =
+// 2n, n < 2^29) the next offset 4 floor_mod(x, n) is the unsigned min of
+// 4x and 4x - 4n (which wraps above 4x when x < n). Each of the two is one
+// multiply-add of the FADD's bits by 4 onto a constant that is ready
+// before the load returns, so the chain from load to load is FADD, the two
+// adds side by side, one min of three and the next load's address. `rare`
+// records a step outside both ranges (bound = 0 makes every step rare);
+// the offset is then clamped into the table so that the next fetch stays
+// there, and the caller walks the lane again with exact_next_id. No
+// branch and no division on the chain.
 #define F2I_BIAS 0x4B000000u  // the bits of 2^23
 
 template <bool B>
@@ -103,12 +108,17 @@ struct Exact {
     static constexpr bool value = B;
 };
 
-__device__ __forceinline__ int fast_next_id(int id, float f0, int i, unsigned n, unsigned bound,
-                                            bool& rare) {
-    const unsigned t = __float_as_uint(__fadd_rz(f0, 8388608.0f));
-    const unsigned x = (unsigned)id + t + ((unsigned)i - F2I_BIAS);
+__device__ __forceinline__ unsigned fast_next_off(unsigned o, float f0, int i, unsigned n,
+                                                  unsigned bound, bool& rare) {
+    const unsigned c = o + 4u * ((unsigned)i - F2I_BIAS);
+    const unsigned c_less_n = c - 4u * n;
+    const unsigned bits = __float_as_uint(__fadd_rz(f0, 8388608.0f));
+    unsigned x4, xn4;  // 4x and 4x - 4n; PTX keeps nvcc from chaining the second on the first
+    asm("mad.lo.u32 %0, %1, 4, %2;" : "=r"(x4) : "r"(bits), "r"(c));
+    asm("mad.lo.u32 %0, %1, 4, %2;" : "=r"(xn4) : "r"(bits), "r"(c_less_n));
+    const unsigned x = (o >> 2) + bits + ((unsigned)i - F2I_BIAS);
     rare |= (__float_as_uint(f0) >= F2I_BIAS) | (x >= bound);
-    return (int)min(min(x, x - n), n - 1);
+    return min(min(x4, xn4), 4u * (n - 1));
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -119,8 +129,9 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
 // Thread = lane (blockDim.x == SHUFFLE_LANES); block = column k. STAGED:
 // the block first copies column 0 and column k whole into shared memory
 // (cp.async, 16 B a thread at a time), laid out by id, s[0][id] and
-// s[1][id]; a step is then one LDS of f0 at [id], fast_next_id and the
-// next LDS. Else every fetch reads the table in place.
+// s[1][id]; a step is then one LDS of f0 at byte offset 4 id,
+// fast_next_off and the next LDS. Else every fetch reads the table in
+// place.
 template <bool STAGED>
 __global__ void shuffle_fetch_kernel(const int* __restrict__ ids,
                                      const float* __restrict__ table, int n_rows,
@@ -145,28 +156,32 @@ __global__ void shuffle_fetch_kernel(const int* __restrict__ ids,
         asm volatile("cp.async.wait_all;" ::: "memory");
         __syncthreads();
     }
-    // Column 0 (j = 0) or column k (j = 1) at `at`, an id inside the table.
-    auto fetch = [&](int j, unsigned at) -> float {
-        if constexpr (STAGED) return s[(size_t)j * slots + at];
+    // Column 0 (j = 0) or column k (j = 1) at byte offset o = 4 id, an id
+    // inside the table.
+    auto fetch = [&](int j, unsigned o) -> float {
+        if constexpr (STAGED)
+            return *reinterpret_cast<const float*>(
+                reinterpret_cast<const char*>(s + j * slots) + o);
+        const unsigned at = o >> 2;
         return __ldg(table + (at >> 7) * stride + (size_t)(j * k) * SHUFFLE_LANES + (at & 127));
     };
     // The lane's chain, summed: step 0, the only one whose id may lie
-    // outside the table (fetching zeros), exactly; the rest by fast_next_id,
-    // or exactly. Sets `rare` when a fast step was.
+    // outside the table (fetching zeros), exactly; the rest by
+    // fast_next_off, or exactly. Sets `rare` when a fast step was.
     auto walk = [&](auto exact_tag, bool& rare) -> float {
         constexpr bool exact = decltype(exact_tag)::value;
         if (steps <= 0) return 0.0f;
-        int id = id0;
-        const bool valid = (unsigned)id < slots;
-        const float f0 = valid ? fetch(0, (unsigned)id) : 0.0f;
-        float acc = __fadd_rn(0.0f, valid ? fetch(1, (unsigned)id) : 0.0f);
-        id = exact_next_id(id, f0, 0, n_rows);
+        const bool valid = (unsigned)id0 < slots;
+        const unsigned o0 = 4u * (unsigned)id0;
+        const float f0 = valid ? fetch(0, o0) : 0.0f;
+        float acc = __fadd_rn(0.0f, valid ? fetch(1, o0) : 0.0f);
+        unsigned o = 4u * (unsigned)exact_next_id(id0, f0, 0, n_rows);
 #pragma unroll 4
         for (int i = 1; i < steps; ++i) {
-            const float f = fetch(0, (unsigned)id);
-            acc = __fadd_rn(acc, fetch(1, (unsigned)id));
-            if constexpr (exact) id = exact_next_id(id, f, i, n_rows);
-            else id = fast_next_id(id, f, i, (unsigned)n_rows, bound, rare);
+            const float f = fetch(0, o);
+            acc = __fadd_rn(acc, fetch(1, o));
+            if constexpr (exact) o = 4u * (unsigned)exact_next_id((int)(o >> 2), f, i, n_rows);
+            else o = fast_next_off(o, f, i, (unsigned)n_rows, bound, rare);
         }
         return acc;
     };
@@ -176,38 +191,64 @@ __global__ void shuffle_fetch_kernel(const int* __restrict__ ids,
     out[(size_t)k * SHUFFLE_LANES + lane] = acc;
 }
 
-// The yardstick for both kernels' latency floor: the latency of one load
-// that hits L1 (via_l1: ld.global.ca over a chain inside L1) or L2 (else:
-// ld.global.cg, which bypasses L1, over a chain larger than L1 and inside
-// L2) on this card. One thread follows `steps` links of a chain of indices:
-// once to bring the lines into the cache, then again from the start
-// between two reads of the global timer. Writes the timed pass's
-// nanoseconds and both passes' last index (so neither is optimised away).
-__global__ void chase_latency_kernel(const int* __restrict__ chain, int steps, int via_l1,
+// The yardstick for both kernels' latency floor: the latency of one
+// dependent load that hits L2 (level 0: ld.global.cg, which bypasses L1,
+// over a chain larger than L1 and inside L2), L1 (level 1: ld.global.ca
+// over a chain inside L1) or shared memory (level 2: the chain copied into
+// it first). `lanes` threads of one warp follow the same cycle of `steps`
+// links from evenly spaced starts: once to bring the lines into the
+// cache, then again between two reads of the global timer. One lane pays a
+// load's latency; 32 lanes at scattered shared-memory words also pay
+// their bank conflicts, as the shuffle kernel's lanes do. Writes the timed
+// pass's nanoseconds and the last indices (so neither pass is optimised
+// away).
+template <int LEVEL>
+__global__ void chase_latency_kernel(const int* __restrict__ chain, int n_chain, int steps,
                                      long long* __restrict__ ns, int* __restrict__ sink) {
-    int warm = 0;
-    for (int i = 0; i < steps; ++i) warm = via_l1 ? __ldca(chain + warm) : __ldcg(chain + warm);
-    long long t0, t1;
-    int idx = 0;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0) :: "memory");
-    if (via_l1) {
-        for (int i = 0; i < steps; ++i) idx = __ldca(chain + idx);
-    } else {
-        for (int i = 0; i < steps; ++i) idx = __ldcg(chain + idx);
+    extern __shared__ int s_chain[];
+    const int lane = threadIdx.x;
+    if constexpr (LEVEL == 2) {
+        for (int j = lane; j < n_chain; j += blockDim.x) s_chain[j] = chain[j];
+        __syncwarp();
     }
+    auto next = [&](int at) -> int {
+        if constexpr (LEVEL == 2) return s_chain[at];
+        else if constexpr (LEVEL == 1) return __ldca(chain + at);
+        else return __ldcg(chain + at);
+    };
+    const int start = (lane * (n_chain / (int)blockDim.x)) & ~31;
+    int warm = start;
+    for (int i = 0; i < steps; ++i) warm = next(warm);
+    long long t0, t1;
+    int idx = start;
+    __syncwarp();
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0) :: "memory");
+    for (int i = 0; i < steps; ++i) idx = next(idx);
+    __syncwarp();
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1) :: "memory");
-    ns[0] = t1 - t0;
-    sink[0] = warm;
-    sink[1] = idx;
+    if (lane == 0) ns[0] = t1 - t0;
+    sink[2 * lane] = warm;
+    sink[2 * lane + 1] = idx;
 }
 
 }  // namespace
 
-extern "C" int chase_latency_launch(const void* chain, int steps, int via_l1, void* ns,
-                                    void* sink, void* stream) {
-    if (steps <= 0) return (int)cudaErrorInvalidValue;
-    chase_latency_kernel<<<1, 1, 0, (cudaStream_t)stream>>>((const int*)chain, steps, via_l1,
-                                                            (long long*)ns, (int*)sink);
+// chain: n_chain ints holding one cycle (every entry on it at a multiple
+// of 32 ints, or every int for level 2); sink: 2 x lanes ints.
+extern "C" int chase_latency_launch(const void* chain, int n_chain, int steps, int level,
+                                    int lanes, void* ns, void* sink, void* stream) {
+    if (steps <= 0 || lanes < 1 || lanes > 32 || level < 0 || level > 2 ||
+        (level == 2 && n_chain * sizeof(int) > 48 * 1024))
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const int* c = (const int*)chain;
+    if (level == 2)
+        chase_latency_kernel<2><<<1, lanes, n_chain * sizeof(int), st>>>(
+            c, n_chain, steps, (long long*)ns, (int*)sink);
+    else if (level == 1)
+        chase_latency_kernel<1><<<1, lanes, 0, st>>>(c, n_chain, steps, (long long*)ns, (int*)sink);
+    else
+        chase_latency_kernel<0><<<1, lanes, 0, st>>>(c, n_chain, steps, (long long*)ns, (int*)sink);
     return (int)cudaGetLastError();
 }
 
@@ -224,37 +265,33 @@ extern "C" int onehot_fetch_launch(const void* ids, const void* table, int n_row
     return (int)cudaGetLastError();
 }
 
-// Version of shuffle_fetch_launch's argument list: 1 (no such function)
-// took (ids, table, n_rows, n_cols, groups, steps, out, stream); 2 adds
-// bound and smem (the bytes of the staged layout, 2 groups 128 x 4; 0
-// reads the table in place), as ops/perlane.shuffle_plan computes them.
-extern "C" int perlane_abi(void) { return 2; }
-
+// One block of 128 lanes a column. The block stages its two columns
+// (2 groups x 128 f32) in shared memory where they fit a block's and the
+// table is 16-byte aligned, else reads the table in place.
 extern "C" int shuffle_fetch_launch(const void* ids, const void* table, int n_rows,
-                                    int n_cols, int groups, int steps, int bound, int smem,
-                                    void* out, void* stream) {
+                                    int n_cols, int groups, int steps, void* out,
+                                    void* stream) {
     if (n_rows <= 0 || n_cols <= 0 || groups != (n_rows + SHUFFLE_LANES - 1) / SHUFFLE_LANES)
         return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
-    if (smem == 0) {
+    const unsigned bound = n_rows < (1 << 29) ? 2u * (unsigned)n_rows : 0u;
+    const size_t smem = 2 * (size_t)groups * SHUFFLE_LANES * sizeof(float);
+    if (smem > SHUFFLE_SMEM_MAX || ((uintptr_t)table & 15) != 0) {
         shuffle_fetch_kernel<false><<<n_cols, SHUFFLE_LANES, 0, st>>>(
-            (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps,
-            (unsigned)bound, (float*)out);
+            (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps, bound,
+            (float*)out);
         return (int)cudaGetLastError();
     }
-    if (smem > SHUFFLE_SMEM_MAX || (size_t)smem != 2 * (size_t)groups * SHUFFLE_LANES
-        * sizeof(float) || ((uintptr_t)table & 15) != 0)
-        return (int)cudaErrorInvalidValue;
     // Above 48 KB a block's dynamic shared memory must be allowed first.
-    static int allowed = 48 * 1024;
+    static size_t allowed = 48 * 1024;
     if (smem > allowed) {
         const cudaError_t err = cudaFuncSetAttribute(
-            shuffle_fetch_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            shuffle_fetch_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return (int)err;
         allowed = smem;
     }
     shuffle_fetch_kernel<true><<<n_cols, SHUFFLE_LANES, smem, st>>>(
-        (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps, (unsigned)bound,
+        (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps, bound,
         (float*)out);
     return (int)cudaGetLastError();
 }

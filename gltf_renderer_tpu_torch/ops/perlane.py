@@ -19,9 +19,7 @@ wraps as int32, mod is the floor modulo, and an id outside the table
 fetches zeros, as in the JAX kernels. A CPU tensor goes to the plain
 version (`*_ref`); a CUDA tensor goes to the CUDA kernel (csrc/perlane.cu),
 or the call raises. The plain versions add in the JAX kernels' order, so
-kernel, plain version and JAX kernel agree bit for bit. `shuffle_plan`
-gives the shuffle kernel's launch constants (the staged layout's bytes,
-the id step's fast-path bound).
+kernel, plain version and JAX kernel agree bit for bit.
 `KERNEL_LAUNCHES` counts each kernel's launches by name and
 `REFERENCE_CALLS` the plain-version calls.
 """
@@ -40,10 +38,7 @@ KERNEL_LAUNCHES = {"onehot_fetch": 0, "shuffle_fetch": 0}
 REFERENCE_CALLS = 0
 
 _SOURCE = "perlane.cu"
-_ONEHOT_ARGS = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2
-_SHUFFLE_ARGS = [_build.VP, _build.VP] + [_build.CI] * 6 + [_build.VP] * 2
-
-SHUFFLE_SMEM_MAX = _build.source_define(_SOURCE, "SHUFFLE_SMEM_MAX")
+_ARGTYPES = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2  # both launchers
 
 
 def _groups(n_rows: int) -> int:
@@ -74,25 +69,13 @@ def _check_shuffle(ids, table, n_rows, n_cols):
     _check("table", table, torch.float32, (_groups(n_rows) * n_cols, LANES), ids.device)
 
 
-def shuffle_plan(n_rows: int, aligned: bool = True) -> dict:
-    """The constants `shuffle_fetch` launches with (one block of 128 lanes
-    a column): groups = ceil(n_rows / 128); bound, below which the kernel's
-    id step is one unsigned min (2 n, or n when 2 n would pass 2^31); smem,
-    the bytes of the staged layout (column 0 and the block's column, groups
-    x 128 f32 each), or 0 where that exceeds SHUFFLE_SMEM_MAX or the table
-    is not 16-byte `aligned` (the kernel then reads the table in place)."""
-    groups = _groups(n_rows)
-    smem = 2 * groups * LANES * 4
-    return {"groups": groups, "bound": 2 * n_rows if n_rows < 2 ** 30 else n_rows,
-            "smem": smem if aligned and smem <= SHUFFLE_SMEM_MAX else 0}
-
-
-def _launch(fn_name, argtypes, ids, table, out, *ints):
+def _launch(fn_name, ids, table, out, *ints):
     dev = ids.device
     if dev.type != "cuda":
         raise ValueError(f"{fn_name} runs on cpu or cuda tensors, got {dev}")
-    _build.launch(_build.entry(_SOURCE, f"{fn_name}_launch", argtypes), fn_name, dev.index,
-                  ids.contiguous().data_ptr(), table.data_ptr(), *ints, out.data_ptr())
+    ids, table = ids.contiguous(), table.contiguous()
+    _build.launch(_build.entry(_SOURCE, f"{fn_name}_launch", _ARGTYPES), fn_name, dev.index,
+                  ids.data_ptr(), table.data_ptr(), *ints, out.data_ptr())
     KERNEL_LAUNCHES[fn_name] += 1
     return out
 
@@ -103,8 +86,8 @@ def onehot_fetch(ids, table, steps: int):
     if ids.device.type == "cpu":
         return onehot_fetch_ref(ids, table, steps)
     out = torch.empty(ids.shape, dtype=torch.float32, device=ids.device)
-    return _launch("onehot_fetch", _ONEHOT_ARGS, ids, table.contiguous(), out, table.shape[0],
-                   table.shape[1], int(steps), ids.numel())
+    return _launch("onehot_fetch", ids, table, out, table.shape[0], table.shape[1],
+                   int(steps), ids.numel())
 
 
 def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int):
@@ -112,11 +95,9 @@ def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int):
     _check_shuffle(ids, table, n_rows, n_cols)
     if ids.device.type == "cpu":
         return shuffle_fetch_ref(ids, table, n_rows, n_cols, steps)
-    table = table.contiguous()
-    plan = shuffle_plan(n_rows, aligned=table.data_ptr() % 16 == 0)
     out = torch.empty((n_cols, LANES), dtype=torch.float32, device=ids.device)
-    return _launch("shuffle_fetch", _SHUFFLE_ARGS, ids, table, out, n_rows, n_cols,
-                   plan["groups"], int(steps), plan["bound"], plan["smem"])
+    return _launch("shuffle_fetch", ids, table, out, n_rows, n_cols, _groups(n_rows),
+                   int(steps))
 
 
 def _onehot_chain(ids, table, steps: int):

@@ -1,7 +1,7 @@
 """Per-lane row fetch on one CUDA card: microseconds per dependent step.
 
     python -m gltf_renderer_tpu_torch.tools.bench_perlane
-    python -m gltf_renderer_tpu_torch.tools.bench_perlane --study [--parent OLD.cu] [--sass-out F]
+    python -m gltf_renderer_tpu_torch.tools.bench_perlane --study [--parent OLD.cu]
 
 Port of tools/bench_perlane.py's `main`. A per-lane BVH step has to fetch
 each lane's node row; this tool times a chain of STEPS dependent fetches
@@ -18,33 +18,32 @@ Times are CUDA events over 16 calls after 2 warm ones: launch-bound, they
 time the wrapper and the launch more than the kernel. `--study` (`study`)
 measures the shuffle kernel's device time a call instead, from CUDA-graph
 replays, in turns with an older perlane.cu given by --parent, with a steps
-sweep, clock samples and the SASS of one step; it prints one JSON line
+sweep, clock samples and the SASS opcode counts; it prints one JSON line
 last. The TPU tool's printed break-even budgets were TPU numbers and are not
 carried over. On the CPU the plain versions run once per shape and no time
 is printed.
 
 Both kernels are chains of STEPS dependent loads, so what bounds them is
-the latency of those loads, not bytes over the memory rate. A load hits L2
-(the tables stay there between calls) or, where its SM fetched that line
-before, L1. `hit_latency_ns` measures both latencies on the card with a
-pointer chase (csrc/perlane.cu's `chase_latency_launch`). `l1_hit_ceiling`
-counts, from the plain version's id chains on the same inputs, the largest
-share of a call's dependent loads that can hit L1: every line a block
-touches misses once (L1 starts each launch empty and is the SM's own; each
-block is taken to have its SM to itself, as 16 onehot blocks on a
-132-SM card do, and every shuffle block's chains touch the same lines).
-`main` gives each row its floor, `latency_floor_ms` = STEPS x (h x L1 +
-(1 - h) x L2) with h that ceiling: the least mean time of a lane's chain.
+the latency of those loads, not bytes over the memory rate. Read in
+place, a load hits L2 (the tables stay there between calls) or, where its
+SM fetched that line before, L1; copied into shared memory first, every
+load of the chain is a shared-memory load. `hit_latency_ns` measures the
+three latencies on the card with a pointer chase (csrc/perlane.cu's
+`chase_latency_launch`). `l1_hit_ceiling` counts, from the plain
+version's id chains on the same inputs, the largest share of a call's
+dependent loads that can hit L1: every line a block touches misses once
+(L1 starts each launch empty and is the SM's own; each block is taken to
+have its SM to itself, as 16 onehot blocks on a 132-SM card do, and every
+shuffle block's chains touch the same lines). `main` gives each row its
+floor, `latency_floor_ms`: the least mean time of a lane's chain, read in
+place or staged, whichever is less (`latency_floor_ns`).
 """
 
 from __future__ import annotations
 
 import json
 import os
-import re
 import sys
-import threading
-import time
 
 import numpy as np
 import torch
@@ -77,33 +76,58 @@ def shuffle_inputs(rng, n, c, device):
     return ids, table
 
 
-CHASE_LINES = {"l1": 1 << 8, "l2": 1 << 15}  # 128-byte lines: 32 KB inside L1; 4 MB above it
+# Pointer chases: level -> (the chain's ints, the ints between two of its
+# entries). L1: 256 128-byte lines, 32 KB inside L1; L2: 32,768 lines, 4 MB
+# above L1; shared memory: 8,192 ints, every one an entry (32 KB).
+CHASE = {"l1": (1 << 13, 32), "l2": (1 << 20, 32), "smem": (1 << 13, 1)}
+CHASE_LEVEL = {"l2": 0, "l1": 1, "smem": 2}  # chase_latency_launch's `level`
 CHASE_STEPS = 1 << 14
 LINE_BYTES = 128
 ONEHOT_BLOCK = 128  # lanes of one onehot_fetch block (csrc/perlane.cu)
 
 
-def hit_latency_ns(device="cuda", level: str = "l2", steps: int = CHASE_STEPS) -> float:
-    """Nanoseconds a dependent load takes when it hits `level` ("l1" or
-    "l2"), on the CUDA device: one thread follows `steps` links of a random
-    cycle over CHASE_LINES[level] 128-byte lines (one int used a line), a
-    first pass bringing them into the cache, the second timed on the card's
-    global timer; L1 through ld.global.ca, L2 through ld.global.cg."""
+def chase_chain(level: str, seed: int = 1) -> np.ndarray:
+    """CHASE[level]'s chain: int32, each entry holding the index of the
+    next, all entries on one random cycle; the ints between entries are 0."""
+    size, gap = CHASE[level]
+    order = np.random.RandomState(seed).permutation(size // gap).astype(np.int64) * gap
+    chain = np.zeros(size, np.int32)
+    chain[order] = np.roll(order, -1)
+    return chain
+
+
+def hit_latency_ns(device="cuda", level: str = "l2", steps: int = CHASE_STEPS,
+                   lanes: int = 1) -> float:
+    """Nanoseconds a dependent load takes when it hits `level` ("l1", "l2"
+    or "smem"), on the CUDA device: `lanes` threads of one warp follow
+    `steps` links of `chase_chain(level)` from evenly spaced starts, a first
+    pass bringing the lines into the cache, the second timed on the card's
+    global timer; L1 through ld.global.ca, L2 through ld.global.cg, shared
+    memory after a copy of the chain into it. With 32 lanes each shared
+    load also pays the bank conflicts of 32 scattered words."""
     dev = resolve(device)
     if dev.type != "cuda":
         raise ValueError(f"the {level} latency is measured on a CUDA device, got {dev}")
-    lines = CHASE_LINES[level]
-    order = np.random.RandomState(1).permutation(lines).astype(np.int64) * 32
-    chain = np.zeros(lines * 32, np.int32)
-    chain[order] = np.roll(order, -1)
-    chain_t = torch.from_numpy(chain).to(dev)
+    chain = torch.from_numpy(chase_chain(level)).to(dev)
     ns = torch.zeros(1, dtype=torch.int64, device=dev)
-    sink = torch.zeros(2, dtype=torch.int32, device=dev)
+    sink = torch.zeros(2 * lanes, dtype=torch.int32, device=dev)
     fn = _build.entry("perlane.cu", "chase_latency_launch",
-                      [_build.VP, _build.CI, _build.CI, _build.VP, _build.VP, _build.VP])
-    _build.launch(fn, "chase_latency", dev.index, chain_t.data_ptr(), int(steps),
-                  int(level == "l1"), ns.data_ptr(), sink.data_ptr())
+                      [_build.VP] + [_build.CI] * 4 + [_build.VP] * 3)
+    _build.launch(fn, "chase_latency", chain.device.index, chain.data_ptr(), chain.numel(),
+                  int(steps), CHASE_LEVEL[level], int(lanes), ns.data_ptr(), sink.data_ptr())
     return float(ns.item()) / steps
+
+
+def latency_floor_ns(h: float, lat: dict, steps: int = STEPS) -> float:
+    """The least time of one lane's chain of `steps` dependent loads, from
+    the hit latencies `lat` (ns; "l1", "l2", "smem" as `hit_latency_ns`
+    measures them with one lane): read in place, steps x (h x L1 + (1 - h)
+    x L2), h the share of loads that can hit L1; staged, one L2 round trip
+    (the copy into shared memory) and then steps shared-memory loads. The
+    smaller of the two. Bank conflicts are not counted: they depend on the
+    design's layout, not on the work."""
+    in_place = steps * (h * lat["l1"] + (1.0 - h) * lat["l2"])
+    return min(in_place, lat["l2"] + steps * lat["smem"])
 
 
 def l1_hit_ceiling(kind, ids, table, n, c, steps: int = STEPS) -> float:
@@ -127,8 +151,9 @@ def l1_hit_ceiling(kind, ids, table, n, c, steps: int = STEPS) -> float:
 
 def main(device="cuda"):
     """Both fetches at every shape. Returns one dict per (kind, shape):
-    kind, label, n, c, l1_hit_ceiling, ms per call, us_step and
-    latency_floor_ms (the last three None on the CPU)."""
+    kind, label, n, c, l1_hit_ceiling, ms per call, us_step,
+    latency_floor_ms (the last three None on the CPU) and, on the card,
+    hit_latency_ns (the chases' latencies)."""
     dev = resolve(device)
     on_card = dev.type == "cuda"
     print(f"device: {torch.cuda.get_device_name(dev) if on_card else 'cpu'}, "
@@ -137,11 +162,14 @@ def main(device="cuda"):
     rows = []
     lat = {}
     if on_card:
-        lat = {level: hit_latency_ns(dev, level) for level in ("l1", "l2")}
+        lat = {level: hit_latency_ns(dev, level) for level in CHASE}
+        lat["smem_warp"] = hit_latency_ns(dev, "smem", lanes=32)
         print(f"hit latency (pointer chase, {CHASE_STEPS} loads): L1 {lat['l1']:.1f} ns, "
-              f"L2 {lat['l2']:.1f} ns; a {STEPS}-step chain takes at least "
-              f"{STEPS * lat['l1'] * 1e-3:.3f} us (all L1) to {STEPS * lat['l2'] * 1e-3:.3f} us "
-              f"(all L2)", flush=True)
+              f"L2 {lat['l2']:.1f} ns, shared memory {lat['smem']:.1f} ns (one lane; "
+              f"{lat['smem_warp']:.1f} ns for 32 lanes at scattered words); a {STEPS}-step "
+              f"chain takes at least {STEPS * lat['l1'] * 1e-3:.3f} us (all L1) to "
+              f"{STEPS * lat['l2'] * 1e-3:.3f} us (all L2) in place, "
+              f"{(lat['l2'] + STEPS * lat['smem']) * 1e-3:.3f} us staged", flush=True)
 
     def report(kind, label, n, c, fn, unit, ids, table):
         h = l1_hit_ceiling(kind, ids, table, n, c)
@@ -155,8 +183,8 @@ def main(device="cuda"):
             return
         ms = cuda_ms(fn, 16, warmup=2)
         us = ms * 1e3 / STEPS
-        floor_ms = STEPS * (h * lat["l1"] + (1.0 - h) * lat["l2"]) * 1e-6
-        row.update(ms=ms, us_step=us, latency_floor_ms=floor_ms)
+        floor_ms = latency_floor_ns(h, lat) * 1e-6
+        row.update(ms=ms, us_step=us, latency_floor_ms=floor_ms, hit_latency_ns=lat)
         extra = f" -> x{ROWS} rows = {us * ROWS:8.3f} us/packet-step" if kind == "shuffle" else ""
         print(f"  {label:14s} ({n:5d}x{c:3d}): {us:8.3f} us/step{unit}{extra}; latency floor "
               f"{floor_ms * 1e3:.3f} us (at most {h:.3f} of its loads hit L1)", flush=True)
@@ -178,25 +206,16 @@ def main(device="cuda"):
 SWEEP_STEPS = (1, 2, 4, 8, 16, 32, 64)
 SWEEP_SHAPE = SHAPES[-1]  # 6400x112
 GRAPH_LAUNCHES = 64
-_NO_DEST = {"ST", "STG", "STS", "STL", "BRA", "EXIT", "BAR", "RET", "BSYNC", "BSSY", "NOP", "RED",
-            "CALL", "WARPSYNC", "MEMBAR", "DEPBAR", "CCTL", "YIELD", "JMP", "BREAK"}
-_LOADS = {"LDG", "LDS", "LD"}
-_SETP = {"ISETP", "FSETP", "PSETP", "DSETP", "HSETP2", "PLOP3"}
 
 
 def shuffle_runner(source=None):
     """A function (ids, table, n, c, steps) -> acc through a shuffle-fetch
     kernel: the wrapper `perlane.shuffle_fetch` (counted) when `source` is
     None, else the launcher of the perlane.cu at path `source`, an older
-    version (its argument list by its `perlane_abi`, absent = 1),
-    uncounted."""
+    version with the same argument list, uncounted."""
     if source is None:
         return perlane.shuffle_fetch
-    lib = _build.load(os.path.abspath(source))
-    abi = lib.perlane_abi() if hasattr(lib, "perlane_abi") else 1
-    if abi != 1:
-        raise RuntimeError(f"{source} is not a version-1 per-lane kernel (abi {abi})")
-    fn = lib.shuffle_fetch_launch
+    fn = _build.load(os.path.abspath(source)).shuffle_fetch_launch
     fn.argtypes = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2
     fn.restype = _build.CI
 
@@ -215,134 +234,25 @@ def fit_line(xs, ys):
     return float(slope), float(intercept)
 
 
-def _regs(operand: str) -> list:
-    out = []
-    for name, wide in re.findall(r"\b(U?[RP]\d+)(\.64)?", operand):
-        out.append(name)
-        if wide:
-            out.append(f"{name[:-len(name.lstrip('UR'))]}{int(name.lstrip('UR')) + 1}")
-    return out
-
-
-def _parse_sass(line: str):
-    """(opcode with modifiers, destination registers, source registers)
-    of one SASS line; predicates count as registers, RZ and PT do not."""
-    text = re.sub(r"^/\*[0-9a-f]+\*/\s*", "", line).split(";")[0].strip()
-    srcs = []
-    guard = re.match(r"@!?(U?P\d+)\s+", text)
-    if guard:
-        srcs.append(guard.group(1))
-        text = text[guard.end():]
-    op, _, rest = text.partition(" ")
-    ops = [o.strip() for o in rest.split(",")] if rest.strip() else []
-    base = op.split(".")[0]
-    if base in _NO_DEST:
-        n_dest = 0
-    elif base in _SETP:
-        n_dest = 2
-    else:
-        n_dest = 1
-        while n_dest < len(ops) and re.fullmatch(r"U?P(\d+|T)", ops[n_dest]):
-            n_dest += 1
-    dests = [r for o in ops[:n_dest] for r in _regs(o)]
-    if n_dest and re.search(r"\.WIDE|\.64\b", op) and dests and dests[0].startswith("R"):
-        dests.insert(1, f"R{int(dests[0][1:]) + 1}")
-    srcs += [r for o in ops[n_dest:] for r in _regs(o)]
-    if guard:
-        srcs += dests  # a predicated write keeps the old value where it is off
-    return op, dests, srcs
-
-
-def chain_path(lines) -> list:
-    """The SASS instructions on one step's dependent path from load to load:
-    in a loop (the body of a backward branch; of the loops that have one,
-    the shortest path: a kernel's common step where it has a fast and an
-    exact walk), from a global or shared load (LDG, LDS) forward in program order,
-    around the loop, to the first load whose address depends on the value
-    it loaded. Code that a forward branch jumps over is taken as the rare
-    path the compiler laid out inside the loop and left out; predicated
-    code counts, and a branch whose predicate lies on the path (with the
-    BSYNC after it) counts where the next load waits for it longer than
-    for its address. Returns those instructions,
-    the two loads left out; [] when no load feeds an address."""
-    addr = [int(re.match(r"/\*([0-9a-f]+)\*/", x).group(1), 16) for x in lines]
-    parsed = [_parse_sass(x) for x in lines]
-    bodies = []
-    for i, (op, _, _) in enumerate(parsed):
-        target = re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", lines[i])
-        if op.startswith("BRA") and target and int(target.group(1), 16) in addr[:i + 1]:
-            bodies.append(list(range(addr.index(int(target.group(1), 16)), i + 1)))
-    found = []
-    for body in bodies:
-        before = len(found)
-        for k, j in enumerate(body):
-            op, dests, _ = parsed[j]
-            if op.split(".")[0] not in _LOADS or not dests:
-                continue
-            path = {r: [] for r in dests}
-            skipped_to = -1  # code up to here may be jumped over: its writes only add paths
-            for m in body[k + 1:] + body[:k + 1]:
-                op2, d2, s2 = parsed[m]
-                if addr[m] >= skipped_to:
-                    skipped_to = -1
-                if skipped_to >= 0:
-                    continue
-                is_load = op2.split(".")[0] in _LOADS
-                hit = [path[r] for r in s2 + (["CTRL"] if is_load or op2.startswith("BSYNC")
-                                               else []) if r in path]
-                if is_load and hit:
-                    found.append(max(hit, key=len))
-                    break
-                new = max(hit, key=len) + [lines[m]] if hit else None
-                if op2.startswith(("BRA", "BSYNC")):
-                    if new is not None:  # the instructions after it wait for it
-                        path["CTRL"] = new
-                    target = re.search(r"BRA\s+(?:`\(\S+\)\s*)?0x([0-9a-f]+)", lines[m])
-                    if target and int(target.group(1), 16) > addr[m]:
-                        skipped_to = int(target.group(1), 16)
-                    continue
-                for r in d2:
-                    if new is None:
-                        path.pop(r, None)
-                    else:
-                        path[r] = new
-            if len(found) > before:
-                break
-    return min(found, key=len) if found else []
-
-
-def kernel_sass(source, name: str) -> dict:
-    """{mangled name: {"opcodes": {opcode: count}, "path": [lines]}} for
-    every function of csrc/<source> (or a path) whose name holds `name`:
-    static opcode counts and `chain_path`."""
+def kernel_opcodes(source, name: str) -> dict:
+    """{mangled name: {opcode: count}} of the SASS of every function of
+    csrc/<source> (or a path) whose name holds `name`."""
     out = {}
     for fname, lines in _build.sass(source).items():
         if name in fname:
             ops = [_build.opcode(x) for x in lines]
-            out[fname] = {"opcodes": {op: ops.count(op) for op in sorted(set(ops))},
-                          "path": chain_path(lines), "lines": lines}
+            out[fname] = {op: ops.count(op) for op in sorted(set(ops))}
     return out
 
 
-def clocks_under_load(graph, seconds: float = 1.5, samples: int = 3) -> list:
-    """`gpu_clocks` sampled `samples` times while `graph` replays back to
-    back for about `seconds`."""
-    got = []
-
-    def sample():
-        for _ in range(samples):
-            time.sleep(seconds / (samples + 1))
-            got.append(gpu_clocks())
-
-    t = threading.Thread(target=sample)
-    t.start()
-    t0 = time.perf_counter()
-    while t.is_alive() or time.perf_counter() - t0 < seconds:
-        for _ in range(20):
-            graph.replay()
-        torch.cuda.synchronize()
-    t.join()
-    return got
+def clock_under_load(graph, replays: int = 2000) -> str:
+    """`gpu_clocks` read while `replays` replays of `graph` queued back to
+    back still run."""
+    for _ in range(replays):
+        graph.replay()
+    sample = gpu_clocks()
+    torch.cuda.synchronize()
+    return sample
 
 
 def _kernel_us(by_op: dict, name: str = "shuffle_fetch") -> list:
@@ -351,18 +261,17 @@ def _kernel_us(by_op: dict, name: str = "shuffle_fetch") -> list:
     return next([us, n] for k, (us, n) in by_op.items() if name in k)
 
 
-def study(device="cuda", parent=None, sass_out=None):
+def study(device="cuda", parent=None):
     """K5's device time on the card, in turns with the older kernel at path
     `parent` when given (parent, new, new, parent): at every shape, the
     graph-replay device time a call (GRAPH_LAUNCHES launches captured in
     one CUDA graph) and torch.profiler's; the same over SWEEP_STEPS at
     SWEEP_SHAPE with each kernel's fitted slope (ns a step) and intercept
     (us), and its time at 0 steps (launch, staging and store only); K6's
-    graph-replay time (`warm.add_one`, 8x128) beside the intercept; SM
-    clock samples idle and under load; each kernel's SASS
-    opcode counts and one step's load-to-load path (their whole SASS
-    written to the file `sass_out` when given). Every kernel's output is
-    held to the plain version first. Returns a dict (the JSON line)."""
+    graph-replay time (`warm.add_one`, 8x128) beside the intercept; the SM
+    clock idle and under load; each kernel's SASS opcode counts. Every
+    kernel's output is held to the plain version first. Returns a dict
+    (the JSON line)."""
     dev = resolve(device)
     if dev.type != "cuda":
         raise ValueError(f"the K5 study runs on a CUDA device, got {dev}")
@@ -414,44 +323,25 @@ def study(device="cuda", parent=None, sass_out=None):
     res["k6_graph_us"] = replay_us(graph_of(lambda: warm.add_one(x), GRAPH_LAUNCHES),
                                    GRAPH_LAUNCHES)
     res["k6_profiler_us"] = _kernel_us(device_us_by_op(lambda: warm.add_one(x)), "add_one")
-    res["clocks_load"] = clocks_under_load(load_graph)
-
-    def new_call():
-        return runs["new"](ids, table, n, c, STEPS)
-    res["profiler_hot_us"] = _kernel_us(device_us_by_op(new_call))
-    time.sleep(2.0)
-    res["clocks_after_idle"] = gpu_clocks()
-    res["profiler_cold_us"] = _kernel_us(device_us_by_op(new_call))
+    res["clocks_load"] = clock_under_load(load_graph)
     print(f"[k5] K6 graph {res['k6_graph_us']:.3f} us, profiler {res['k6_profiler_us']} "
-          f"[us, launches recorded of 10]; "
-          f"clocks idle {res['clocks_idle']} | under load {res['clocks_load']} | after 2 s "
-          f"idle {res['clocks_after_idle']}; new kernel's profiler time at {label}: "
-          f"{res['profiler_hot_us']} right after the load, {res['profiler_cold_us']} "
-          f"after 2 s idle", flush=True)
+          f"[us, launches recorded of 10]; clocks idle {res['clocks_idle']} | under load "
+          f"{res['clocks_load']}", flush=True)
     res["sass"] = {}
     for k, src in (("parent", parent and os.path.abspath(parent)), ("new", "perlane.cu")):
         if k not in runs:
             continue
         # The new kernel's staged form (shuffle_fetch_kernel<true>) runs at every shape.
         name = "shuffle_fetch" if k == "parent" else "shuffle_fetch_kernelILb1E"
-        for fname, info in kernel_sass(src, name).items():
-            res["sass"][f"{k}:{fname}"] = {"opcodes": info["opcodes"],
-                                          "path_len": len(info["path"]), "path": info["path"]}
-            if sass_out:
-                with open(sass_out, "a") as f:
-                    f.write(f"{k} {fname}\n" + "\n".join(info["lines"]) + "\n\n")
-            print(f"[k5] sass {k} {fname}: {len(info['lines'])} instructions; one step's "
-                  f"load-to-load path {len(info['path'])}: "
-                  + " | ".join(re.sub(r"^/\*[0-9a-f]+\*/\s*", "", x).split(" ;")[0]
-                               for x in info["path"]), flush=True)
+        for fname, ops in kernel_opcodes(src, name).items():
+            res["sass"][f"{k}:{fname}"] = ops
     return res
 
 
 if __name__ == "__main__":
     if "--study" in sys.argv:
         args = sys.argv[sys.argv.index("--study") + 1:]
-        opt = {k: args[args.index(f"--{k.replace('_', '-')}") + 1] for k in ("parent", "sass_out")
-               if f"--{k.replace('_', '-')}" in args}
-        print(json.dumps(study("cuda", **opt)))
+        parent = args[args.index("--parent") + 1] if "--parent" in args else None
+        print(json.dumps(study("cuda", parent)))
     else:
         main()

@@ -19,7 +19,6 @@ import torch
 from jax.experimental import pallas as pl
 
 from gltf_renderer_tpu_torch.ops import perlane
-from gltf_renderer_tpu_torch.ops._build import opcode as _build_opcode
 from gltf_renderer_tpu_torch.utils.math import trunc_i32
 from gltf_renderer_tpu_torch.tools import bench_perlane as port_perlane
 from tools import bench_perlane as jax_perlane
@@ -148,7 +147,7 @@ def test_tool_runs_on_cpu(capsys):
     assert "no time on the CPU" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("level", ["l1", "l2"])
+@pytest.mark.parametrize("level", ["l1", "l2", "smem"])
 def test_latency_probe_needs_the_card(level):
     with pytest.raises(ValueError, match="CUDA device"):
         port_perlane.hit_latency_ns("cpu", level)
@@ -200,13 +199,23 @@ F2I_BIAS = 0x4B000000  # the bits of 2^23 (csrc/perlane.cu)
 M32 = 0xFFFFFFFF
 
 
-def _fast_mod(x, n, bound):
-    """csrc/perlane.cu's fast_next_id from the wrapped sum x (int32 values
-    in an int64 tensor), in torch: (the unsigned min of x and x - n,
-    clamped to n - 1; whether the step is rare, x >= bound unsigned)."""
-    xu = x & M32
-    got = torch.minimum(torch.minimum(xu, (xu - n) & M32), torch.tensor(n - 1))
-    return got, xu >= bound
+def _bound(n):
+    """csrc/perlane.cu's shuffle_fetch_launch: the fast step's bound (2n;
+    0, every step rare, from n = 2^29, where 4x would wrap)."""
+    return 2 * n if n < 2 ** 29 else 0
+
+
+def _fast_off(o, bits, i, n, bound):
+    """csrc/perlane.cu's fast_next_off, in torch on uint32 values held in
+    int64 tensors, from the byte offset o = 4 id, the FADD's bits and the
+    step i: (the next byte offset, the unsigned min of 4x, 4x - 4n and
+    4(n - 1); whether the step is rare, x >= bound unsigned)."""
+    c = (o + 4 * (i - F2I_BIAS)) & M32
+    x4 = (bits * 4 + c) & M32
+    xn4 = (bits * 4 + ((c - 4 * n) & M32)) & M32
+    x = ((o >> 2) + bits + i - F2I_BIAS) & M32
+    got = torch.minimum(torch.minimum(x4, xn4), torch.tensor(4 * (n - 1)))
+    return got, x >= bound
 
 
 def _fast_trunc(f0):
@@ -222,25 +231,29 @@ def _fast_trunc(f0):
     return torch.from_numpy(bits - F2I_BIAS), torch.from_numpy(f0.view(np.uint32) >= F2I_BIAS)
 
 
-@pytest.mark.parametrize("n", [1, 2, 129, 6400, 2 ** 30 - 1, 2 ** 30, 2 ** 31 - 1])
+@pytest.mark.parametrize("n", [1, 2, 129, 6400, 2 ** 29 - 1, 2 ** 29, 2 ** 30 - 1, 2 ** 30,
+                               2 ** 31 - 1])
 def test_kernel_id_step_is_the_floor_modulo(n):
-    """From shuffle_plan's bound, the kernel's fast id step equals
-    torch.remainder for every int32 sum it does not flag as rare (all
-    boundaries and 4096 random sums), flags none in [0, bound) (bound = 2n
-    below n = 2^30), and always stays in [0, n)."""
-    bound = perlane.shuffle_plan(n)["bound"]
-    assert bound == (2 * n if n < 2 ** 30 else n)
+    """The kernel's fast id step on byte offsets gives 4 torch.remainder(x,
+    n) for every wrapped int32 sum x = id + int(f0) + i it does not flag as
+    rare (all boundaries, 4096 random sums and 1024 in [0, 2n)), flags
+    none in [0, bound), and always lands on an id in [0, n)."""
+    bound = _bound(n)
     edges = [0, 1, n - 1, n, n + 1, 2 * n - 1, 2 * n, 2 * n + 1, -1, -n, -n - 1, -2 * n,
-             2 ** 31 - 1, 2 ** 31 - n, -2 ** 31, -2 ** 31 + n, 2 ** 30, -2 ** 30]
+             2 ** 31 - 1, 2 ** 31 - n, -2 ** 31, -2 ** 31 + n, 2 ** 30, -2 ** 30, 2 ** 29]
     rs = np.random.RandomState(n % 1000)
     x = np.concatenate([np.array(edges, np.int64), rs.randint(-2 ** 31, 2 ** 31, 4096),
                         rs.randint(0, 2 * n, 1024)])
     x = torch.from_numpy(((x + 2 ** 31) % 2 ** 32) - 2 ** 31)  # as int32 values
-    want = torch.remainder(x.to(torch.int32), n).long()
-    got, rare = _fast_mod(x, n, bound)
+    ids = torch.from_numpy(rs.randint(0, n, x.numel()).astype(np.int64))
+    i = torch.from_numpy(rs.randint(1, 64, x.numel()).astype(np.int64))
+    bits = (x - ids - i + F2I_BIAS) & M32  # int(f0) = x - id - i, wrapped
+    got, rare = _fast_off(4 * ids, bits, i, n, bound)
+    want = 4 * torch.remainder(x.to(torch.int32), n).long()
     assert torch.equal(got[~rare], want[~rare])
-    assert bool(((got >= 0) & (got < n)).all())
+    assert bool(((got % 4 == 0) & (got >= 0) & (got < 4 * n)).all())
     assert not bool(rare[(x >= 0) & (x < bound)].any())
+    assert bool(rare.all()) == (bound == 0)
 
 
 def test_kernel_fast_trunc_is_exact_or_rare():
@@ -258,57 +271,39 @@ def test_kernel_fast_trunc_is_exact_or_rare():
     assert not bool(rare[small].any()) and bool(rare[~small].all())
 
 
-@pytest.mark.parametrize("n", [1, 129, 768, 6400, 29056, 29057, 2 ** 20])
-def test_shuffle_plan_constants(n):
-    """The staged layout is two columns of the padded table (column 0 and
-    the block's), staged only where it fits a block's shared memory and the
-    table is 16-byte aligned; csrc/perlane.cu reads its limit from the
-    same #define."""
-    plan = perlane.shuffle_plan(n)
-    groups = -(-n // perlane.LANES)
-    need = 2 * groups * perlane.LANES * 4
-    assert plan["groups"] == groups and plan["bound"] == 2 * n
-    assert plan["smem"] == (need if need <= perlane.SHUFFLE_SMEM_MAX else 0)
-    assert (plan["smem"] > 0) == (n <= 29056)  # 227 groups: 232,448 bytes
-    assert perlane.shuffle_plan(n, aligned=False)["smem"] == 0
+@pytest.mark.parametrize("level", ["l1", "l2", "smem"])
+def test_chase_chain_is_one_cycle(level):
+    """Each pointer chase follows one cycle through every entry of its
+    chain (every 32nd int, one a 128-byte line; every int in shared memory,
+    which holds the whole chain), and the chase kernel's lane starts,
+    multiples of 32 ints, are entries."""
+    size, gap = port_perlane.CHASE[level]
+    chain = port_perlane.chase_chain(level)
+    assert chain.shape == (size,) and chain.dtype == np.int32
+    assert not chain[np.arange(size) % gap != 0].any()
+    at, seen = 0, 0
+    for _ in range(size // gap):
+        at = int(chain[at])
+        seen += 1
+        assert at % gap == 0 and (at != 0 or seen == size // gap)
+    assert at == 0
+    if level == "smem":
+        assert size * 4 <= 48 * 1024  # the launch's shared memory, no opt-in needed
 
 
-def test_chain_path_follows_the_step_through_the_loop():
-    """The SASS reader finds one step's load-to-load path in the loop body
-    and leaves out what does not feed the next address."""
-    sass = [
-        "/*0100*/                   LDS R5, [R2] ;",
-        "/*0110*/                   LDS R6, [R2+0x6400] ;",
-        "/*0120*/                   F2I.TRUNC.NTZ R5, R5 ;",
-        "/*0130*/                   FADD R8, R8, R6 ;",
-        "/*0140*/                   IADD3 R4, R4, R5, R7 ;",
-        "/*0150*/                   VIADD R7, R7, 0x1 ;",
-        "/*0160*/                   IADD3 R9, R4, -R10, RZ ;",
-        "/*0170*/                   VIMNMX.U32 R4, R4, R9, PT ;",
-        "/*0180*/                   ISETP.NE.AND P0, PT, R7, R11, PT ;",
-        "/*0190*/                   LEA R2, R4, UR4, 0x2 ;",
-        "/*01a0*/               @P0 BRA 0x100 ;",
-        "/*01b0*/                   EXIT ;",
-    ]
-    path = port_perlane.chain_path(sass)
-    assert [_build_opcode(x) for x in path] == ["F2I", "IADD3", "IADD3", "VIMNMX", "LEA"]
+@pytest.mark.parametrize("h,staged", [(0.951, True), (0.0, True), (1.0, False)])
+def test_latency_floor_takes_the_cheaper_design(h, staged):
+    """A chain's floor is the cheaper of reading in place (h of the loads
+    L1 hits, the rest L2) and staging (one L2 round trip, then every load
+    from shared memory)."""
+    lat = {"l1": 20.0, "l2": 150.0, "smem": 17.0}
+    in_place = 32 * (h * 20.0 + (1 - h) * 150.0)
+    staged_ns = 150.0 + 32 * 17.0
+    got = port_perlane.latency_floor_ns(h, lat, 32)
+    assert got == pytest.approx(staged_ns if staged else in_place)
 
 
-def test_chain_path_keeps_the_path_past_a_skipped_call():
-    """A rare path laid out in the loop behind a forward branch (a call
-    that overwrites the id) is left out of the step's path."""
-    sass = [
-        "/*0100*/                   LDS R5, [R2] ;",
-        "/*0110*/                   F2I.TRUNC.NTZ R5, R5 ;",
-        "/*0120*/                   IADD3 R4, R4, R5, R7 ;",
-        "/*0130*/                   ISETP.GE.U32.AND P0, PT, R4, R12, PT ;",
-        "/*0140*/                   IADD3 R9, R4, -R10, RZ ;",
-        "/*0150*/                   VIMNMX.U32 R4, R4, R9, PT ;",
-        "/*0160*/              @!P0 BRA 0x190 ;",
-        "/*0170*/                   MOV R4, R13 ;",
-        "/*0180*/                   CALL.REL.NOINC 0x300 ;",
-        "/*0190*/                   LEA R2, R4, UR4, 0x2 ;",
-        "/*01a0*/                   BRA 0x100 ;",
-    ]
-    path = port_perlane.chain_path(sass)
-    assert [_build_opcode(x) for x in path] == ["F2I", "IADD3", "IADD3", "VIMNMX", "LEA"]
+def test_fit_line_recovers_slope_and_intercept():
+    xs = port_perlane.SWEEP_STEPS
+    slope, icpt = port_perlane.fit_line(xs, [2.3 + 0.033 * x for x in xs])
+    assert slope == pytest.approx(0.033) and icpt == pytest.approx(2.3)
