@@ -72,9 +72,8 @@ Phases (any failure exits non-zero and prints no result line):
    rate is written beside the kernel's product rate), and the kernel timed
    at both widths;
 9. per-lane fetch kernels (csrc/perlane.cu) vs their plain versions,
-   bit-identical at the tool's three table shapes (plain versions timed;
-   the onehot kernel's device time a call from 64 launches in one CUDA
-   graph); the shuffle kernel's study (`tools.bench_perlane.study`): its
+   bit-identical at the tool's three table shapes (plain versions timed);
+   both kernels' study (`tools.bench_perlane.study`): each kernel's
    output held to the plain version and its device time a call (CUDA-graph
    replay, and torch.profiler's with the launches it recorded) at all three
    shapes, in turns with the older kernel where build/parent/perlane.cu
@@ -113,7 +112,7 @@ import time
 
 import numpy as np
 
-from gltf_renderer_tpu_torch.device import cuda_ms, device_us_by_op, graph_us
+from gltf_renderer_tpu_torch.device import cuda_ms, device_us_by_op
 from gltf_renderer_tpu_torch.tools import bench_traverse
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -136,7 +135,7 @@ WARM_REPLACES = "bench.py:230"
 PARENT_K1 = os.path.join(ROOT, "build", "parent", "traverse.cu")  # optional, for phase 2's turns
 PARENT_K2 = os.path.join(ROOT, "build", "parent", "raster.cu")  # optional, for phase 5's turns
 PARENT_K3 = os.path.join(ROOT, "build", "parent", "brute.cu")  # optional, for phase 8's turns
-PARENT_K5 = os.path.join(ROOT, "build", "parent", "perlane.cu")  # optional, for phase 9's turns
+PARENT_PERLANE = os.path.join(ROOT, "build", "parent", "perlane.cu")  # optional, for phase 9's turns
 BRUTE_AGREE_BAR = 0.999  # share of rays on which K3 and its plain version name the same winner
 SOURCES = ("traverse.cu", "raster.cu", "warm.cu", "brute.cu", "perlane.cu")
 PERLANE_ROW = "courtyard-node"  # the table shape phase 9 reports in the kernel table
@@ -963,11 +962,11 @@ def brute_turns(name, ins, got, device):
 
 
 def phase_perlane(device):
-    """Per-lane fetch kernels vs plain at the tool's shapes; the shuffle
-    kernel's study (tools.bench_perlane.study: graph-replay and profiler
-    device time at every shape, in turns with PARENT_K5's kernel where that
-    source exists, the steps sweep, SASS, clocks); then the tool's main
-    path. Returns their two kernel-table rows."""
+    """Per-lane fetch kernels vs plain at the tool's shapes; both kernels'
+    study (tools.bench_perlane.study: graph-replay and profiler device time
+    at every shape, in turns with PARENT_PERLANE's kernels where that source
+    exists, the steps sweep, SASS, clocks); then the tool's main path.
+    Returns their two kernel-table rows."""
     import torch
 
     from gltf_renderer_tpu_torch.ops import perlane
@@ -975,7 +974,7 @@ def phase_perlane(device):
 
     rng = np.random.RandomState(5)
     steps = bp.STEPS
-    plain, device_us = {}, {}
+    plain = {}
     for label, n, c in bp.SHAPES:
         ids, table = bp.onehot_inputs(rng, n, c, device)
         visited = torch.zeros(n, dtype=torch.bool, device=device)
@@ -992,7 +991,10 @@ def phase_perlane(device):
         if not all(same):
             raise AssertionError(f"a per-lane fetch kernel disagrees with its plain version "
                                  f"on {label}")
-        o_bytes = nbytes(ids, got) + int(visited.sum()) * perlane.SUM_COLS * 2
+        # The one-hot product reads the first 8 columns of every row (a
+        # non-finite entry anywhere poisons the sums), the shuffle kernel the
+        # columns of the ids its lanes visit.
+        o_bytes = nbytes(ids, got) + n * perlane.SUM_COLS * 2
         s_bytes = nbytes(s_ids, s_got) + int(s_visited.sum()) * c * 4
         plain[label] = {
             "onehot": (cuda_ms(lambda: perlane.onehot_fetch_ref(ids, table, steps), 3),
@@ -1000,37 +1002,29 @@ def phase_perlane(device):
             "shuffle": (cuda_ms(lambda: perlane.shuffle_fetch_ref(s_ids, s_table, n, c, steps), 3),
                         bound(s_bytes, c * perlane.LANES * steps)),
         }
-        if label == PERLANE_ROW:
-            by_op = {**device_us_by_op(lambda: perlane.onehot_fetch(ids, table, steps)),
-                     **device_us_by_op(lambda: perlane.shuffle_fetch(s_ids, s_table, n, c, steps))}
-            log(f"[perlane] device time a launch, {label} (torch.profiler, 10 calls): "
-                + ", ".join(f"{k} {us:.2f} us ({n} launches recorded)"
-                            for k, (us, n) in by_op.items()))
-            o_us, o_n = next(v for k, v in by_op.items() if "onehot" in k)
-            device_us["onehot"] = {
-                "graph_us": graph_us(lambda: perlane.onehot_fetch(ids, table, steps)),
-                "profiler_us": o_us, "profiler_launches": o_n}
-            log(f"[perlane] onehot device time a call, {label}: "
-                f"{device_us['onehot']['graph_us']:.3f} us (64 launches in one CUDA graph)")
 
-    parent = PARENT_K5 if os.path.exists(PARENT_K5) else None
+    parent = PARENT_PERLANE if os.path.exists(PARENT_PERLANE) else None
     if parent is None:
-        log(f"[perlane] no parent kernel source at {PARENT_K5}, parent not timed")
+        log(f"[perlane] no parent kernel source at {PARENT_PERLANE}, parent not timed")
     study = bp.study(device, parent)
     for name, ops in study["sass"].items():
         log(f"[sass] {name}: opcodes " + ", ".join(f"{k} {v}" for k, v in ops.items()))
-    row = study["shapes"][PERLANE_ROW]
-    sweep = study["sweep"]["new"]
-    device_us["shuffle"] = {"graph_us": statistics.mean(row["new_graph_us"]),
-                            "profiler_us": row["new_profiler_us"][0],
-                            "profiler_launches": row["new_profiler_us"][1],
-                            "slope_ns": sweep["slope_ns"], "intercept_us": sweep["intercept_us"],
-                            "steps0_us": sweep["steps0_us"], "k6_graph_us": study["k6_graph_us"]}
-    if parent:
-        device_us["shuffle"].update(
-            parent_graph_us=statistics.mean(row["parent_graph_us"]),
-            parent_slope_ns=study["sweep"]["parent"]["slope_ns"],
-            parent_intercept_us=study["sweep"]["parent"]["intercept_us"])
+    device_us = {}
+    for kind in bp.KINDS:
+        row = study[kind]["shapes"][PERLANE_ROW]
+        sweep = study[kind]["sweep"]["new"]
+        device_us[kind] = {"graph_us": statistics.mean(row["new_graph_us"]),
+                           "profiler_us": row["new_profiler_us"][0],
+                           "profiler_launches": row["new_profiler_us"][1],
+                           "slope_ns": sweep["slope_ns"], "intercept_us": sweep["intercept_us"],
+                           "steps0_us": sweep["steps0_us"], "k6_graph_us": study["k6_graph_us"],
+                           "graph_us_by_shape": {lab: statistics.mean(r["new_graph_us"])
+                                                 for lab, r in study[kind]["shapes"].items()}}
+        if parent:
+            device_us[kind].update(
+                parent_graph_us=statistics.mean(row["parent_graph_us"]),
+                parent_slope_ns=study[kind]["sweep"]["parent"]["slope_ns"],
+                parent_intercept_us=study[kind]["sweep"]["parent"]["intercept_us"])
 
     # The tool's main path: its launches counted from 0. The study above
     # captured CUDA graphs, whose replays launch kernels that the counters
@@ -1055,10 +1049,12 @@ def phase_perlane(device):
             dev = device_us[row["kind"]]
             device_ms = dev["graph_us"] * 1e-3
             log(f"[perlane] {row['kind']} {PERLANE_ROW}: device time a call {device_ms:.6f} ms, "
-                f"{device_ms / floor_ms:.2f}x its latency floor")
+                f"{device_ms / floor_ms:.2f}x its latency floor; " + bp.format_numbers(
+                    {k: v for k, v in dev.items() if k != "graph_us_by_shape"}, 4))
             out[row["kind"]] = {"ms": row["ms"], "plain_ms": p_ms, "bound_ms": b_ms,
                                 "bound_by": b_by, "device_ms": device_ms,
                                 "latency_floor_ms": floor_ms,
+                                "floor_ratio": device_ms / floor_ms,
                                 "l1_hit_ceiling": row["l1_hit_ceiling"],
                                 "hit_latency_ns": row["hit_latency_ns"],
                                 **{k: v for k, v in dev.items() if k != "graph_us"}}
@@ -1128,7 +1124,7 @@ def build_kernels():
 
     from gltf_renderer_tpu_torch.ops import _build
 
-    sources = SOURCES + tuple(p for p in (PARENT_K1, PARENT_K2, PARENT_K3, PARENT_K5)
+    sources = SOURCES + tuple(p for p in (PARENT_K1, PARENT_K2, PARENT_K3, PARENT_PERLANE)
                               if os.path.exists(p))
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.load, sources))

@@ -17,15 +17,45 @@
 // int() truncates toward zero, saturates to int32 and takes NaN to 0, the
 // sum wraps as int32, and mod is the floor modulo, as the JAX kernels'
 // astype(int32), + and %. An id outside the table fetches zeros, as
-// the one-hot row and the group select do there. Every sum is taken in the
-// JAX kernels' order with each add rounded on its own (__fadd_rn), and a
-// bf16 -> f32 fetch is exact, so the plain PyTorch twins in ops/perlane.py
-// and the JAX kernels agree with these bit for bit.
+// the one-hot row and the group select do there. The one-hot product also
+// adds 0 x every other row's entry, and 0 x inf and 0 x NaN are NaN: a
+// non-finite entry in the first 8 columns of any row makes s NaN for every
+// lane but those on its own row, and for those too where another row
+// holds one (an id outside the table included). The onehot kernel
+// computes the same. Every sum is taken in the JAX kernels' order with
+// each add rounded on its own (__fadd_rn), and a bf16 -> f32 fetch is
+// exact, so these kernels and their plain PyTorch twins in ops/perlane.py
+// agree bit for bit, and with the JAX kernels but in the NaN payloads
+// (the hardware's).
 //
 // What bounds them on an H100: the chain of `steps` dependent loads, not
 // bytes and not operations. The tables (0.2-2.9 MB) stay in L2 between
-// calls. The onehot kernel is one thread a lane reading 8 bf16 of one row a
-// step, each load an L2 or L1 hit.
+// calls.
+//
+// The onehot kernel was one thread a lane in 16 blocks of 128 (16 of the
+// 132 SMs), reading 8 bf16 of its row at every step from L2 (few L1
+// hits) and then running eight dependent adds, the F2I, a signed modulo
+// by a run-time n and a 64-bit address: 13.1 us a call at 6400x112 on an
+// H100, 21.7x its latency floor. But s depends only on the row. So the
+// kernel now first sums every row once, in a cluster of 8 blocks of 256
+// lanes: each block sums an eighth of the rows (one 16-byte load a row
+// where rows are 16-byte aligned, issued before anything else) and stores
+// the sums into every block's shared memory by st.async, which counts
+// their bytes on the receiving block's mbarrier: no GPU-scope fence and
+// no cluster barrier after the stores (a cluster barrier there, whose
+// release is a GPU-scope fence, was slower). Each warp sends the lowest
+// and highest row holding a non-finite entry the same way. Once its bytes
+// have landed each lane walks its chain on its block's copy with the
+// shuffle kernel's step (below), step 0 included: LDS of s at byte offset
+// 4 id, the add into acc off the chain, fast_next_off and the next LDS,
+// about 27 ns a step; 3.2-4.0 us a call at the tool's shapes, most of it
+// the launch (1.2 us) and the staging (1.9 us at 6400 rows, whose loads
+// touch one 128-byte line a row: 800 lines an SM). Clusters of 1 (every
+// block sums every row) and of 16 blocks lost at every shape, two
+// clusters of 8 blocks of 128 lanes at the two larger ones, and copying a
+// block's sums with cp.async.bulk lost too; so the cluster's shape is
+// fixed at compile time (ONEHOT_CLUSTER, ONEHOT_THREADS). Sums over a
+// block's shared memory (n > ~57,800) are read in place by the same code.
 //
 // The shuffle kernel is one block of 128 lanes a column. It first walked its
 // lanes' chains through the table in place: 185 ns a step on an H100 (the
@@ -44,11 +74,17 @@
 // rate), and a table too large to stage (two columns over 227 KB) or not
 // 16-byte aligned is read in place by the same code.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define SHUFFLE_LANES 128
-#define SHUFFLE_SMEM_MAX 232448  // bytes of shared memory a block can use on an H100
+#define SMEM_MAX 232448      // bytes of shared memory a block can use on an H100
+#define ONEHOT_CLUSTER 8     // blocks of a onehot cluster, each staging an eighth of the sums
+#define ONEHOT_THREADS 256   // lanes of a onehot block: 8 x 256 = the 2048-lane packet
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -59,27 +95,6 @@ __device__ __forceinline__ float bf16_to_f32(uint16_t h) {
 __device__ __forceinline__ int floor_mod(int x, int n) {
     const int m = x % n;
     return m < 0 ? m + n : m;
-}
-
-__global__ void onehot_fetch_kernel(const int* __restrict__ ids,
-                                    const uint16_t* __restrict__ table, int n_rows,
-                                    int n_cols, int steps, int n_lanes,
-                                    float* __restrict__ out) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n_lanes) return;
-    int id = ids[lane];
-    float acc = 0.0f;
-    for (int i = 0; i < steps; ++i) {
-        float s = 0.0f;
-        if (id >= 0 && id < n_rows) {
-            const uint16_t* row = table + (size_t)id * n_cols;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) s = __fadd_rn(s, bf16_to_f32(row[k]));
-        }
-        acc = __fadd_rn(acc, s);
-        id = floor_mod((int)((unsigned)id + (unsigned)__float2int_rz(s) + (unsigned)i), n_rows);
-    }
-    out[lane] = acc;
 }
 
 // int() is __float2int_rz (cvt.rzi), which saturates and maps NaN to 0 as
@@ -100,7 +115,8 @@ __device__ __forceinline__ int exact_next_id(int id, float f0, int i, int n) {
 // records a step outside both ranges (bound = 0 makes every step rare);
 // the offset is then clamped into the table so that the next fetch stays
 // there, and the caller walks the lane again with exact_next_id. No
-// branch and no division on the chain.
+// branch and no division on the chain. Both kernels walk every lane fast
+// and walk it again exactly where `rare` was set.
 #define F2I_BIAS 0x4B000000u  // the bits of 2^23
 
 template <bool B>
@@ -119,6 +135,220 @@ __device__ __forceinline__ unsigned fast_next_off(unsigned o, float f0, int i, u
     const unsigned x = (o >> 2) + bits + ((unsigned)i - F2I_BIAS);
     rare |= (__float_as_uint(f0) >= F2I_BIAS) | (x >= bound);
     return min(min(x4, xn4), 4u * (n - 1));
+}
+
+// A bf16 whose exponent bits are all ones: +-inf or NaN.
+__device__ __forceinline__ bool bf16_nonfinite(uint32_t h) { return (h & 0x7F80u) == 0x7F80u; }
+
+// The first 8 columns of row r as 4 words, column 2j in the low half of
+// word j: one 16-byte load where the row is 16-byte aligned (`vec`), else
+// 8 two-byte loads.
+__device__ __forceinline__ void load_row8(const uint16_t* __restrict__ table, int n_cols, int r,
+                                          bool vec, uint32_t w[4]) {
+    const uint16_t* row = table + (size_t)r * n_cols;
+    if (vec) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(row));
+        w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+            w[j] = (uint32_t)__ldg(row + 2 * j) | ((uint32_t)__ldg(row + 2 * j + 1) << 16);
+    }
+}
+
+// Rows q to q + 3 below r1 (load_row8).
+__device__ __forceinline__ void load_rows4(const uint16_t* __restrict__ table, int n_cols, int q,
+                                           int r1, bool vec, uint32_t w[4][4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        if (q + j < r1) load_row8(table, n_cols, q + j, vec, w[j]);
+}
+
+// s of a row from load_row8's words: the 8 columns added left to right
+// from 0, each add rounded; `bad` is set where one of them is non-finite.
+__device__ __forceinline__ float row_sum8(const uint32_t w[4], bool& bad) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const uint32_t h = (k & 1) ? w[k >> 1] >> 16 : w[k >> 1] & 0xFFFFu;
+        s = __fadd_rn(s, bf16_to_f32((uint16_t)h));
+        bad |= bf16_nonfinite(h);
+    }
+    return s;
+}
+
+// Distributed shared memory by transaction count: a block's mbarrier
+// completes its phase once the bytes it expects have landed, each remote
+// store (st.async) counting its bytes on the receiving block's mbarrier.
+// No fence at GPU scope and no cluster barrier after the stores.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned cluster_addr(unsigned local, unsigned rank) {
+    unsigned remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
+    return remote;
+}
+
+__device__ __forceinline__ void st_async_v4(unsigned remote, float4 v, unsigned remote_bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];"
+        :: "r"(remote), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async_v2(unsigned remote, int a, int b, unsigned remote_bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.s32 [%0], {%1, %2}, [%3];"
+        :: "r"(remote), "r"(a), "r"(b), "r"(remote_bar) : "memory");
+}
+
+// Whether the mbarrier at `bar` has completed phase 0 (try_wait: waits a
+// while in the hardware before it answers).
+__device__ __forceinline__ bool mbarrier_done(unsigned bar) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar) : "memory");
+    return done != 0;
+}
+
+// Thread = lane, ONEHOT_THREADS lanes a block, blocks in clusters of
+// ONEHOT_CLUSTER. Each block of a cluster takes its share of the
+// rows (`per`, a multiple of 4, from row rank x per), four consecutive
+// rows a thread, sums each row's first 8 columns and, STAGED, stores the
+// four sums with one 16-byte st.async into every block's shared memory
+// (s[id], by row id). Each warp's lowest and highest row holding a
+// non-finite entry go into its slot of every block's `bad_rows`. Each
+// block's mbarrier expects all those bytes; once they have landed the
+// block reads its own copy: a step is one LDS of s at byte offset 4 id,
+// the FADD into acc off the chain and fast_next_off, K5's step, from step
+// 0 on. Not STAGED (4n bytes over a block's shared memory) the lanes sum
+// their row in place at every step; the rows are still scanned for the
+// poison.
+template <bool STAGED>
+__global__ void __cluster_dims__(ONEHOT_CLUSTER, 1, 1)
+    onehot_fetch_kernel(const int* __restrict__ ids, const uint16_t* __restrict__ table,
+                        int n_rows, int n_cols, int steps, int n_lanes, int per, unsigned bound,
+                        float* __restrict__ out) {
+    extern __shared__ float4 smem4[];
+    float* s = reinterpret_cast<float*>(smem4);
+    // [rank x warps + warp]: that warp's lowest and highest row holding a
+    // non-finite entry, or (INT_MAX, -1).
+    constexpr unsigned ranks = ONEHOT_CLUSTER, warps = ONEHOT_THREADS / 32;
+    __shared__ int2 bad_rows[ranks * warps];
+    __shared__ uint64_t landed;  // the mbarrier counting the bytes stored into this block
+    cg::cluster_group cluster = cg::this_cluster();
+    const unsigned rank = cluster.block_rank();
+    const int tid = threadIdx.x;
+    // The rows' loads go out before anything else: they are most of the
+    // staging's time.
+    const bool vec = ((uintptr_t)table & 15) == 0 && (n_cols & 7) == 0;
+    const int r0 = (int)rank * per, r1 = min(n_rows, r0 + per);
+    uint32_t w[4][4];
+    load_rows4(table, n_cols, r0 + 4 * tid, r1, vec, w);
+    const int lane = blockIdx.x * ONEHOT_THREADS + tid;
+    const int id0 = lane < n_lanes ? ids[lane] : 0;
+    const unsigned bar = smem_addr(&landed);
+    const unsigned warp = tid / 32;
+    if (tid == 0) {
+        // The cluster stores 16 bytes for every 4 rows (ceil(n / 4) stores)
+        // and every warp 8 bytes of poison flags into each block.
+        const unsigned bytes =
+            (STAGED ? 16u * (unsigned)((n_rows + 3) / 4) : 0u) + 8u * ranks * warps;
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar) : "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(bar), "r"(bytes) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    // No block stores into another before that one has started and set up
+    // its mbarrier: arrive now, wait once the first rows are loaded.
+    asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+    asm volatile("barrier.cluster.wait;" ::: "memory");
+    int lo = INT_MAX, hi = -1;  // this thread's lowest and highest bad row
+    for (int base = r0; base < r1; base += 4 * ONEHOT_THREADS) {  // the same trips for every thread
+        const int q = base + 4 * tid;
+        if (base != r0) load_rows4(table, n_cols, q, r1, vec, w);
+        if (q < r1) {
+            bool bad_row[4] = {false, false, false, false};
+            float4 sum;
+            sum.x = row_sum8(w[0], bad_row[0]);
+            sum.y = q + 1 < r1 ? row_sum8(w[1], bad_row[1]) : 0.0f;
+            sum.z = q + 2 < r1 ? row_sum8(w[2], bad_row[2]) : 0.0f;
+            sum.w = q + 3 < r1 ? row_sum8(w[3], bad_row[3]) : 0.0f;
+            if constexpr (STAGED)
+                for (unsigned k = 0; k < ranks; ++k)
+                    st_async_v4(cluster_addr(smem_addr(s + q), k), sum, cluster_addr(bar, k));
+            for (int j = 0; j < 4; ++j)
+                if (bad_row[j]) lo = min(lo, q + j), hi = max(hi, q + j);
+        }
+    }
+    // Each warp's flags, lane k storing them into block k.
+    lo = __reduce_min_sync(0xFFFFFFFFu, lo);
+    hi = __reduce_max_sync(0xFFFFFFFFu, hi);
+    const unsigned slot = smem_addr(&bad_rows[rank * warps + warp]);
+    for (unsigned k = tid % 32; k < ranks; k += 32)
+        st_async_v2(cluster_addr(slot, k), lo, hi, cluster_addr(bar, k));
+    // Wait for every byte stored into this block: the sums and the flags.
+    // Bytes that never land (a fault) end the kernel with an error, not a hang.
+    for (unsigned tries = 0; !mbarrier_done(bar); ++tries)
+        if (tries > (1u << 22)) __trap();
+    // The one-hot product adds 0 x every other row's entry: a non-finite
+    // entry poisons every lane's s but those on its own row, when that
+    // row is the only one holding one (`keep`). Each warp reads the flags.
+    for (unsigned j = tid % 32; j < ranks * warps; j += 32)
+        lo = min(lo, bad_rows[j].x), hi = max(hi, bad_rows[j].y);
+    lo = __reduce_min_sync(0xFFFFFFFFu, lo);
+    hi = __reduce_max_sync(0xFFFFFFFFu, hi);
+    const bool poisoned = hi >= 0;
+    const int keep = lo == hi ? lo : -1;
+    const float nan = __int_as_float(0x7FFFFFFF);
+    if constexpr (STAGED) {
+        if (poisoned) {
+            for (int r = tid; r < n_rows; r += ONEHOT_THREADS)
+                if (r != keep) s[r] = nan;
+            __syncthreads();
+        }
+    }
+    if (lane >= n_lanes) return;
+    // s of the row at byte offset o = 4 id, an id inside the table.
+    auto fetch = [&](unsigned o) -> float {
+        if constexpr (STAGED)
+            return *reinterpret_cast<const float*>(reinterpret_cast<const char*>(s) + o);
+        const int r = (int)(o >> 2);
+        uint32_t w[4];
+        bool unused = false;
+        load_row8(table, n_cols, r, vec, w);
+        const float sum = row_sum8(w, unused);
+        return poisoned && r != keep ? nan : sum;
+    };
+    // Steps `first` to steps - 1 from the byte offset o (an id inside the
+    // table) and acc: fast (fast_next_off, setting `rare` when a step was
+    // rare) or exactly.
+    auto walk = [&](auto exact_tag, int first, unsigned o, float acc, bool& rare) -> float {
+        constexpr bool exact = decltype(exact_tag)::value;
+#pragma unroll 4
+        for (int i = first; i < steps; ++i) {
+            const float f = fetch(o);
+            acc = __fadd_rn(acc, f);
+            if constexpr (exact) o = 4u * (unsigned)exact_next_id((int)(o >> 2), f, i, n_rows);
+            else o = fast_next_off(o, f, i, (unsigned)n_rows, bound, rare);
+        }
+        return acc;
+    };
+    // Fast, step 0 too: an id outside the table makes the lane rare (it is
+    // walked from row 0 meanwhile). Exactly: step 0 apart, fetching 0 or,
+    // from a poisoned table, NaN where the id lies outside.
+    const bool valid = (unsigned)id0 < (unsigned)n_rows;
+    bool rare = !valid;
+    float acc = walk(Exact<false>{}, 0, valid ? 4u * (unsigned)id0 : 0u, 0.0f, rare);
+    if (rare && steps > 0) {
+        const float s0 = valid ? fetch(4u * (unsigned)id0) : (poisoned ? nan : 0.0f);
+        acc = walk(Exact<true>{}, 1, 4u * (unsigned)exact_next_id(id0, s0, 0, n_rows),
+                   __fadd_rn(0.0f, s0), rare);
+    }
+    out[lane] = acc;
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -252,16 +482,33 @@ extern "C" int chase_latency_launch(const void* chain, int n_chain, int steps, i
     return (int)cudaGetLastError();
 }
 
+// The onehot kernel in clusters of ONEHOT_CLUSTER blocks of ONEHOT_THREADS
+// lanes (enough clusters for n_lanes), staged where 4 x n (rounded up to
+// 4 rows) bytes of row sums fit a block's shared memory, else in place.
+// Ids are carried as byte offsets, so n_rows < 2^30.
 extern "C" int onehot_fetch_launch(const void* ids, const void* table, int n_rows, int n_cols,
                                    int steps, int n_lanes, void* out, void* stream) {
-    if (n_rows <= 0 || n_cols < 8) return (int)cudaErrorInvalidValue;
-    if (n_lanes > 0) {
-        const int threads = 128;
-        onehot_fetch_kernel<<<(n_lanes + threads - 1) / threads, threads, 0,
-                              (cudaStream_t)stream>>>(
-            (const int*)ids, (const uint16_t*)table, n_rows, n_cols, steps, n_lanes,
-            (float*)out);
+    if (n_rows <= 0 || n_rows >= (1 << 30) || n_cols < 8) return (int)cudaErrorInvalidValue;
+    if (n_lanes <= 0) return (int)cudaGetLastError();
+    const size_t smem = 4 * (((size_t)n_rows + 3) & ~(size_t)3);
+    const bool staged = smem + 1024 <= SMEM_MAX;  // beside the kernel's static 520 bytes
+    void (*kernel)(const int*, const uint16_t*, int, int, int, int, int, unsigned, float*) =
+        staged ? onehot_fetch_kernel<true> : onehot_fetch_kernel<false>;
+    // Above 48 KB a block's dynamic shared memory must be allowed first.
+    static size_t allowed = 48 * 1024;
+    if (staged && smem > allowed) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        allowed = smem;
     }
+    constexpr int packet = ONEHOT_CLUSTER * ONEHOT_THREADS;  // lanes a cluster
+    const int blocks = (n_lanes + packet - 1) / packet * ONEHOT_CLUSTER;
+    const unsigned bound = n_rows < (1 << 29) ? 2u * (unsigned)n_rows : 0u;
+    const int per = ((n_rows + ONEHOT_CLUSTER - 1) / ONEHOT_CLUSTER + 3) & ~3;  // rows a block sums
+    kernel<<<blocks, ONEHOT_THREADS, staged ? smem : 0, (cudaStream_t)stream>>>(
+        (const int*)ids, (const uint16_t*)table, n_rows, n_cols, steps, n_lanes, per, bound,
+        (float*)out);
     return (int)cudaGetLastError();
 }
 
@@ -276,7 +523,7 @@ extern "C" int shuffle_fetch_launch(const void* ids, const void* table, int n_ro
     const cudaStream_t st = (cudaStream_t)stream;
     const unsigned bound = n_rows < (1 << 29) ? 2u * (unsigned)n_rows : 0u;
     const size_t smem = 2 * (size_t)groups * SHUFFLE_LANES * sizeof(float);
-    if (smem > SHUFFLE_SMEM_MAX || ((uintptr_t)table & 15) != 0) {
+    if (smem > SMEM_MAX || ((uintptr_t)table & 15) != 0) {
         shuffle_fetch_kernel<false><<<n_cols, SHUFFLE_LANES, 0, st>>>(
             (const int*)ids, (const float*)table, n_rows, n_cols, groups, steps, bound,
             (float*)out);

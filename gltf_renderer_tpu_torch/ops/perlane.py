@@ -16,10 +16,21 @@ fetches: the value it fetches decides the row it fetches next.
 
 int() truncates toward zero and saturates to int32 (NaN to 0), the sum
 wraps as int32, mod is the floor modulo, and an id outside the table
-fetches zeros, as in the JAX kernels. A CPU tensor goes to the plain
-version (`*_ref`); a CUDA tensor goes to the CUDA kernel (csrc/perlane.cu),
-or the call raises. The plain versions add in the JAX kernels' order, so
-kernel, plain version and JAX kernel agree bit for bit.
+fetches zeros, as in the JAX kernels. The one-hot fetch is a product that
+adds 0 x every other row's entry, so a non-finite entry (NaN or +-inf) in
+the first 8 columns of any row makes that column NaN for every lane but
+those on its own row, and for those too once a second row holds one:
+`onehot_fetch` then fetches s = NaN for every lane not on the one row
+that holds non-finite entries (every lane, where two rows or more do; an
+id outside the table included). A CPU tensor goes to the plain version
+(`*_ref`); a CUDA tensor goes to the CUDA kernel (csrc/perlane.cu), or the
+call raises. The plain versions add in the JAX kernels' order, so kernel
+and plain version agree bit for bit, and both agree with the JAX kernel
+bit for bit except in the NaN payloads (the hardware's). Since s depends
+only on the row, the onehot kernel sums every row once a call, in a
+cluster of 8 blocks that share the sums through distributed shared
+memory, and walks the chains on its shared-memory copy; the shuffle
+kernel stages its columns likewise (csrc/perlane.cu).
 `KERNEL_LAUNCHES` counts each kernel's launches by name and
 `REFERENCE_CALLS` the plain-version calls.
 """
@@ -102,16 +113,22 @@ def shuffle_fetch(ids, table, n_rows: int, n_cols: int, steps: int):
 
 def _onehot_chain(ids, table, steps: int):
     """The one-hot chain, step by step: yields (valid, ids, s) for each
-    step, the flat lanes' row ids before the fetch and the sums fetched."""
+    step, the flat lanes' row ids before the fetch and the sums fetched.
+    s is NaN where the one-hot product poisons it: some row other than
+    the lane's own holds a non-finite entry in the first 8 columns."""
     n = table.shape[0]
     cols = table[:, :SUM_COLS].float()
+    bad_row = ~torch.isfinite(cols).all(dim=1)
+    n_bad = bad_row.sum()
     idv = ids.reshape(-1)
     for i in range(steps):
         valid = (idv >= 0) & (idv < n)
-        rows = torch.where(valid[:, None], cols[idv.clamp(0, n - 1).long()], 0.0)
+        at = idv.clamp(0, n - 1).long()
+        rows = torch.where(valid[:, None], cols[at], 0.0)
         s = torch.zeros(idv.shape, dtype=torch.float32, device=ids.device)
         for k in range(SUM_COLS):
             s = s + rows[:, k]
+        s = torch.where(n_bad > (valid & bad_row[at]).int(), float("nan"), s)
         yield valid, idv, s
         idv = torch.remainder(idv + trunc_i32(s) + i, n)
 

@@ -16,12 +16,12 @@ B. `shuffle_fetch`: one 128-lane row fetching c values from the grouped
 
 Times are CUDA events over 16 calls after 2 warm ones: launch-bound, they
 time the wrapper and the launch more than the kernel. `--study` (`study`)
-measures the shuffle kernel's device time a call instead, from CUDA-graph
-replays, in turns with an older perlane.cu given by --parent, with a steps
-sweep, clock samples and the SASS opcode counts; it prints one JSON line
-last. The TPU tool's printed break-even budgets were TPU numbers and are not
-carried over. On the CPU the plain versions run once per shape and no time
-is printed.
+measures both kernels' device time a call instead, from CUDA-graph
+replays, in turns with an older perlane.cu given by --parent, with a
+steps sweep, clock samples and the SASS opcode counts; it prints one JSON
+line last. The TPU tool's
+printed break-even budgets were TPU numbers and are not carried over. On
+the CPU the plain versions run once per shape and no time is printed.
 
 Both kernels are chains of STEPS dependent loads, so what bounds them is
 the latency of those loads, not bytes over the memory rate. Read in
@@ -33,10 +33,11 @@ three latencies on the card with a pointer chase (csrc/perlane.cu's
 version's id chains on the same inputs, the largest share of a call's
 dependent loads that can hit L1: every line a block touches misses once
 (L1 starts each launch empty and is the SM's own; each block is taken to
-have its SM to itself, as 16 onehot blocks on a 132-SM card do, and every
-shuffle block's chains touch the same lines). `main` gives each row its
-floor, `latency_floor_ms`: the least mean time of a lane's chain, read in
-place or staged, whichever is less (`latency_floor_ns`).
+have its SM to itself, as the 8 onehot blocks of ONEHOT_BLOCK lanes on a
+132-SM card do, and every shuffle block's chains touch the same lines).
+`main` gives each row its floor, `latency_floor_ms`: the least mean time
+of a lane's chain, read in place or staged, whichever is less
+(`latency_floor_ns`).
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ CHASE = {"l1": (1 << 13, 32), "l2": (1 << 20, 32), "smem": (1 << 13, 1)}
 CHASE_LEVEL = {"l2": 0, "l1": 1, "smem": 2}  # chase_latency_launch's `level`
 CHASE_STEPS = 1 << 14
 LINE_BYTES = 128
-ONEHOT_BLOCK = 128  # lanes of one onehot_fetch block (csrc/perlane.cu)
+ONEHOT_BLOCK = _build.source_define("perlane.cu", "ONEHOT_THREADS")  # lanes of a onehot block
 
 
 def chase_chain(level: str, seed: int = 1) -> np.ndarray:
@@ -206,23 +207,31 @@ def main(device="cuda"):
 SWEEP_STEPS = (1, 2, 4, 8, 16, 32, 64)
 SWEEP_SHAPE = SHAPES[-1]  # 6400x112
 GRAPH_LAUNCHES = 64
+KINDS = ("onehot", "shuffle")
 
 
-def shuffle_runner(source=None):
-    """A function (ids, table, n, c, steps) -> acc through a shuffle-fetch
-    kernel: the wrapper `perlane.shuffle_fetch` (counted) when `source` is
-    None, else the launcher of the perlane.cu at path `source`, an older
-    version with the same argument list, uncounted."""
+def runner(kind, source=None):
+    """A function (ids, table, n, c, steps) -> acc through `kind`'s kernel
+    ("onehot" or "shuffle"): the wrapper (counted) when `source` is None,
+    else the launcher of the perlane.cu at path `source`, an older version
+    with the same argument list, uncounted."""
     if source is None:
+        if kind == "onehot":
+            return lambda ids, table, n, c, steps: perlane.onehot_fetch(ids, table, steps)
         return perlane.shuffle_fetch
-    fn = _build.load(os.path.abspath(source)).shuffle_fetch_launch
-    fn.argtypes = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2
+    fn = getattr(_build.load(os.path.abspath(source)), f"{kind}_fetch_launch")
+    fn.argtypes = [_build.VP, _build.VP] + [_build.CI] * 4 + [_build.VP] * 2  # both launchers
     fn.restype = _build.CI
 
     def run(ids, table, n, c, steps):
-        out = torch.empty((c, LANES), dtype=torch.float32, device=ids.device)
-        _build.launch(fn, "parent shuffle_fetch", ids.device.index, ids.data_ptr(),
-                      table.data_ptr(), n, c, -(-n // LANES), int(steps), out.data_ptr())
+        if kind == "onehot":
+            out = torch.empty((ROWS, LANES), dtype=torch.float32, device=ids.device)
+            ints = (n, c, int(steps), ids.numel())
+        else:
+            out = torch.empty((c, LANES), dtype=torch.float32, device=ids.device)
+            ints = (n, c, -(-n // LANES), int(steps))
+        _build.launch(fn, f"parent {kind}_fetch", ids.device.index, ids.data_ptr(),
+                      table.data_ptr(), *ints, out.data_ptr())
         return out
 
     return run
@@ -255,86 +264,118 @@ def clock_under_load(graph, replays: int = 2000) -> str:
     return sample
 
 
-def _kernel_us(by_op: dict, name: str = "shuffle_fetch") -> list:
+def _kernel_us(by_op: dict, name: str) -> list:
     """[device us a launch, launches recorded] of the kernel `name` from
-    `device_us_by_op`."""
-    return next([us, n] for k, (us, n) in by_op.items() if name in k)
+    `device_us_by_op`; [None, 0] where the profiler recorded none."""
+    return next(([us, n] for k, (us, n) in by_op.items() if name in k), [None, 0])
+
+
+def format_numbers(numbers: dict, places: int = 3) -> str:
+    """"key value, ..." of a dict of numbers and lists of numbers, each
+    rounded to `places`; None, a reading the profiler did not record, is
+    written "not recorded"."""
+    def one(x):
+        if isinstance(x, (list, tuple)):
+            return "[" + ", ".join(one(y) for y in x) + "]"
+        return "not recorded" if x is None else str(round(x, places))
+    return ", ".join(f"{k} {one(v)}" for k, v in numbers.items())
+
+
+def _inputs(kind, rng, n, c, dev):
+    return (onehot_inputs if kind == "onehot" else shuffle_inputs)(rng, n, c, dev)
+
+
+def _ref(kind, ids, table, n, c, steps):
+    if kind == "onehot":
+        return perlane.onehot_fetch_ref(ids, table, steps)
+    return perlane.shuffle_fetch_ref(ids, table, n, c, steps)
+
+
 
 
 def study(device="cuda", parent=None):
-    """K5's device time on the card, in turns with the older kernel at path
-    `parent` when given (parent, new, new, parent): at every shape, the
+    """K4's and K5's device time on the card, each in turns with the older
+    kernel at path `parent` when given (parent, new, new, parent): at
+    every shape, the
     graph-replay device time a call (GRAPH_LAUNCHES launches captured in
     one CUDA graph) and torch.profiler's; the same over SWEEP_STEPS at
     SWEEP_SHAPE with each kernel's fitted slope (ns a step) and intercept
     (us), and its time at 0 steps (launch, staging and store only); K6's
-    graph-replay time (`warm.add_one`, 8x128) beside the intercept; the SM
+    graph-replay time (`warm.add_one`, 8x128) beside the intercepts; the SM
     clock idle and under load; each kernel's SASS opcode counts. Every
-    kernel's output is held to the plain version first. Returns a dict
-    (the JSON line)."""
+    kernel's output is held to the plain version first. Returns a dict (the
+    JSON line): {"onehot": {"shapes", "sweep"}, "shuffle": {...},
+    "k6_graph_us", "k6_profiler_us", "clocks_idle", "clocks_load", "sass",
+    "card"}."""
     dev = resolve(device)
     if dev.type != "cuda":
-        raise ValueError(f"the K5 study runs on a CUDA device, got {dev}")
-    runs = {"parent": shuffle_runner(parent)} if parent else {}
-    runs["new"] = shuffle_runner()
-    order = list(runs) + list(runs)[::-1]
-    res = {"card": card_name_and_power_limit(), "clocks_idle": gpu_clocks(), "shapes": {},
-           "sweep": {}}
+        raise ValueError(f"the per-lane study runs on a CUDA device, got {dev}")
+    res = {"card": card_name_and_power_limit(), "clocks_idle": gpu_clocks()}
     rng = np.random.RandomState(0)
-    for label, n, c in SHAPES:
-        ids, table = shuffle_inputs(rng, n, c, dev)
-        want = perlane.shuffle_fetch_ref(ids, table, n, c, STEPS)
-        graphs, row = {}, {}
-        for k, run in runs.items():
-            def call(run=run):
-                return run(ids, table, n, c, STEPS)
-            if not bool(torch.equal(call().view(torch.int32), want.view(torch.int32))):
-                raise AssertionError(f"the {k} shuffle kernel disagrees with its plain "
-                                     f"version at {label}")
-            graphs[k] = graph_of(call, GRAPH_LAUNCHES)
-            row[f"{k}_profiler_us"] = _kernel_us(device_us_by_op(call))
-        for k in order:
-            row.setdefault(f"{k}_graph_us", []).append(replay_us(graphs[k], GRAPH_LAUNCHES))
-        res["shapes"][label] = row
-        print(f"[k5] {label} ({n}x{c}): " + ", ".join(
-            f"{k} {[round(x, 3) for x in v]}" for k, v in row.items())
-            + " (us; profiler: [us a launch, launches recorded of 10])", flush=True)
-    label, n, c = SWEEP_SHAPE
-    ids, table = shuffle_inputs(rng, n, c, dev)
     load_graph = None
-    for k, run in runs.items():
-        sweep = {}
-        for steps in SWEEP_STEPS:
-            def call(run=run, steps=steps):
-                return run(ids, table, n, c, steps)
-            g = graph_of(call, GRAPH_LAUNCHES)
-            sweep[steps] = replay_us(g, GRAPH_LAUNCHES)
-            if steps == STEPS:
-                load_graph = g
-        slope, icpt = fit_line(list(sweep), list(sweep.values()))
-        zero = replay_us(graph_of(lambda run=run: run(ids, table, n, c, 0), GRAPH_LAUNCHES),
-                         GRAPH_LAUNCHES)
-        res["sweep"][k] = {"us": sweep, "slope_ns": slope * 1e3, "intercept_us": icpt,
-                           "steps0_us": zero}
-        print(f"[k5] sweep {k} at {label}: " + ", ".join(f"{s}: {v:.3f}" for s, v in sweep.items())
-              + f" us; slope {slope * 1e3:.2f} ns a step, intercept {icpt:.3f} us; 0 steps "
-              f"(launch, staging, store) {zero:.3f} us", flush=True)
+    for kind in KINDS:
+        runs = {"parent": runner(kind, parent)} if parent else {}
+        runs["new"] = runner(kind)
+        tag = "k4" if kind == "onehot" else "k5"
+        shapes, sweeps = {}, {}
+        for label, n, c in SHAPES:
+            ids, table = _inputs(kind, rng, n, c, dev)
+            want = _ref(kind, ids, table, n, c, STEPS)
+            graphs, row = {}, {}
+            for k, run in runs.items():
+                def call(run=run):
+                    return run(ids, table, n, c, STEPS)
+                if not bool(torch.equal(call().view(torch.int32), want.view(torch.int32))):
+                    raise AssertionError(f"the {k} {kind} kernel disagrees with its plain "
+                                         f"version at {label}")
+                graphs[k] = graph_of(call, GRAPH_LAUNCHES)
+                row[f"{k}_profiler_us"] = _kernel_us(device_us_by_op(call), f"{kind}_fetch")
+            order = list(graphs) + list(graphs)[::-1]
+            for k in order:
+                row.setdefault(f"{k}_graph_us", []).append(replay_us(graphs[k], GRAPH_LAUNCHES))
+            shapes[label] = row
+            print(f"[{tag}] {label} ({n}x{c}): {format_numbers(row)} (us; profiler: [us a "
+                  f"launch, launches recorded of 10])", flush=True)
+        label, n, c = SWEEP_SHAPE
+        ids, table = _inputs(kind, rng, n, c, dev)
+        for k, run in runs.items():
+            sweep = {}
+            for steps in SWEEP_STEPS:
+                def call(run=run, steps=steps):
+                    return run(ids, table, n, c, steps)
+                g = graph_of(call, GRAPH_LAUNCHES)
+                sweep[steps] = replay_us(g, GRAPH_LAUNCHES)
+                if steps == STEPS and kind == "shuffle":
+                    load_graph = g
+            slope, icpt = fit_line(list(sweep), list(sweep.values()))
+            zero = replay_us(graph_of(lambda run=run: run(ids, table, n, c, 0), GRAPH_LAUNCHES),
+                             GRAPH_LAUNCHES)
+            sweeps[k] = {"us": sweep, "slope_ns": slope * 1e3, "intercept_us": icpt,
+                         "steps0_us": zero}
+            print(f"[{tag}] sweep {k} at {label}: "
+                  + ", ".join(f"{s}: {v:.3f}" for s, v in sweep.items())
+                  + f" us; slope {slope * 1e3:.2f} ns a step, intercept {icpt:.3f} us; 0 steps "
+                  f"(launch, staging, store) {zero:.3f} us", flush=True)
+        res[kind] = {"shapes": shapes, "sweep": sweeps}
     x = torch.zeros(warm.WARM_SHAPE, dtype=torch.float32, device=dev)
     res["k6_graph_us"] = replay_us(graph_of(lambda: warm.add_one(x), GRAPH_LAUNCHES),
                                    GRAPH_LAUNCHES)
     res["k6_profiler_us"] = _kernel_us(device_us_by_op(lambda: warm.add_one(x)), "add_one")
     res["clocks_load"] = clock_under_load(load_graph)
-    print(f"[k5] K6 graph {res['k6_graph_us']:.3f} us, profiler {res['k6_profiler_us']} "
+    print(f"[study] K6 graph {res['k6_graph_us']:.3f} us, "
+          f"{format_numbers({'profiler': res['k6_profiler_us']})} "
           f"[us, launches recorded of 10]; clocks idle {res['clocks_idle']} | under load "
           f"{res['clocks_load']}", flush=True)
     res["sass"] = {}
     for k, src in (("parent", parent and os.path.abspath(parent)), ("new", "perlane.cu")):
-        if k not in runs:
+        if src is None:
             continue
-        # The new kernel's staged form (shuffle_fetch_kernel<true>) runs at every shape.
-        name = "shuffle_fetch" if k == "parent" else "shuffle_fetch_kernelILb1E"
-        for fname, ops in kernel_opcodes(src, name).items():
-            res["sass"][f"{k}:{fname}"] = ops
+        # The new kernels' staged forms (template argument true) run at every shape.
+        names = ("onehot_fetch", "shuffle_fetch") if k == "parent" else (
+            "onehot_fetch_kernelILb1E", "shuffle_fetch_kernelILb1E")
+        for name in names:
+            for fname, ops in kernel_opcodes(src, name).items():
+                res["sass"][f"{k}:{fname}"] = ops
     return res
 
 

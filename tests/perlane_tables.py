@@ -4,9 +4,13 @@ the JAX kernels) and the card tests (kernel against plain version).
 Their fetched values pin down the id step id = (id + int(v) + i) mod n:
 negative values (the floor modulo of a negative sum), values near +-2^31
 (the int32 sum wraps: 2^31 - 128 plus an id above 127), 3e9 and 1e30 (the
-cast saturates to 2^31 - 1), NaN (the cast gives 0; not for the one-hot
-kernel, whose one-hot product turns 0 x NaN into NaN on every lane) and,
-for the one-hot sum of 8 columns, finite bf16 that overflow to +-inf.
+cast saturates to 2^31 - 1), NaN (the cast gives 0), true +-inf (the cast
+saturates) and, for the one-hot sum of 8 columns, finite bf16 that
+overflow to +-inf. In the one-hot fetch a NaN or +-inf entry of any row
+poisons the other rows' sums (the one-hot product adds 0 x inf and 0 x
+NaN, both NaN): with many special rows every lane's acc is NaN, which the
+CPU tests hold to the JAX kernel by NaN position (POISON_KINDS), the NaN
+payloads being the hardware's.
 """
 
 import numpy as np
@@ -19,6 +23,7 @@ SPECIAL_ROWS = {
     "huge": [[3e9], [-3e9], [1e30]],
     "nan": [[np.nan], [np.nan, 5.0]],
     "inf": [[BF16_MAX, BF16_MAX], [-BF16_MAX, -BF16_MAX]],
+    "nonfinite": [[1.5, np.inf], [-np.inf]],
 }
 
 
@@ -35,7 +40,8 @@ def adversarial_table(rs, rows, cols, kind):
 
 
 KINDS = tuple(SPECIAL_ROWS)
-ONEHOT_KINDS = tuple(k for k in KINDS if k != "nan")
+ONEHOT_KINDS = KINDS
+POISON_KINDS = ("nan", "nonfinite")  # tables whose entries poison the one-hot product
 SUM_COLS, LANES = 8, 128
 
 

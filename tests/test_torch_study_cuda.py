@@ -97,13 +97,14 @@ def test_perlane_kernels_match_plain(cuda_device, label, n, c):
 
 
 def _layouts(table):
-    """The table as it is (16-byte aligned: the kernel stages it in shared
-    memory where it fits) and a copy 4 bytes off 16-byte alignment (the
-    kernel reads it in place)."""
+    """The table as it is (16-byte aligned) and a copy one element off
+    16-byte alignment (4 bytes for f32: the shuffle kernel reads it in
+    place; 2 for bf16: the onehot kernel reads each row's 8 columns by
+    two-byte loads)."""
     flat = torch.empty(table.numel() + 1, dtype=table.dtype, device=table.device)
     off = flat[1:].view(table.shape)
     off.copy_(table)
-    assert table.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 4
+    assert table.data_ptr() % 16 == 0 and off.data_ptr() % 16 == table.element_size()
     return [table, off]
 
 
@@ -120,8 +121,9 @@ def _awkward_ids(rs, n):
 def test_perlane_kernels_on_adversarial_tables(cuda_device, kind):
     """Both kernels equal their plain versions bit for bit where the
     fetched values are negative, wrap the int32 sum, saturate the cast or
-    are NaN (tests/perlane_tables.py); the shuffle kernel staged and in
-    place, on a small table and the tool's three shapes."""
+    are NaN or +-inf (tests/perlane_tables.py; in the onehot kernel the
+    last two poison every lane); the shuffle kernel staged and in place,
+    on a small table and the tool's three shapes."""
     rs = np.random.RandomState(len(kind))
     calls = 0
     launches = dict(perlane.KERNEL_LAUNCHES)
@@ -132,14 +134,13 @@ def test_perlane_kernels_on_adversarial_tables(cuda_device, kind):
         for t in _layouts(table):
             _identical(perlane.shuffle_fetch(ids, t, n, c, 33), want)
             calls += 1
-        if kind in perlane_tables.ONEHOT_KINDS:
-            o_ids = torch.from_numpy(rs.randint(0, n, (perlane.ROWS, perlane.LANES))
-                                     .astype(np.int32)).to(cuda_device)
-            o_table = torch.from_numpy(perlane_tables.adversarial_table(rs, n, c, kind)).to(
-                cuda_device, torch.bfloat16)
-            _identical(perlane.onehot_fetch(o_ids, o_table, 33),
-                       perlane.onehot_fetch_ref(o_ids, o_table, 33))
-    onehots = len(bench_perlane.SHAPES) + 1 if kind in perlane_tables.ONEHOT_KINDS else 0
+        o_ids = torch.from_numpy(rs.randint(0, n, (perlane.ROWS, perlane.LANES))
+                                 .astype(np.int32)).to(cuda_device)
+        o_table = torch.from_numpy(perlane_tables.adversarial_table(rs, n, c, kind)).to(
+            cuda_device, torch.bfloat16)
+        _identical(perlane.onehot_fetch(o_ids, o_table, 33),
+                   perlane.onehot_fetch_ref(o_ids, o_table, 33))
+    onehots = len(bench_perlane.SHAPES) + 1
     assert perlane.KERNEL_LAUNCHES == {"onehot_fetch": launches["onehot_fetch"] + onehots,
                                        "shuffle_fetch": launches["shuffle_fetch"] + calls}
 
@@ -159,6 +160,42 @@ def test_shuffle_kernel_edge_shapes(cuda_device, n):
             want = perlane.shuffle_fetch_ref(ids, table, n, c, steps)
             for t in _layouts(table):
                 _identical(perlane.shuffle_fetch(ids, t, n, c, steps), want)
+
+
+@pytest.mark.parametrize("n", [1, 7, 9, 768, 6400, 60000])
+def test_onehot_kernel_edge_shapes(cuda_device, n):
+    """The onehot kernel bit for bit against its plain version: one row,
+    row counts that split unevenly over the cluster's 8 blocks and into
+    its 4-row stores, the tool's node shapes, and 60,000 rows (240 KB of
+    sums, too large to stage: the rows are read in place); 8, 9 and 160
+    columns (9: rows off 16-byte alignment), each table aligned and 2
+    bytes off; 0, 1, 2 and 33 steps; ids outside the table at step 0, the
+    int32 edges among them; a table of wrapping sums and one whose lone
+    +inf lies on a row a quarter of the lanes start on (those lanes keep
+    their sum, the rest are poisoned)."""
+    rs = np.random.RandomState(n)
+    assert 4 * 60000 > 227 * 1024
+    launches = perlane.KERNEL_LAUNCHES["onehot_fetch"]
+    calls = 0
+    for c in (8, 9, 160):
+        ids = rs.randint(0, n, (perlane.ROWS, perlane.LANES)).astype(np.int32)
+        ids[0, :8] = [-1, -n - 5, n, n + 3, 10 * n, -2 ** 31, 2 ** 31 - 1, 2 ** 31 - 2]
+        lone = (rs.rand(n, c) * 3).astype(np.float32)
+        lone[n // 2, 3] = np.inf
+        ids[4:8] = n // 2
+        ids = torch.from_numpy(ids).to(cuda_device)
+        for kind, t in (("wrap", perlane_tables.adversarial_table(rs, n, c, "wrap")),
+                        ("lone", lone)):
+            table = torch.from_numpy(t).to(cuda_device, torch.bfloat16)
+            for steps in (0, 1, 2, 33):
+                want = perlane.onehot_fetch_ref(ids, table, steps)
+                if kind == "lone" and steps == 1:
+                    on = ids == n // 2
+                    assert bool(torch.isinf(want[on]).all() & torch.isnan(want[~on]).all())
+                for t_ in _layouts(table):
+                    _identical(perlane.onehot_fetch(ids, t_, steps), want)
+                    calls += 1
+    assert perlane.KERNEL_LAUNCHES["onehot_fetch"] == launches + calls
 
 
 def test_l2_latency_probe(cuda_device):
