@@ -51,6 +51,17 @@ Phases (any failure exits non-zero and prints no result line):
    trace_chunked(spp=4), one warm and two timed steps, with every traversal
    launch accounted for (3 a chunk plus one a retry or alpha-shadow hop)
    and no plain version run;
+7c. the material zoo (sheen, clearcoat, thin transmission on a
+   BLEND-flagged sphere, anisotropic metal, an emissive floor) built at
+   1920x1080: the traversal kernel vs its plain version on its tables for
+   primary and lane-mixed rays at the main path's two launch sizes (t, u,
+   v and word identical), timed through its wrapper; the materials golden
+   configuration (160x120, eight accumulated frames, tone mapped) against
+   tests/goldens/materials_pt.png by SSIM (bar 0.99); the zoo at 64x48,
+   card against CPU at the CPU tests' bar, in the MIS, diffuse-white and
+   non-MIS modes and for the five debug outputs read after the first BSDF
+   sample; then the 1080p zoo step as 7b's, one warm and two timed steps,
+   every traversal launch accounted for and no plain version run;
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -119,10 +130,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "bench_fidelity.npy")
 RASTER_GOLDEN = os.path.join(ROOT, "tests", "goldens", "helmet_raster.png")
 COURTYARD_GOLDEN = os.path.join(ROOT, "tests", "goldens", "courtyard_pt.png")
+MATERIALS_GOLDEN = os.path.join(ROOT, "tests", "goldens", "materials_pt.png")
 FULL_RES = (1920, 1080)
 SPP = 4
 TIMED_STEPS = 3
 COURTYARD_TIMED_STEPS = 2
+MATERIALS_TIMED_STEPS = 2
+MATERIALS_TRIS = 4 * 2208 + 2  # four 24x48 UV spheres and a floor quad
+MATERIALS_CHECK_RES = (64, 48)
 FOLIAGE_RES = (48, 48)
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
@@ -667,13 +682,9 @@ def images_match(got, want):
 def phase_courtyard(device, card):
     """The courtyard bench scene on the card (phase 7b). Returns the
     traversal kernel's courtyard numbers and the main-path run's counts."""
-    import torch
-
     from PIL import Image
 
     from gltf_renderer_tpu_torch.bench_scene import build_bench_scene, render_courtyard_golden
-    from gltf_renderer_tpu_torch.ops import traverse as tr
-    from gltf_renderer_tpu_torch.render import pathtracer as pt
     from gltf_renderer_tpu_torch.utils.ssim import ssim
 
     t0 = time.perf_counter()
@@ -705,8 +716,24 @@ def phase_courtyard(device, card):
 
     phase_foliage(device)
 
-    # The 1080p step: every traversal launch is a chunk's primary or merged
-    # bounce launch, or one hop of a retry or alpha-shadow loop.
+    run = scene_steps("courtyard", scene, meta, settings, params, c2w, COURTYARD_TIMED_STEPS,
+                      card)
+    if sum(a for a, _ in run["hops"]) == 0:
+        raise AssertionError("the courtyard step ran no masked retry")
+    return dict(k1=k1, k2=k2, **run)
+
+
+def scene_steps(tag, scene, meta, settings, params, c2w, timed, card):
+    """The 1080p step, trace_chunked(spp=4), one warm and `timed` timed
+    steps, with the launch counters reset first: every traversal launch is
+    a chunk's primary or merged bounce launch, or one hop of a retry or
+    alpha-shadow loop, and no plain version runs. Returns the launches,
+    steps, hops a step, Mrays/s and the timed steps' seconds."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+
     w, h = FULL_RES
     tr.KERNEL_LAUNCHES = 0
     pt.ALPHA_RETRY_HOPS = pt.ALPHA_SHADOW_HOPS = 0
@@ -714,7 +741,7 @@ def phase_courtyard(device, card):
     rays = nan = 0.0
     step_s, hops = [], []
     img = None
-    for i in range(COURTYARD_TIMED_STEPS + 1):
+    for i in range(timed + 1):
         hops0 = (pt.ALPHA_RETRY_HOPS, pt.ALPHA_SHADOW_HOPS)
         t0 = time.perf_counter()
         img, st = pt.trace_chunked(scene, meta, settings, params, c2w, (w, h), i,
@@ -728,23 +755,98 @@ def phase_courtyard(device, card):
         nan += float(st[1])
     launches = tr.KERNEL_LAUNCHES
     chunks = -(-pt._tile_order(w, h, img.device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
-    steps = COURTYARD_TIMED_STEPS + 1
+    steps = timed + 1
     expected = steps * chunks * (1 + settings.max_bounces) + sum(a + b for a, b in hops)
     mrays = rays / sum(step_s) / 1e6
-    log(f"[courtyard] main {w}x{h} spp={SPP} steps={[round(x, 4) for x in step_s]} "
+    log(f"[{tag}] main {w}x{h} spp={SPP} steps={[round(x, 4) for x in step_s]} "
         f"(after one warm) rays={rays:.0f} Mrays/s={mrays:.4f} nan_inf={nan:.0f} "
         f"traverse_launches={launches} in {steps} steps ({launches / steps:.1f} a step; "
         f"{chunks * (1 + settings.max_bounces)} a step without hops) "
         f"retry/shadow hops per step={hops} card={card}")
     if tuple(img.shape) != (h, w, 3) or not bool(torch.isfinite(img).all()) or nan != 0.0:
-        raise AssertionError("the courtyard step has the wrong shape or non-finite values")
+        raise AssertionError(f"the {tag} step has the wrong shape or non-finite values")
     if launches != expected or tr.REFERENCE_CALLS != ref_calls:
-        raise AssertionError(f"the courtyard step did not run through the traversal kernel "
+        raise AssertionError(f"the {tag} step did not run through the traversal kernel "
                              f"only: {launches} launches, {expected} expected")
-    if sum(a for a, _ in hops) == 0:
-        raise AssertionError("the courtyard step ran no masked retry")
-    return dict(k1=k1, k2=k2, launches=launches, steps=steps, hops=hops, mrays=mrays,
-                step_s=step_s)
+    return dict(launches=launches, steps=steps, hops=hops, mrays=mrays, step_s=step_s)
+
+
+def phase_materials(device, card):
+    """The material zoo on the card (phase 7c): sheen, clearcoat, thin
+    transmission (BLEND-flagged for traversal), anisotropic metal. Returns
+    the traversal kernel's zoo numbers and the main-path run's counts."""
+    from PIL import Image
+
+    from gltf_renderer_tpu_torch.bench_scene import (
+        build_materials_scene,
+        render_materials_golden,
+    )
+    from gltf_renderer_tpu_torch.utils.ssim import ssim
+
+    t0 = time.perf_counter()
+    scene, meta, settings, params, c2w, n_tris = build_materials_scene(*FULL_RES, device=device)
+    log(f"[materials] {n_tris} triangles, stack bound {meta.stack_bound}, "
+        f"{scene.wide_nodes.shape[0]} wide nodes, {scene.leaf_records.shape[0]} leaves, "
+        f"has_sheen={meta.has_sheen} has_clearcoat={meta.has_clearcoat} "
+        f"has_transmission={meta.has_transmission} has_blend={meta.has_blend}, "
+        f"built in {time.perf_counter() - t0:.2f}s")
+    if not (meta.has_sheen and meta.has_clearcoat and meta.has_transmission
+            and meta.has_blend) or n_tris != MATERIALS_TRIS:
+        raise AssertionError("the materials scene is not the zoo")
+
+    # K1 against its plain version on the zoo's tables, at the main path's
+    # two launch sizes; timed through its wrapper.
+    sets = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
+    k1 = {rays[0]: k1_main_size(scene, meta, rays, "[materials] kernel")
+          for rays in (sets[0], sets[2])}
+
+    # The golden configuration, drawn as the renderer draws it.
+    img, stats = render_materials_golden(device)
+    golden = np.asarray(Image.open(MATERIALS_GOLDEN))
+    img = img.cpu().numpy()
+    score = ssim(img, golden) if img.shape == golden.shape else 0.0
+    log(f"[materials] golden {img.shape[1]}x{img.shape[0]} ssim={score:.5f} "
+        f"(bar {RASTER_SSIM_BAR}) nan_inf={float(stats[1]):.0f}")
+    if score < RASTER_SSIM_BAR or float(stats[1]) != 0.0:
+        raise AssertionError("the materials golden fails its bar")
+
+    phase_materials_modes(device)
+    run = scene_steps("materials", scene, meta, settings, params, c2w, MATERIALS_TIMED_STEPS,
+                      card)
+    return dict(k1=k1, **run)
+
+
+def phase_materials_modes(device):
+    """The zoo at 64x48 on the card against the same render on the CPU:
+    the MIS, diffuse-white and non-MIS modes (2 bounces, seed 3), and the
+    five debug outputs read after the first BSDF sample (1 bounce, seed 5)."""
+    import dataclasses
+
+    from gltf_renderer_tpu_torch.bench_scene import build_materials_scene
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import settings as S
+
+    res = MATERIALS_CHECK_RES
+    built = {dev: build_materials_scene(*res, device=dev) for dev in ("cpu", device)}
+    runs = [(name, dict(kw), 3) for name, kw in (
+        ("mis", {}), ("diffuse_white", dict(material_diffuse_white=True)),
+        ("no_mis", dict(material_mis=False)))]
+    runs += [(name, dict(max_bounces=1, min_bounces=1, debug_output=getattr(S, name)), 5)
+             for name in ("DEBUG_BOUNCE_DIRECTION", "DEBUG_BOUNCE_BSDF", "DEBUG_BOUNCE_PDF",
+                          "DEBUG_BOUNCE_WEIGHT", "DEBUG_BOUNCE_IS_TRANSMISSION")]
+    for name, change, seed in runs:
+        imgs = {}
+        for dev, (scene, meta, settings, params, c2w, _) in built.items():
+            img, st = pt.trace(scene, meta, dataclasses.replace(settings, **change), params, c2w,
+                               res, seed, with_stats=True)
+            imgs[str(dev)] = img.cpu().numpy()
+            if not np.isfinite(imgs[str(dev)]).all() or float(st[1]) != 0.0:
+                raise AssertionError(f"the zoo's {name} render on {dev} is not finite")
+        frac, rel, ok = images_match(imgs[str(device)], imgs["cpu"])
+        log(f"[materials] {res[0]}x{res[1]} {name} card vs CPU: {frac:.5f} of pixels within "
+            f"atol 1e-4 + rtol 1e-3, means {rel:.2e} apart")
+        if not ok:
+            raise AssertionError(f"the zoo's {name} render on the card disagrees with the CPU")
 
 
 def phase_foliage(device):
@@ -1178,6 +1280,9 @@ def main() -> int:
     court = phase_courtyard(device, card)
     log(f"[done] phase 7b in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    zoo = phase_materials(device, card)
+    log(f"[done] phase 7c in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     brute_row = phase_brute(device)
     perlane_rows = phase_perlane(device)
     log(f"[done] phases 8-9 in {time.perf_counter() - t0:.1f}s")
@@ -1190,16 +1295,20 @@ def main() -> int:
         f"{court_detail['kernel_launches']['traverse_wide']}")
     lane = times["lane_mixed"]
     c_lane = court["k1"]["lane_mixed"]
+    z_lane = zoo["k1"]["lane_mixed"]
     c_k2 = court["k2"]
     print(json.dumps({"kernels": [{
         "name": "traverse_wide", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
-        "launches": launches + court["launches"],
-        "max_abs_err": max(worst_abs, *(x["max_abs"] for x in court["k1"].values())),
+        "launches": launches + court["launches"] + zoo["launches"],
+        "max_abs_err": max(worst_abs, *(x["max_abs"] for x in court["k1"].values()),
+                           *(x["max_abs"] for x in zoo["k1"].values())),
         "ms": lane["ms"], "plain_ms": lane["plain_ms"], "bound_ms": lane["bound_ms"],
         "bound_by": lane["bound_by"], "library_ms": None, "launcher_ms": lane["launcher_ms"],
         "courtyard_ms": c_lane["ms"], "courtyard_plain_ms": c_lane["plain_ms"],
         "courtyard_bound_ms": c_lane["bound_ms"], "courtyard_bound_by": c_lane["bound_by"],
+        "materials_ms": z_lane["ms"], "materials_plain_ms": z_lane["plain_ms"],
+        "materials_bound_ms": z_lane["bound_ms"], "materials_bound_by": z_lane["bound_by"],
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,

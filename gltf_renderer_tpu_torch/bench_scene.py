@@ -16,6 +16,17 @@ tests/goldens/courtyard_pt.png): 128x72, tex_size 64, alpha shadows, the
 32x64 analytic environment, two frames (seeds 0 and 1) accumulated and
 tone-mapped as `Renderer.draw_frame` does.
 
+`build_materials_scene` is the material zoo (`write_materials_gltf`:
+transmission, clearcoat, sheen, anisotropic metal, an emissive floor)
+under the golden configurations' 32x64 analytic environment, seen from
+(0, -6, 3), with env NEE + MIS and 2 bounces. `render_materials_golden` is
+its golden configuration (tests/golden_configs.py::render_materials_pt,
+golden tests/goldens/materials_pt.png): 160x120, eight frames (seeds 0-7)
+accumulated and tone-mapped. `render_debug_channels` renders the 28 debug
+outputs at 64x48 with one bounce and seed 5, as
+tests/golden_configs.py::render_debug_channels does for
+tests/goldens/debug_channels.npz.
+
 `build_raster_fidelity_scene` is the helmet-raster golden configuration
 (tests/golden_configs.py::render_helmet_raster, golden
 tests/goldens/helmet_raster.png): the small textured sphere (metallic 0.4,
@@ -31,12 +42,19 @@ from gltf_renderer_tpu_torch.env.environment import DIFFUSE_RESOLUTION, build_en
 from gltf_renderer_tpu_torch.render import pathtracer as pt
 from gltf_renderer_tpu_torch.render import settings as S
 from gltf_renderer_tpu_torch.scene import flatten
-from gltf_renderer_tpu_torch.scene.procedural import courtyard_scene, textured_sphere_scene
+from gltf_renderer_tpu_torch.scene.procedural import (
+    courtyard_scene,
+    materials_scene,
+    textured_sphere_scene,
+)
 
 FIDELITY_RES = (256, 144)  # bench.FIDELITY_RES
 FIDELITY_SPP = 32          # bench.FIDELITY_SPP: seeds 1..32 averaged
 RASTER_FIDELITY_RES = (192, 108)  # golden_configs.render_helmet_raster
 COURTYARD_GOLDEN_RES = (128, 72)   # golden_configs.render_courtyard_pt
+MATERIALS_GOLDEN_RES = (160, 120)  # golden_configs.render_materials_pt
+DEBUG_CHANNELS_RES = (64, 48)      # golden_configs.render_debug_channels
+N_DEBUG_OUTPUTS = 28
 SCENE_KINDS = ("helmet", "courtyard", "courtyard2")
 
 
@@ -136,16 +154,31 @@ def build_raster_fidelity_scene(device="cuda", diffuse_size: int = DIFFUSE_RESOL
     return ptscene, meta, rs, S.PathTracerParams(), c2w, cam_pos, (w, h)
 
 
-def render_courtyard_golden(device="cuda", frames: int = 2):
-    """The courtyard golden configuration drawn as `Renderer.draw_frame`
-    draws it: per frame k, trace with seed k, accumulate into the running
-    mean, tone map (AgX, no bloom: bloom is raster-only) with frame index k
-    as the dither's, -> u8. Returns ((h, w, 3) uint8 of the last frame,
-    the summed [ray_count, nan_count] of the traces)."""
+def draw_frames(ptscene, meta, rs, c2w, frames: int):
+    """Frames drawn as `Renderer.draw_frame` draws them: per frame k, trace
+    with seed k, accumulate into the running mean, tone map (AgX, no bloom:
+    bloom is raster-only) with frame index k as the dither's, -> u8.
+    Returns ((h, w, 3) uint8 of the last frame, the summed [ray_count,
+    nan_count] of the traces)."""
     import torch
 
     from gltf_renderer_tpu_torch.render import renderer
 
+    res = (rs.width, rs.height)
+    accum, stats, img = None, 0.0, None
+    for k in range(frames):
+        radiance, st = pt.trace(ptscene, meta, rs.pt, S.PathTracerParams(), c2w, res, k,
+                                with_stats=True)
+        accum = radiance if accum is None else pt.accumulate(
+            accum, radiance, torch.tensor(k, device=radiance.device), rs.pt)
+        stats = stats + st
+        img = renderer.post_step(accum, rs.tonemap, None, k)
+    return img, stats
+
+
+def render_courtyard_golden(device="cuda", frames: int = 2):
+    """The courtyard golden configuration drawn as `Renderer.draw_frame`
+    draws it (`draw_frames`)."""
     w, h = COURTYARD_GOLDEN_RES
     scene = courtyard_scene(tex_size=64)
     world, lights = world_from_scene(scene)
@@ -155,13 +188,48 @@ def render_courtyard_golden(device="cuda", frames: int = 2):
     rs = S.RenderSettings(width=w, height=h,
                           pt=S.PathTracerSettings(max_bounces=2, min_bounces=2,
                                                   alpha_shadows=True))
-    c2w = bench_camera(w, h, "courtyard")
-    accum, stats, img = None, 0.0, None
-    for k in range(frames):
-        radiance, st = pt.trace(ptscene, meta, rs.pt, S.PathTracerParams(), c2w, (w, h), k,
-                                with_stats=True)
-        accum = radiance if accum is None else pt.accumulate(
-            accum, radiance, torch.tensor(k, device=radiance.device), rs.pt)
-        stats = stats + st
-        img = renderer.post_step(accum, rs.tonemap, None, k)
-    return img, stats
+    return draw_frames(ptscene, meta, rs, bench_camera(w, h, "courtyard"), frames)
+
+
+def materials_camera(width: int, height: int) -> np.ndarray:
+    """clip_to_world of the material zoo's golden view, (0, -6, 3) looking
+    at (0, 0, 0.5)."""
+    w2v = camera.look_at([0.0, -6.0, 3.0], [0.0, 0.0, 0.5])
+    return camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
+
+
+def build_materials_scene(width: int, height: int, device="cuda"):
+    """The material zoo on `device` under the golden configurations'
+    environment, 2 bounces. Returns (ptscene, meta, settings, params,
+    clip_to_world, n_tris), as build_bench_scene does."""
+    scene = materials_scene()
+    world, lights = world_from_scene(scene)
+    env = build_environment_pt(analytic_equirect(), device=device, prefilters=False)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    return (ptscene, meta, S.PathTracerSettings(max_bounces=2, min_bounces=2),
+            S.PathTracerParams(), materials_camera(width, height),
+            int(world.tri_vertex.shape[0]))
+
+
+def render_materials_golden(device="cuda", frames: int = 8):
+    """The materials golden configuration drawn as `Renderer.draw_frame`
+    draws it (`draw_frames`)."""
+    w, h = MATERIALS_GOLDEN_RES
+    ptscene, meta, settings, _, c2w, _ = build_materials_scene(w, h, device)
+    return draw_frames(ptscene, meta, S.RenderSettings(width=w, height=h, pt=settings), c2w,
+                       frames)
+
+
+def render_debug_channels(device="cuda", res=DEBUG_CHANNELS_RES):
+    """The 28 debug outputs of the material zoo, raw floats before tone
+    mapping: (28, h, w, 3) f32, channel 0 (DEBUG_NONE) the beauty render at
+    one bounce, all with seed 5."""
+    import torch
+
+    ptscene, meta, _, _, c2w, _ = build_materials_scene(*res, device)
+    return torch.stack([
+        pt.trace(ptscene, meta, S.PathTracerSettings(max_bounces=1, min_bounces=1,
+                                                     debug_output=dbg),
+                 S.PathTracerParams(), c2w, res, 5)
+        for dbg in range(N_DEBUG_OUTPUTS)])

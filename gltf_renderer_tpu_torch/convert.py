@@ -4,8 +4,8 @@
 (`jax.tree.map(np.asarray, scene)`) and its `PTMeta`, and returns the
 port's `PTScene` / `PTMeta` on `device`, so both packages can run on
 identical tables: geometry, BVH, materials, the linear atlas and its mip
-pyramid, and the environment (cube level 0, importance, alias rows and the
-GGX / diffuse prefilters). It reads fields by name and imports nothing of
+pyramid, the environment (cube level 0, importance, alias rows and the
+GGX / diffuse prefilters) and the Sheen_E LUT. It reads fields by name and imports nothing of
 JAX.
 """
 
@@ -61,6 +61,7 @@ def from_jax_pt_scene(scene_np, meta, device="cuda"):
                                    mip_rows=_tensor(textures.mip_rows, dev)),
         lights=_fields(T.GpuLights, scene_np.lights, lambda v: _tensor(v, dev)),
         env=port_env,
+        sheen_table=_tensor(scene_np.sheen_table, dev),
         wide_nodes=_tensor(scene_np.wide_nodes, dev),
         wide_maps=bvh_ops.WideMaps(child_src=np.asarray(maps.child_src),
                                    meta=_tensor(wide_meta, dev),

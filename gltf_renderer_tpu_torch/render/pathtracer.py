@@ -6,17 +6,18 @@ the order GenerateNextRandom is called (PathTracer.lib.hlsl:144-148).
 Every ray the tracer casts goes through ops.traverse.traverse_wide: the CUDA
 kernel for tensors on the card, the plain version for tensors on the CPU.
 
-Ported here: the path tracer without its BSDF extension layers —
-environment NEE + MIS, punctual-light NEE (point, spot, directional; the
-binary light shadow rays merged into the bounce launch), the
-metallic-roughness BSDF (GGX + Lambert + Fresnel mix), alpha MASK
+Ported here: environment NEE + MIS, punctual-light NEE (point, spot,
+directional; the binary light shadow rays merged into the bounce launch),
+the layered glTF BSDF (GGX + Lambert + Fresnel mix, sheen, clearcoat and
+thin transmission, each sampled as a layer of its own), alpha MASK
 (any-hit rejection by re-traversal past a rejected hit, MAX_ALPHA_HOPS) and
 BLEND (the stochastic alpha layer), alpha shadows (transmission as the
 product of 1 - alpha over the closest hits, MAX_SHADOW_HOPS), Russian
 roulette, the merged bounce + shadow launch, the NaN/Inf scrub and the
-luminance clamp. Scenes with sheen, clearcoat or transmission, and settings
-outside these (debug channels, diffuse-white, non-MIS sampling) raise
-NotImplementedError rather than render wrong.
+luminance clamp; the three sampling modes (layered MIS, diffuse-white and
+the cosine-hemisphere fallback of material_mis=False) and the 28 debug
+outputs. Layers no material of the scene has are skipped (PTMeta.has_*),
+which gives the same image with fewer ops.
 
 The two hop loops stop when no lane is left to retry, read as one scalar
 on the host per hop, or at their bound. ALPHA_RETRY_HOPS and
@@ -35,7 +36,13 @@ from gltf_renderer_tpu_torch.device import resolve
 from gltf_renderer_tpu_torch.env import environment as env_ops
 from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
 from gltf_renderer_tpu_torch.ops import rng, sampling
-from gltf_renderer_tpu_torch.ops.bsdf import SurfaceProperties, gltf_bsdf
+from gltf_renderer_tpu_torch.ops.bsdf import (
+    MINIMUM_ROUGHNESS,
+    SurfaceProperties,
+    fresnel_coat,
+    gltf_bsdf,
+    sheen_e_table,
+)
 from gltf_renderer_tpu_torch.ops.lights import sample_point_light
 from gltf_renderer_tpu_torch.ops.material import (
     _bits,
@@ -56,12 +63,15 @@ from gltf_renderer_tpu_torch.scene.flatten import (
     WorldGeometry,
 )
 from gltf_renderer_tpu_torch.utils.math import (
+    PI,
+    create_basis,
     cross,
     dot,
     luminance,
     max_value,
     normalize,
     reflect,
+    saturate,
     sum_last,
     to_local,
     to_world,
@@ -89,7 +99,7 @@ class PTScene(NamedTuple):
     textures: Any                 # TextureTable with `atlas_linear` on device
     lights: Any
     env: Any                      # env.environment.EnvMaps or None
-    sheen_table: Any = None       # sheen is not ported yet
+    sheen_table: Any = None       # (16, 16) f32 Sheen_E LUT
     wide_nodes: Any = None        # (N4, 24) f32
     wide_maps: Any = None         # bvh.WideMaps (meta on device)
     leaf_records: Any = None      # (L, REC_GEO) f32
@@ -124,14 +134,6 @@ class Hit(NamedTuple):
     tri: Any  # (R,) i64 — original triangle id, -1 on a miss
     u: Any
     v: Any
-
-
-def check_supported(meta: PTMeta) -> None:
-    """Raise NotImplementedError for scene features not ported yet."""
-    missing = [name for name in ("has_sheen", "has_clearcoat", "has_transmission")
-               if getattr(meta, name)]
-    if missing:
-        raise NotImplementedError(f"the torch path tracer does not support {missing} yet")
 
 
 def slot_flag_words(world, materials, order: np.ndarray) -> np.ndarray:
@@ -208,11 +210,9 @@ def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
                   device="cuda") -> "tuple[PTScene, PTMeta]":
     """Build the BVH and the traversal / shading tables on the host (the
     texture mip pyramid the raster backend samples included), then place
-    them on `device`. Raises NotImplementedError for scenes using features
-    this slice does not port."""
+    them on `device`."""
     dev = resolve(device)
     meta = _scene_meta(world, materials, textures, lights, env)
-    check_supported(meta)
 
     wpos = np.asarray(world.position)
     tv = np.asarray(world.tri_vertex)
@@ -244,6 +244,7 @@ def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
                 textures.mip_rows, device=dev)),
         lights=_to_device(lights, dev),
         env=env,
+        sheen_table=torch.as_tensor(sheen_e_table(), device=dev),
         wide_nodes=torch.as_tensor(bvh_ops.assemble_wide(packed.nodes, maps.child_src),
                                    device=dev),
         wide_maps=maps._replace(meta=torch.as_tensor(maps.meta, device=dev)),
@@ -529,6 +530,20 @@ def trace_bounce_and_shadow(scene, meta, o_b, d_b, tmin_b, tmax_b, o_s, d_s, tmi
 # Layered BSDF sampling (PathTracer.lib.hlsl:388-667)
 # ---------------------------------------------------------------------------
 
+def _sample_clearcoat(sp: SurfaceProperties, v, u2):
+    n = sp.clearcoat_normal
+    t, b = create_basis(n)
+    h = to_world(t, b, n, sampling.sample_ggx_normal(sp.clearcoat_roughness[..., 0], u2))
+    return reflect(-v, h)
+
+
+def _clearcoat_pdf(sp: SurfaceProperties, v, l):
+    n = sp.clearcoat_normal
+    h = normalize(v + l)
+    pdf = sampling.ggx_normal_pdf(sp.clearcoat_roughness[..., 0], n, h)
+    return pdf / (4.0 * dot(v, h, keepdims=False))
+
+
 def _sample_specular(sp: SurfaceProperties, v, u2):
     t, b, n = sp.anisotropy_tangent, sp.anisotropy_bitangent, sp.shading_normal
     h = to_world(t, b, n, sampling.sample_ggx_anisotropic_normal(sp.roughness_squared, u2))
@@ -542,72 +557,144 @@ def _specular_pdf(sp: SurfaceProperties, v, l):
     return pdf / (4.0 * dot(v, h, keepdims=False))
 
 
+def _modulated_a(sp: SurfaceProperties):
+    a = sp.roughness_squared[..., 1]
+    return torch.clamp(a * saturate(2.0 * (sp.ior[..., 0] - 1.0)), MINIMUM_ROUGHNESS, 1.0)
+
+
+def _sample_transmission(sp: SurfaceProperties, v, u2):
+    """A GGX reflection about the shading normal, flipped through the
+    surface: l - 2 (n.l) n."""
+    t, b, n = sp.anisotropy_tangent, sp.anisotropy_bitangent, sp.shading_normal
+    h = to_world(t, b, n, sampling.sample_ggx_normal(_modulated_a(sp), u2))
+    l = reflect(-v, h)
+    return l - 2.0 * dot(n, l) * n
+
+
+def _transmission_pdf(sp: SurfaceProperties, v, l):
+    n = sp.shading_normal
+    l = l - 2.0 * dot(n, l) * n
+    h = normalize(v + l)
+    pdf = sampling.ggx_normal_pdf(_modulated_a(sp), n, h)
+    return pdf / (4.0 * dot(v, h, keepdims=False))
+
+
 def layer_probabilities(sp: SurfaceProperties, v, meta: PTMeta):
-    """LayerProbabilities (PathTracer.lib.hlsl:535-553). Layers the scene
-    statically lacks get probability 0."""
-    check_supported(meta)
+    """LayerProbabilities (PathTracer.lib.hlsl:535-553): (alpha, clearcoat,
+    sheen, specular, diffuse, transmission). Layers the scene statically
+    lacks get probability 0 with no math: the same values, fewer ops."""
     zero = torch.zeros_like(sp.alpha[..., 0])
     alpha_prob = 1.0 - sp.alpha[..., 0] if meta.has_alpha_layer else zero
     remaining = 1.0 - alpha_prob
+    clearcoat_prob = sheen_prob = transmission_prob = zero
+    if meta.has_clearcoat:
+        fc = fresnel_coat(1.5, sp.clearcoat, torch.zeros_like(sp.albedo),
+                          torch.ones_like(sp.albedo), dot(sp.clearcoat_normal, v))[..., 0]
+        clearcoat_prob = fc * remaining
+        remaining = remaining - clearcoat_prob
+    if meta.has_sheen:
+        sheen_prob = torch.where(torch.any(sp.sheen_color > 0.0, -1), 0.5, 0.0) * remaining
+        remaining = remaining - sheen_prob
     specular_prob = 0.5 * remaining
-    diffuse_prob = remaining - specular_prob
-    return alpha_prob, zero, zero, specular_prob, diffuse_prob, zero
+    remaining = remaining - specular_prob
+    if meta.has_transmission:
+        transmission_prob = sp.transmissive[..., 0] * remaining
+        remaining = remaining - transmission_prob
+    return alpha_prob, clearcoat_prob, sheen_prob, specular_prob, remaining, transmission_prob
 
 
 def bsdf_pdf(sp: SurfaceProperties, v, l, is_transmission, probs, meta: PTMeta):
-    """BsdfPdf (PathTracer.lib.hlsl:555-565)."""
-    _, _, _, sp_p, di_p, _ = probs
+    """BsdfPdf (PathTracer.lib.hlsl:555-565): the mixture's pdf; the alpha
+    layer is handled by the caller."""
+    _, cc_p, sh_p, sp_p, di_p, tr_p = probs
     cos_pdf = sampling.cosine_hemisphere_pdf(sp.shading_normal, l)
-    return sp_p * _specular_pdf(sp, v, l) + di_p * cos_pdf
+    refl_pdf = sp_p * _specular_pdf(sp, v, l) + di_p * cos_pdf
+    if meta.has_clearcoat:
+        refl_pdf = refl_pdf + cc_p * _clearcoat_pdf(sp, v, l)
+    if meta.has_sheen:
+        refl_pdf = refl_pdf + sh_p * cos_pdf
+    if meta.has_transmission:
+        return torch.where(is_transmission, tr_p * _transmission_pdf(sp, v, l), refl_pdf)
+    return refl_pdf
 
 
-def _check_settings(settings: S.PathTracerSettings) -> None:
-    if (settings.debug_output != S.DEBUG_NONE or settings.material_diffuse_white
-            or not settings.material_mis):
-        raise NotImplementedError(
-            "the torch path tracer supports material_mis sampling without debug "
-            "outputs or diffuse-white only")
+def _bsdf_layers(meta: PTMeta, sheen_table):
+    """gltf_bsdf's layer arguments: the layers the scene has."""
+    return dict(sheen_table=sheen_table, enable_sheen=meta.has_sheen,
+                enable_clearcoat=meta.has_clearcoat, enable_transmission=meta.has_transmission)
 
 
 def evaluate_bsdf(sp: SurfaceProperties, geometric_normal, v, l,
-                  settings: S.PathTracerSettings, meta: PTMeta):
+                  settings: S.PathTracerSettings, meta: PTMeta, sheen_table=None):
     """EvaluateBsdf (PathTracer.lib.hlsl:567-593). Returns (bsdf, pdf)."""
-    _check_settings(settings)
-    is_t = (dot(geometric_normal, l, keepdims=False)
-            * dot(geometric_normal, v, keepdims=False)) < 0.0
-    probs = layer_probabilities(sp, v, meta)
-    pdf = bsdf_pdf(sp, v, l, is_t, probs, meta)
-    return sp.alpha * gltf_bsdf(sp, v, l, is_transmission=is_t), pdf
+    if settings.material_diffuse_white:
+        n_dot_l = saturate(dot(sp.shading_normal, l, keepdims=False))
+        return torch.broadcast_to((n_dot_l / PI).unsqueeze(-1), sp.albedo.shape), n_dot_l / PI
+    kw = _bsdf_layers(meta, sheen_table)
+    if settings.material_mis:
+        is_t = (dot(geometric_normal, l, keepdims=False)
+                * dot(geometric_normal, v, keepdims=False)) < 0.0
+        probs = layer_probabilities(sp, v, meta)
+        pdf = bsdf_pdf(sp, v, l, is_t, probs, meta)
+        return sp.alpha * gltf_bsdf(sp, v, l, is_transmission=is_t, **kw), pdf
+    n_dot_l = saturate(dot(sp.shading_normal, l, keepdims=False))
+    pdf = n_dot_l / PI * sp.alpha[..., 0]
+    return sp.alpha * gltf_bsdf(sp, v, l, **kw), pdf
 
 
-def sample_bsdf(sp: SurfaceProperties, u3, v, settings: S.PathTracerSettings, meta: PTMeta):
-    """SampleBsdf (PathTracer.lib.hlsl:595-667), layer selection by the
-    cumulative thresholds of SelectBsdf (:511-533).
+def sample_bsdf(sp: SurfaceProperties, u3, v, settings: S.PathTracerSettings,
+                meta: PTMeta, sheen_table=None):
+    """SampleBsdf (PathTracer.lib.hlsl:595-667). Layered MIS selects a layer
+    by the cumulative thresholds of SelectBsdf (:511-533); diffuse-white
+    samples the cosine lobe of a white Lambert; material_mis=False samples
+    the cosine hemisphere or passes through by alpha (:650-666).
     Returns (bsdf, l, pdf, is_transmission, use_mis)."""
-    _check_settings(settings)
-    probs = layer_probabilities(sp, v, meta)
-    alpha_p, cc_p, sh_p, sp_p, _, tr_p = probs
-    u = u3[..., 0]
-    u2 = u3[..., 1:3]
-    c_alpha = alpha_p
-    c_cc = c_alpha + cc_p
-    c_sh = c_cc + sh_p
-    c_sp = c_sh + sp_p
-    sel_alpha = u <= c_alpha
-    sel_cc = (~sel_alpha) & (u - c_alpha <= cc_p)
-    sel_sh = (~sel_alpha) & (~sel_cc) & (u - c_cc <= sh_p)
-    sel_sp = (~sel_alpha) & (~sel_cc) & (~sel_sh) & (u - c_sh <= sp_p)
-    sel_tr = (~sel_alpha) & (~sel_cc) & (~sel_sh) & (~sel_sp) & (u - c_sp <= tr_p)
-    l_di = sampling.sample_cosine_hemisphere(sp.shading_normal, u2)
-    l_sp = _sample_specular(sp, v, u2)
-    l = torch.where(sel_sp.unsqueeze(-1), l_sp, l_di)
-    l = torch.where(sel_alpha.unsqueeze(-1), -v, l)
-    is_t = sel_tr | sel_alpha
-    pdf = bsdf_pdf(sp, v, l, sel_tr, probs, meta)
-    f = sp.alpha * gltf_bsdf(sp, v, l, is_transmission=sel_tr)
-    pdf = torch.where(sel_alpha, alpha_p, pdf)
-    f = torch.where(sel_alpha.unsqueeze(-1), 1.0 - sp.alpha, f)
-    return f, l, pdf, is_t, ~sel_alpha
+    if settings.material_diffuse_white:
+        n = sp.shading_normal
+        l = sampling.sample_cosine_hemisphere(n, u3[..., 1:3])
+        pdf = sampling.cosine_hemisphere_pdf(n, l)
+        f = torch.broadcast_to((dot(n, l, keepdims=False) / PI).unsqueeze(-1), sp.albedo.shape)
+        return (f, l, pdf, torch.zeros(pdf.shape, dtype=torch.bool, device=pdf.device),
+                torch.ones(pdf.shape, dtype=torch.bool, device=pdf.device))
+    kw = _bsdf_layers(meta, sheen_table)
+    if settings.material_mis:
+        probs = layer_probabilities(sp, v, meta)
+        alpha_p, cc_p, sh_p, sp_p, _, tr_p = probs
+        u = u3[..., 0]
+        u2 = u3[..., 1:3]
+        c_alpha = alpha_p
+        c_cc = c_alpha + cc_p
+        c_sh = c_cc + sh_p
+        c_sp = c_sh + sp_p
+        sel_alpha = u <= c_alpha
+        sel_cc = (~sel_alpha) & (u - c_alpha <= cc_p)
+        sel_sh = (~sel_alpha) & (~sel_cc) & (u - c_cc <= sh_p)
+        sel_sp = (~sel_alpha) & (~sel_cc) & (~sel_sh) & (u - c_sh <= sp_p)
+        sel_tr = (~sel_alpha) & (~sel_cc) & (~sel_sh) & (~sel_sp) & (u - c_sp <= tr_p)
+        l_di = sampling.sample_cosine_hemisphere(sp.shading_normal, u2)
+        l_sp = _sample_specular(sp, v, u2)
+        l = torch.where(sel_sp.unsqueeze(-1), l_sp, l_di)  # sheen and diffuse: cosine
+        if meta.has_clearcoat:
+            l = torch.where(sel_cc.unsqueeze(-1), _sample_clearcoat(sp, v, u2), l)
+        if meta.has_transmission:
+            l = torch.where(sel_tr.unsqueeze(-1), _sample_transmission(sp, v, u2), l)
+        l = torch.where(sel_alpha.unsqueeze(-1), -v, l)
+        is_t = sel_tr | sel_alpha
+        pdf = bsdf_pdf(sp, v, l, sel_tr, probs, meta)
+        f = sp.alpha * gltf_bsdf(sp, v, l, is_transmission=sel_tr, **kw)
+        # The alpha layer's override (SampleBsdf:622-628).
+        pdf = torch.where(sel_alpha, alpha_p, pdf)
+        f = torch.where(sel_alpha.unsqueeze(-1), 1.0 - sp.alpha, f)
+        return f, l, pdf, is_t, ~sel_alpha
+    pass_through = u3[..., 0] > sp.alpha[..., 0]
+    n = sp.shading_normal
+    l = sampling.sample_cosine_hemisphere(n, u3[..., 1:3])
+    pdf = sampling.cosine_hemisphere_pdf(n, l) * sp.alpha[..., 0]
+    f = sp.alpha * gltf_bsdf(sp, v, l, **kw)
+    l = torch.where(pass_through.unsqueeze(-1), -v, l)
+    pdf = torch.where(pass_through, 1.0 - sp.alpha[..., 0], pdf)
+    f = torch.where(pass_through.unsqueeze(-1), 1.0 - sp.alpha, f)
+    return f, l, pdf, pass_through, ~pass_through
 
 
 # ---------------------------------------------------------------------------
@@ -730,9 +817,9 @@ def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
 def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                 params: S.PathTracerParams, clip_to_world, full_resolution, seed, px, py,
                 valid=None):
-    """Trace a flat batch of pixel rays -> ((R, 3) color, [ray_count, nan_count])."""
-    check_supported(meta)
-    _check_settings(settings)
+    """Trace a flat batch of pixel rays -> ((R, 3) color, [ray_count, nan_count]).
+    With a debug output, the (R, 3) debug value at the first hit, raw (no
+    scrub, no clamp), and [ray_count, 0]."""
     n_rays = px.shape[0]
     dev = px.device
     counter = 0
@@ -803,6 +890,11 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
             used_slots=meta.used_slots, identity_uv=meta.identity_uv,
             wrap_modes=meta.wrap_modes, any_nearest=meta.any_nearest,
         )
+        if bounce == 0 and settings.debug_output != S.DEBUG_NONE:
+            debug_value = _debug_channel(settings.debug_output, attrs, sp, view, alive)
+            if debug_value is not None:
+                return debug_value, torch.stack([ray_count, torch.zeros_like(ray_count)])
+
         ray_origin = offset_ray(attrs.position, attrs.geometric_normal)
         ray_origin_below = offset_ray(attrs.position, -attrs.geometric_normal)
 
@@ -815,7 +907,8 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         if bounce < settings.max_bounces and nee_env and meta.has_env:
             u_env = rand4()
             l_dir, l_col, l_pdf = _env_sample(scene, meta, u_env, params)
-            f, f_pdf = evaluate_bsdf(sp, attrs.geometric_normal, view, l_dir, settings, meta)
+            f, f_pdf = evaluate_bsdf(sp, attrs.geometric_normal, view, l_dir, settings, meta,
+                                     scene.sheen_table)
             mis = _balance_heuristic(l_pdf, f_pdf)
             contrib = (mis.unsqueeze(-1) * f * l_col) / torch.clamp(l_pdf.unsqueeze(-1),
                                                                     min=1e-20)
@@ -845,7 +938,7 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                 ray_count = ray_count + torch.sum(alive.to(torch.float32))
                 l_col = l_col * shadow.unsqueeze(-1)
             f, _ = evaluate_bsdf(sp, attrs.geometric_normal, view, light_ray.direction,
-                                 settings, meta)
+                                 settings, meta, scene.sheen_table)
             ok = alive & torch.any(l_col > 0.0, -1)
             l_contrib = torch.where(ok.unsqueeze(-1), prefix * (l_col * f) / l_pdf, zero3)
             if merged:
@@ -859,9 +952,21 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         # Bounce (ClosestHit:958-1006).
         if bounce < settings.max_bounces:
             u3 = rand4()[..., 0:3]
-            f, l_dir, pdf, is_t, use_mis = sample_bsdf(sp, u3, view, settings, meta)
+            f, l_dir, pdf, is_t, use_mis = sample_bsdf(sp, u3, view, settings, meta,
+                                                       scene.sheen_table)
             weight = torch.where(pdf.unsqueeze(-1) != 0.0, f / pdf.unsqueeze(-1), zero3)
             throughput = rr_state * weight
+            if bounce == 0 and settings.debug_output in _BOUNCE_CHANNELS:
+                dv = {
+                    S.DEBUG_BOUNCE_DIRECTION: lambda: 0.5 * (l_dir + 1.0),
+                    S.DEBUG_BOUNCE_BSDF: lambda: f,
+                    S.DEBUG_BOUNCE_PDF: lambda: torch.broadcast_to(pdf.unsqueeze(-1), f.shape),
+                    S.DEBUG_BOUNCE_WEIGHT: lambda: weight,
+                    S.DEBUG_BOUNCE_IS_TRANSMISSION: lambda: torch.where(
+                        is_t.unsqueeze(-1), _const(dev, 0.0, 1.0, 0.0), _const(dev, 1.0, 0.0, 0.0)),
+                }[settings.debug_output]()
+                return (torch.where(alive.unsqueeze(-1), dv, zero3),
+                        torch.stack([ray_count, torch.zeros_like(ray_count)]))
             u_rr = rand4()[..., 0]
             continue_prob = torch.clamp(max_value(throughput)[..., 0],
                                         params.min_russian_roulette_continue_prob,
@@ -920,6 +1025,58 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                             torch.ones_like(lum))
         radiance = radiance * scale.unsqueeze(-1)
     return radiance, torch.stack([ray_count, nan_count])
+
+
+_BOUNCE_CHANNELS = (S.DEBUG_BOUNCE_DIRECTION, S.DEBUG_BOUNCE_BSDF, S.DEBUG_BOUNCE_PDF,
+                    S.DEBUG_BOUNCE_WEIGHT, S.DEBUG_BOUNCE_IS_TRANSMISSION)
+
+
+def _const(dev, *values):
+    return torch.tensor(values, dtype=torch.float32, device=dev)
+
+
+def _debug_channel(which, attrs: HitAttributes, sp: SurfaceProperties, view, alive):
+    """The debug outputs read at the first hit (ClosestHit:806-922), (R, 3)
+    with 0 on lanes that missed; None for the bounce-stage channels, which
+    _trace_rays takes after sample_bsdf."""
+    def vis(x):
+        return torch.where(alive.unsqueeze(-1), x, torch.zeros((), device=x.device))
+
+    def grey(x):
+        return x.repeat_interleave(3, -1)
+
+    dev = view.device
+    if which == S.DEBUG_HIT_KIND:
+        return vis(torch.where(attrs.back_face.unsqueeze(-1), _const(dev, 0.0, 1.0, 0.0),
+                               _const(dev, 1.0, 0.0, 0.0)))
+    if which == S.DEBUG_HEMISPHERE_VIEW_SIDE:
+        side = dot(view, sp.shading_normal, keepdims=False) > 0.0
+        return vis(torch.where(side.unsqueeze(-1), _const(dev, 0.0, 1.0, 0.0),
+                               _const(dev, 1.0, 0.0, 0.0)))
+    if which in (S.DEBUG_TEXCOORD_0, S.DEBUG_TEXCOORD_1):
+        uv = attrs.uv0 if which == S.DEBUG_TEXCOORD_0 else attrs.uv1
+        return vis(torch.cat([uv, torch.zeros_like(uv[..., :1])], -1))
+    channel = {
+        S.DEBUG_VERTEX_COLOR: lambda: attrs.color[..., :3],
+        S.DEBUG_VERTEX_ALPHA: lambda: grey(attrs.color[..., 3:4]),
+        S.DEBUG_VERTEX_NORMAL: lambda: (attrs.normal + 1.0) / 2.0,
+        S.DEBUG_VERTEX_TANGENT: lambda: (attrs.tangent[..., :3] + 1.0) / 2.0,
+        S.DEBUG_VERTEX_BITANGENT: lambda: (attrs.bitangent + 1.0) / 2.0,
+        S.DEBUG_COLOR: lambda: sp.albedo,
+        S.DEBUG_ALPHA: lambda: grey(sp.alpha),
+        S.DEBUG_SHADING_NORMAL: lambda: (sp.shading_normal + 1.0) / 2.0,
+        S.DEBUG_SHADING_TANGENT: lambda: (sp.anisotropy_tangent + 1.0) / 2.0,
+        S.DEBUG_SHADING_BITANGENT: lambda: (sp.anisotropy_bitangent + 1.0) / 2.0,
+        S.DEBUG_METALNESS: lambda: grey(sp.metalness),
+        S.DEBUG_ROUGHNESS: lambda: grey(torch.sqrt(sp.roughness_squared[..., 1:2])),
+        S.DEBUG_SPECULAR: lambda: grey(sp.specular_factor),
+        S.DEBUG_SPECULAR_COLOR: lambda: sp.specular_color,
+        S.DEBUG_CLEARCOAT: lambda: grey(sp.clearcoat),
+        S.DEBUG_CLEARCOAT_ROUGHNESS: lambda: grey(sp.clearcoat_roughness),
+        S.DEBUG_CLEARCOAT_NORMAL: lambda: (sp.clearcoat_normal + 1.0) / 2.0,
+        S.DEBUG_TRANSMISSIVE: lambda: grey(sp.transmissive),
+    }.get(which)
+    return None if channel is None else vis(channel())
 
 
 def accumulate(history, frame, accumulated_frames, settings: S.PathTracerSettings):

@@ -11,7 +11,35 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+# Debug outputs (PathTracer.lib.hlsl:43-72).
 DEBUG_NONE = 0
+DEBUG_HIT_KIND = 1
+DEBUG_VERTEX_COLOR = 2
+DEBUG_VERTEX_ALPHA = 3
+DEBUG_VERTEX_NORMAL = 4
+DEBUG_VERTEX_TANGENT = 5
+DEBUG_VERTEX_BITANGENT = 6
+DEBUG_TEXCOORD_0 = 7
+DEBUG_TEXCOORD_1 = 8
+DEBUG_COLOR = 9
+DEBUG_ALPHA = 10
+DEBUG_SHADING_NORMAL = 11
+DEBUG_SHADING_TANGENT = 12
+DEBUG_SHADING_BITANGENT = 13
+DEBUG_METALNESS = 14
+DEBUG_ROUGHNESS = 15
+DEBUG_SPECULAR = 16
+DEBUG_SPECULAR_COLOR = 17
+DEBUG_CLEARCOAT = 18
+DEBUG_CLEARCOAT_ROUGHNESS = 19
+DEBUG_CLEARCOAT_NORMAL = 20
+DEBUG_TRANSMISSIVE = 21
+DEBUG_BOUNCE_DIRECTION = 22
+DEBUG_BOUNCE_BSDF = 23
+DEBUG_BOUNCE_PDF = 24
+DEBUG_BOUNCE_WEIGHT = 25
+DEBUG_BOUNCE_IS_TRANSMISSION = 26
+DEBUG_HEMISPHERE_VIEW_SIDE = 27
 
 TONEMAPPER_NONE = 0
 TONEMAPPER_AGX = 1

@@ -19,6 +19,9 @@ them, and the same nodes.
   basis at the roots turns back into the authored coordinates.
 - `foliage_scene`: `write_foliage_gltf` (:715), an alpha-MASKed leaf quad
   over a floor quad, lit by one point light.
+- `materials_scene`: `write_materials_gltf` (:615), the material zoo: four
+  24x48 UV spheres (thin transmission with volume attenuation and ior,
+  clearcoat, sheen, anisotropic metal) over an emissive floor quad.
 """
 
 from __future__ import annotations
@@ -152,7 +155,8 @@ def _material_table(mats) -> T.MaterialTable:
     """The loader's default material (row 0) followed by one row per entry
     of `mats`, dicts with any of: base (RGBA factor), metallic, roughness,
     albedo (base-colour texture id), mask_cutoff (alpha MASK with this
-    cutoff), double_sided. Loader defaults elsewhere."""
+    cutoff), double_sided, and any MaterialTable field by name (the KHR
+    extensions' factors). Loader defaults elsewhere."""
     m, s = len(mats) + 1, T.N_TEX_SLOTS
 
     def f32(v, shape=(m,)):
@@ -184,6 +188,8 @@ def _material_table(mats) -> T.MaterialTable:
             tbl["alpha_cutoff"][r] = mat["mask_cutoff"]
         if mat.get("double_sided", False):
             tbl["flags"][r] |= T.MATERIAL_FLAG_DOUBLE_SIDED
+        for key in mat.keys() & tbl.keys():
+            tbl[key][r] = mat[key]
     table = T.MaterialTable(**tbl)
     return table._replace(rows=T.pack_material_rows(table))
 
@@ -383,3 +389,33 @@ def foliage_scene(tex_size: int = 64) -> T.Scene:
     nodes = [_node(mesh=0), _node(mesh=1), _node(translation=(0, 1.5, 2.5), light=0)]
     return _mesh_scene([[leaf], [floor]], materials, _texture_table([foliage_image(tex_size)]),
                        nodes, roots=[0, 1, 2], lights=lights, light_nodes=[2])
+
+
+def materials_scene() -> T.Scene:
+    """The Scene of `write_materials_gltf` + `load_gltf`: the material zoo.
+    The spheres share one accessor set in the file, which the loader reads
+    once a primitive."""
+    p, n, uv, idx = uv_sphere(24, 48)
+    floor = (np.asarray([[-4, -0.5, -4], [4, -0.5, -4], [4, -0.5, 4], [-4, -0.5, 4]],
+                        np.float32),
+             np.tile(np.asarray([[0, 1, 0]], np.float32), (4, 1)),
+             np.asarray([[0, 0], [4, 0], [4, 4], [0, 4]], np.float32),
+             np.asarray([0, 2, 1, 0, 3, 2]), 5)
+    materials = _material_table([
+        dict(base=[1, 1, 1, 1], metallic=0.0, roughness=0.05, transmission_factor=1.0,
+             thickness_factor=0.5, attenuation_distance=0.5,
+             attenuation_color=[0.9, 0.4, 0.3], ior=1.5),
+        dict(base=[0.6, 0.05, 0.05, 1], metallic=0.4, roughness=0.5, clearcoat_factor=1.0,
+             clearcoat_roughness_factor=0.05),
+        dict(base=[0.1, 0.1, 0.4, 1], metallic=0.0, roughness=0.9,
+             sheen_color_factor=[0.6, 0.5, 0.4], sheen_roughness_factor=0.5),
+        dict(base=[0.9, 0.85, 0.7, 1], metallic=1.0, roughness=0.3, anisotropy_strength=0.8,
+             anisotropy_rotation=0.5),
+        # KHR_materials_emissive_strength 0.4 times emissiveFactor (1, 1, 1).
+        dict(base=[0.7, 0.7, 0.7, 1], metallic=0.0, roughness=0.9,
+             emissive_factor=0.4 * np.ones(3, np.float32)),
+    ])
+    nodes = [_node(mesh=k, translation=(x, 0, 0))
+             for k, x in enumerate((-1.8, -0.6, 0.6, 1.8))] + [_node(mesh=4)]
+    return _mesh_scene([[(p, n, uv, idx, k)] for k in range(1, 5)] + [[floor]], materials,
+                       _texture_table([]), nodes, roots=[0, 1, 2, 3, 4])

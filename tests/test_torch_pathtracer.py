@@ -147,12 +147,24 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_features_raise(scenes):
+    """The path tracer has every BSDF layer now: forced on for a scene
+    without them, each traces the image the scene's own flags give, bit for
+    bit (an absent layer is skipped for its ops only). The raster backend
+    has not ported clearcoat and still refuses it."""
+    from gltf_renderer_tpu_torch.render import rasterizer as prz
+
     _, _, pscene, pmeta = scenes
     pset, pparams = port_settings()
+    assert not (pmeta.has_sheen or pmeta.has_clearcoat or pmeta.has_transmission)
+    base = ppt.trace(pscene, pmeta, pset, pparams, bench_camera(*RES), RES, 1)
     for change in (dict(has_sheen=True), dict(has_clearcoat=True), dict(has_transmission=True)):
-        with pytest.raises(NotImplementedError):
-            ppt.trace(pscene, pmeta._replace(**change), pset, pparams, bench_camera(*RES),
-                      RES, 1)
+        got = ppt.trace(pscene, pmeta._replace(**change), pset, pparams, bench_camera(*RES),
+                        RES, 1)
+        assert torch.equal(got.view(torch.int32), base.view(torch.int32)), change
+    hit = ppt.Hit(t=torch.ones(1), tri=torch.zeros(1, dtype=torch.int64), u=torch.zeros(1),
+                  v=torch.zeros(1))
+    with pytest.raises(NotImplementedError):
+        prz.shade_forward(pscene, pmeta._replace(has_clearcoat=True), hit, torch.ones(1, 3), 1.0)
 
 
 def test_port_imports_no_jax():
