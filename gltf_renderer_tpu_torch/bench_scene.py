@@ -52,7 +52,9 @@ FIDELITY_RES = (256, 144)  # bench.FIDELITY_RES
 FIDELITY_SPP = 32          # bench.FIDELITY_SPP: seeds 1..32 averaged
 RASTER_FIDELITY_RES = (192, 108)  # golden_configs.render_helmet_raster
 COURTYARD_GOLDEN_RES = (128, 72)   # golden_configs.render_courtyard_pt
+COURTYARD_GOLDEN_FRAMES = 2
 MATERIALS_GOLDEN_RES = (160, 120)  # golden_configs.render_materials_pt
+MATERIALS_GOLDEN_FRAMES = 8
 DEBUG_CHANNELS_RES = (64, 48)      # golden_configs.render_debug_channels
 N_DEBUG_OUTPUTS = 28
 SCENE_KINDS = ("helmet", "courtyard", "courtyard2")
@@ -176,7 +178,7 @@ def draw_frames(ptscene, meta, rs, c2w, frames: int):
     return img, stats
 
 
-def render_courtyard_golden(device="cuda", frames: int = 2):
+def render_courtyard_golden(device="cuda"):
     """The courtyard golden configuration drawn as `Renderer.draw_frame`
     draws it (`draw_frames`)."""
     w, h = COURTYARD_GOLDEN_RES
@@ -188,7 +190,8 @@ def render_courtyard_golden(device="cuda", frames: int = 2):
     rs = S.RenderSettings(width=w, height=h,
                           pt=S.PathTracerSettings(max_bounces=2, min_bounces=2,
                                                   alpha_shadows=True))
-    return draw_frames(ptscene, meta, rs, bench_camera(w, h, "courtyard"), frames)
+    return draw_frames(ptscene, meta, rs, bench_camera(w, h, "courtyard"),
+                       COURTYARD_GOLDEN_FRAMES)
 
 
 def materials_camera(width: int, height: int) -> np.ndarray:
@@ -212,21 +215,22 @@ def build_materials_scene(width: int, height: int, device="cuda"):
             int(world.tri_vertex.shape[0]))
 
 
-def render_materials_golden(device="cuda", frames: int = 8):
+def render_materials_golden(device="cuda"):
     """The materials golden configuration drawn as `Renderer.draw_frame`
     draws it (`draw_frames`)."""
     w, h = MATERIALS_GOLDEN_RES
     ptscene, meta, settings, _, c2w, _ = build_materials_scene(w, h, device)
     return draw_frames(ptscene, meta, S.RenderSettings(width=w, height=h, pt=settings), c2w,
-                       frames)
+                       MATERIALS_GOLDEN_FRAMES)
 
 
-def render_debug_channels(device="cuda", res=DEBUG_CHANNELS_RES):
+def render_debug_channels(device="cuda"):
     """The 28 debug outputs of the material zoo, raw floats before tone
     mapping: (28, h, w, 3) f32, channel 0 (DEBUG_NONE) the beauty render at
     one bounce, all with seed 5."""
     import torch
 
+    res = DEBUG_CHANNELS_RES
     ptscene, meta, _, _, c2w, _ = build_materials_scene(*res, device)
     return torch.stack([
         pt.trace(ptscene, meta, S.PathTracerSettings(max_bounces=1, min_bounces=1,

@@ -322,3 +322,20 @@ def test_layer_furnace_no_energy_gain(layer):
     center = np.mean(imgs, 0)[12:20, 12:20].mean(axis=(0, 1))
     assert np.all(center <= 0.5 * 1.08), (layer, center)
     assert np.all(center >= 0.5 * 0.55), (layer, center)
+
+
+def test_count_ops_counts_each_traversal_as_one_op(zoo):
+    """`tools/count_ops` on the zoo: one traversal a chunk and bounce (the
+    zoo has no alpha hop), each counted as one op, its plain version's ops
+    left out of the count."""
+    from gltf_renderer_tpu_torch.tools import count_ops
+
+    settings = PS.PathTracerSettings(max_bounces=2, min_bounces=2)
+    args = (zoo["pscene"], zoo["pmeta"], settings, PS.PathTracerParams(),
+            materials_camera(*count_ops.RES))
+    got = count_ops.count(*args)
+    assert got["traversals"] == got["chunks"] * (1 + settings.max_bounces)
+    with count_ops._Count() as mode:
+        ppt.trace_chunked(*args, count_ops.RES, 1, with_stats=True, spp=count_ops.SPP)
+    every = sum(mode.ops.values())
+    assert 0 < got["ops"] < every - 100 * got["traversals"], (got, every)

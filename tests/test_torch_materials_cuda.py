@@ -63,7 +63,7 @@ def test_zoo_on_the_card_matches_the_cpu(zoo, mode):
 
 @pytest.fixture(scope="module")
 def channels(zoo):
-    return {dev: render_debug_channels(dev, RES).cpu().numpy() for dev in zoo}
+    return {dev: render_debug_channels(dev).cpu().numpy() for dev in zoo}
 
 
 @pytest.mark.parametrize("dbg", range(N_DEBUG_OUTPUTS))

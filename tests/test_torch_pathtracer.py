@@ -188,6 +188,7 @@ def test_port_imports_no_jax():
         "import gltf_renderer_tpu_torch.tools.bench_perlane\n"
         "import gltf_renderer_tpu_torch.tools.bench_traverse\n"
         "import gltf_renderer_tpu_torch.tools.bench_launch\n"
+        "import gltf_renderer_tpu_torch.tools.count_ops\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gltf_renderer_tpu' or m.startswith('gltf_renderer_tpu.')]\n"
