@@ -35,10 +35,11 @@ Phases (any failure exits non-zero and prints no result line):
 6. raster fidelity: the helmet-raster golden configuration (192x108, frame
    0) through raster_step + post_step in both visibilities, against the
    committed CPU golden tests/goldens/helmet_raster.png by SSIM (bar 0.99);
-7. the raster frame at full size: bench scene, 1920x1080, tiled visibility +
-   bloom + AgX -> u8, one warm and three timed frames, then the same with
-   raycast visibility; the tile kernel launches once per tiled frame and no
-   plain version runs;
+7. the raster frame at full size: bench scene, 1920x1080, raycast
+   visibility + bloom + AgX -> u8, one warm and three timed frames, then the
+   same with tiled visibility; the traversal kernel launches once a chunk
+   of a raycast frame, the tile kernel once a tiled frame, and no plain
+   version runs;
 7b. the courtyard (alpha MASK, alpha shadows, punctual lights): the
    courtyard bench scene built at 1920x1080; the traversal kernel vs its
    plain version on its tables for primary and lane-mixed rays at the main
@@ -62,6 +63,22 @@ Phases (any failure exits non-zero and prints no result line):
    non-MIS modes and for the five debug outputs read after the first BSDF
    sample; then the 1080p zoo step as 7b's, one warm and two timed steps,
    every traversal launch accounted for and no plain version run;
+7d. the raster backend's full pass (blend and transmission, clearcoat IBL,
+   punctual lights, the masked retry, motion vectors): the zoo's raster
+   build at 1920x1080; the traversal kernel vs its plain version on 262,144
+   pixel rays of its raster view (the chunk holding the image centre) on
+   its tables, with the opaque pass's BLEND_EXCLUDE and the blend pass's
+   first BLEND_ONLY launch (t, u, v and word identical), timed through its
+   wrapper; the box-raster golden configuration (256x256, one point light,
+   no environment) in both visibilities against tests/goldens/box_raster.png
+   by SSIM (bar 0.99); the zoo and the courtyard at 64x48 rasterized in
+   both visibilities, card against CPU at the CPU tests' bar; the zoo and
+   the courtyard rasterized at 1920x1080 in both visibilities, one warm and
+   two timed frames each, with draw and post times, every traversal and
+   tile launch accounted for (a raycast frame: one a chunk, one a retry
+   hop, 4 a chunk in the blend pass; a tiled frame: the same but the
+   first, and one tile launch) and no plain version run; motion vectors on
+   the zoo at 1080p from a moved camera, finite and 0 on background pixels;
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -138,6 +155,11 @@ COURTYARD_TIMED_STEPS = 2
 MATERIALS_TIMED_STEPS = 2
 MATERIALS_TRIS = 4 * 2208 + 2  # four 24x48 UV spheres and a floor quad
 MATERIALS_CHECK_RES = (64, 48)
+RASTER_CHECK_RES = (64, 48)  # the zoo and the courtyard rasterized, card vs CPU
+RASTER_CHECK_DIFFUSE = 16    # their diffuse prefilter's size on both devices
+RASTER_TIMED_FRAMES = 2
+BOX_GOLDEN = os.path.join(ROOT, "tests", "goldens", "box_raster.png")
+MOVED_ZOO_EYE = [0.2, -6.1, 3.05]  # phase 7d's motion-vector camera, at the zoo's target
 FOLIAGE_RES = (48, 48)
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
@@ -256,20 +278,22 @@ def phase_kernel_vs_plain(scene, meta, params, c2w, device):
     return worst_abs, times
 
 
-def k1_main_size(scene, meta, rays, tag):
-    """K1 against its plain version on one main-path-size ray set (t, u, v
-    and word identical, or raise), then timed through its wrapper, the plain
-    version timed, and the bound from the visits this data needs. Returns
-    {n, ms, plain_ms, bound_ms, bound_by, max_abs}."""
+def k1_main_size(scene, meta, rays, tag, blend=0):
+    """K1 against its plain version on one main-path-size ray set under the
+    blend filter `blend` (t, u, v and word identical, or raise), then timed
+    through its wrapper, the plain version timed, and the bound from the
+    visits this data needs. Returns {n, ms, plain_ms, bound_ms, bound_by,
+    max_abs}."""
     from gltf_renderer_tpu_torch.ops import traverse as tr
 
-    frac, max_abs, max_rel, same = compare(scene, meta, rays, 0, 0)
+    frac, max_abs, max_rel, same = compare(scene, meta, rays, 0, blend)
     _, o, d, tmn, tmx, mode = rays
-    log(f"{tag} {rays[0]:10s} rays={o.shape[0]} word_agree={frac:.6f} "
+    log(f"{tag} {rays[0]:10s} blend={blend} rays={o.shape[0]} word_agree={frac:.6f} "
         f"max_rel_tuv={max_rel:.3e} identical={same}")
     if not same:
         raise AssertionError(f"kernel disagrees with plain version on {rays[0]} (main-path size)")
     args = bench_traverse.wrapper_args(scene, meta, rays)
+    args = args[:11] + (blend,) + args[12:]
     ms_w = cuda_ms(lambda: tr.traverse_wide(*args, stack_bound=meta.stack_bound), 20)
     ms_p = cuda_ms(lambda: tr.traverse_wide_ref(*args, stack_bound=meta.stack_bound), 2)
     visits = {}
@@ -609,54 +633,18 @@ def phase_raster_fidelity(device):
 
 
 def phase_raster_frame(scene, meta, params, c2w, card):
-    """The raster frame at 1080p in both visibilities. Returns
-    {visibility: (K1 launches, K2 launches, draw seconds, post seconds)}."""
-    import torch
-
+    """The helmet's raster frame at 1080p in both visibilities
+    (`raster_frames`), then the tiled visibility's set-up timed. Returns
+    raster_frames' counts."""
+    from gltf_renderer_tpu_torch import camera
     from gltf_renderer_tpu_torch.ops import raster
-    from gltf_renderer_tpu_torch.ops import traverse as tr
-    from gltf_renderer_tpu_torch.render import renderer
     from gltf_renderer_tpu_torch.render import settings as S
 
     w, h = FULL_RES
     rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
     cam_pos = np.asarray([1.1, -1.1, 0.6], np.float32)  # the bench camera's eye
-    out = {}
-    for vis in ("tiled", "raycast"):
-        tr.KERNEL_LAUNCHES = 0
-        raster.KERNEL_LAUNCHES = 0
-        refs = (tr.REFERENCE_CALLS, raster.REFERENCE_CALLS)
-        draw_s, post_s = [], []
-        for i in range(TIMED_STEPS + 1):
-            t0 = time.perf_counter()
-            hdr = renderer.raster_step(scene, meta, rs, params, c2w, cam_pos, (w, h), i,
-                                       visibility=vis)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            img = renderer.post_step(hdr, rs.tonemap, rs.bloom, i)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            if i:
-                draw_s.append(t1 - t0)
-                post_s.append(t2 - t1)
-        frames = TIMED_STEPS + 1
-        k1, k2 = tr.KERNEL_LAUNCHES, raster.KERNEL_LAUNCHES
-        log(f"[raster-frame] {vis} {w}x{h} draw={[round(x * 1e3, 3) for x in draw_s]} ms "
-            f"post={[round(x * 1e3, 3) for x in post_s]} ms traverse_launches={k1} "
-            f"raster_launches={k2} frames={frames} card={card}")
-        if tuple(img.shape) != (h, w, 3) or img.dtype != torch.uint8:
-            raise AssertionError(f"raster frame {vis}: wrong output {tuple(img.shape)} {img.dtype}")
-        if not bool(torch.isfinite(hdr).all()):
-            raise AssertionError(f"raster frame {vis}: non-finite HDR values")
-        if (tr.REFERENCE_CALLS, raster.REFERENCE_CALLS) != refs:
-            raise AssertionError(f"raster frame {vis} ran a plain version")
-        if vis == "tiled" and (k2 != frames or k1 != 0):
-            raise AssertionError(f"tiled frames launched the tile kernel {k2} times in {frames}")
-        if vis == "raycast" and (k1 <= 0 or k2 != 0):
-            raise AssertionError("raycast frames did not run through the traversal kernel")
-        out[vis] = (k1, k2, draw_s, post_s)
-    from gltf_renderer_tpu_torch import camera
-
+    out = raster_frames("helmet", (scene, meta, rs, params, c2w, cam_pos, (w, h)), card,
+                        TIMED_STEPS)
     world = scene.world
     w2c = camera.world_to_clip(c2w)
     prep_ms = cuda_ms(lambda: raster.prepare_tiles(world.position, world.tri_vertex, w2c, w, h,
@@ -669,14 +657,196 @@ def phase_raster_frame(scene, meta, params, c2w, card):
     return out
 
 
-def images_match(got, want):
-    """The CPU tests' bar for two renders (tests/test_torch_pathtracer.py):
-    (share of pixels within atol 1e-4 + rtol 1e-3, relative difference of
-    the means, passes: share >= 0.98 and means within 1%)."""
+def raster_chunks(w, h):
+    """RAY_CHUNK-sized chunks of a w x h raster frame's tile-order stream."""
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+
+    n = -(-h // pt.PACKET_TILE) * -(-w // pt.PACKET_TILE) * pt.PACKET_TILE ** 2
+    return -(-n // pt.RAY_CHUNK)
+
+
+def raster_rays(scene, meta, c2w):
+    """The raster pass's two traversal launches on one chunk of 1080p pixel
+    rays, the chunk holding the image centre: the opaque pass's
+    (BLEND_EXCLUDE, t_max the ray length) and the blend pass's first
+    (BLEND_ONLY, t_max the opaque hit's t). (name, origin, direction, t_min,
+    t_max, mode) sets as bench_traverse.ray_sets gives them."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+
+    w, h = FULL_RES
+    dev = scene.world.position.device
+    px, py, _ = pt._tile_order(w, h, dev)
+    centre = int(torch.nonzero((px == w // 2) & (py == h // 2))[0, 0])
+    sl = slice(centre // pt.RAY_CHUNK * pt.RAY_CHUNK, (centre // pt.RAY_CHUNK + 1) * pt.RAY_CHUNK)
+    o, d, t_max = rz._pixel_rays(px[sl], py[sl], (w, h), torch.as_tensor(c2w, device=dev))
+    zero = torch.zeros_like(t_max)
+    opaque = pt.closest_hit(scene, meta, o, d, zero, t_max, blend_mode=bvh_ops.BLEND_EXCLUDE)
+    t_far = torch.minimum(torch.where(opaque.tri >= 0, opaque.t, float("inf")), t_max)
+    return ("raster_opaque", o, d, zero, t_max, None), ("raster_blend", o, d, zero, t_far, None)
+
+
+def raster_frames(tag, built, card, timed):
+    """One warm and `timed` timed raster frames of the raster build `built`
+    in both visibilities, draw and post timed, launch counters reset first:
+    every traversal launch is a chunk's opaque launch (raycast), a retry
+    hop or one of a chunk's MAX_BLEND_LAYERS blend launches, every tile
+    launch one a tiled frame, and no plain version runs. Returns
+    {visibility: (K1 launches, K2 launches, retry hops a frame, draw
+    seconds, post seconds)}."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import raster
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+    from gltf_renderer_tpu_torch.render import renderer
+
+    scene, meta, rs, params, c2w, cam_pos, (w, h) = built
+    chunks = raster_chunks(w, h)
+    out = {}
+    for vis in ("raycast", "tiled"):
+        tr.KERNEL_LAUNCHES = raster.KERNEL_LAUNCHES = rz.RASTER_RETRY_HOPS = 0
+        refs = (tr.REFERENCE_CALLS, raster.REFERENCE_CALLS)
+        draw_s, post_s, hops = [], [], []
+        for i in range(timed + 1):
+            hops0 = rz.RASTER_RETRY_HOPS
+            t0 = time.perf_counter()
+            hdr = renderer.raster_step(scene, meta, rs, params, c2w, cam_pos, (w, h), i,
+                                       visibility=vis)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            img = renderer.post_step(hdr, rs.tonemap, rs.bloom, i)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            hops.append(rz.RASTER_RETRY_HOPS - hops0)
+            if i:
+                draw_s.append(t1 - t0)
+                post_s.append(t2 - t1)
+        frames = timed + 1
+        k1, k2 = tr.KERNEL_LAUNCHES, raster.KERNEL_LAUNCHES
+        per_frame = chunks * ((vis == "raycast") + rz.MAX_BLEND_LAYERS * meta.has_blend)
+        log(f"[raster-frame] {tag} {vis} {w}x{h} draw={[round(x * 1e3, 3) for x in draw_s]} ms "
+            f"post={[round(x * 1e3, 3) for x in post_s]} ms traverse_launches={k1} "
+            f"raster_launches={k2} retry_hops={hops} frames={frames} "
+            f"({per_frame} traverse launches a frame without hops) card={card}")
+        if tuple(img.shape) != (h, w, 3) or img.dtype != torch.uint8:
+            raise AssertionError(f"{tag} {vis}: wrong output {tuple(img.shape)} {img.dtype}")
+        if not bool(torch.isfinite(hdr).all()):
+            raise AssertionError(f"{tag} {vis}: non-finite HDR values")
+        if (tr.REFERENCE_CALLS, raster.REFERENCE_CALLS) != refs:
+            raise AssertionError(f"{tag} {vis} ran a plain version")
+        if k1 != per_frame * frames + sum(hops) or k2 != frames * (vis == "tiled"):
+            raise AssertionError(f"{tag} {vis}: {k1} traversal and {k2} tile launches in "
+                                 f"{frames} frames, {per_frame} a frame plus {sum(hops)} hops "
+                                 f"and {frames * (vis == 'tiled')} expected")
+        out[vis] = (k1, k2, hops, draw_s, post_s)
+    return out
+
+
+def phase_raster_blend(device, card):
+    """The raster backend's full pass on the card (phase 7d). Returns the
+    traversal kernel's raster numbers and the 1080p frames' counts."""
+    import torch
+
+    from PIL import Image
+
+    from gltf_renderer_tpu_torch import camera
+    from gltf_renderer_tpu_torch.bench_scene import (
+        MATERIALS_VIEW,
+        build_raster_scene,
+        render_box_raster_golden,
+    )
+    from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+    from gltf_renderer_tpu_torch.render import renderer
+    from gltf_renderer_tpu_torch.utils.ssim import ssim
+
+    t0 = time.perf_counter()
+    zoo = build_raster_scene("materials", *FULL_RES, device=device)
+    scene, meta = zoo[0], zoo[1]
+    log(f"[raster-blend] zoo raster build {time.perf_counter() - t0:.2f}s: "
+        f"has_blend={meta.has_blend} has_clearcoat={meta.has_clearcoat} "
+        f"has_transmission={meta.has_transmission} ggx levels={len(scene.env.ggx)}")
+    if not (meta.has_blend and meta.has_clearcoat and meta.has_transmission and scene.env.ggx):
+        raise AssertionError("the zoo's raster build is not the zoo with prefilters")
+
+    # K1 at the raster's launch size, with both blend filters.
+    opaque_rays, blend_rays = raster_rays(scene, meta, zoo[4])
+    k1 = {"raster_opaque": k1_main_size(scene, meta, opaque_rays, "[raster-blend] kernel",
+                                        blend=bvh_ops.BLEND_EXCLUDE),
+          "raster_blend": k1_main_size(scene, meta, blend_rays, "[raster-blend] kernel",
+                                       blend=bvh_ops.BLEND_ONLY)}
+
+    # The box-raster golden, drawn as the renderer draws a raster frame.
+    golden = np.asarray(Image.open(BOX_GOLDEN))
+    for vis in ("raycast", "tiled"):
+        img = render_box_raster_golden(device, vis).cpu().numpy()
+        score = ssim(img, golden) if img.shape == golden.shape else 0.0
+        log(f"[raster-blend] box-raster golden {vis} ssim={score:.5f} (bar {RASTER_SSIM_BAR})")
+        if score < RASTER_SSIM_BAR:
+            raise AssertionError(f"the box-raster golden fails its bar ({vis})")
+
+    # The zoo and the courtyard at 64x48, card against CPU.
+    for kind in ("materials", "courtyard"):
+        built = {dev: build_raster_scene(kind, *RASTER_CHECK_RES, device=dev,
+                                         diffuse_size=RASTER_CHECK_DIFFUSE)
+                 for dev in ("cpu", device)}
+        for vis in ("raycast", "tiled"):
+            imgs = {str(dev): renderer.raster_step(*b[:7], 0, visibility=vis).cpu().numpy()
+                    for dev, b in built.items()}
+            frac, rel, ok = images_match(imgs[str(device)], imgs["cpu"], 0.995, 1e-3)
+            log(f"[raster-blend] {kind} {RASTER_CHECK_RES[0]}x{RASTER_CHECK_RES[1]} {vis} card "
+                f"vs CPU: {frac:.5f} of pixels within 1e-4 + 1e-3 relative, means {rel:.2e} "
+                f"apart")
+            if not ok or not np.isfinite(imgs[str(device)]).all():
+                raise AssertionError(f"the {kind} raster frame ({vis}) on the card disagrees "
+                                     f"with the CPU")
+
+    # The 1080p frames.
+    frames = {"materials": raster_frames("zoo", zoo, card, RASTER_TIMED_FRAMES)}
+    t0 = time.perf_counter()
+    court = build_raster_scene("courtyard", *FULL_RES, device=device)
+    log(f"[raster-blend] courtyard raster build {time.perf_counter() - t0:.2f}s: "
+        f"has_masked={court[1].has_masked} has_blend={court[1].has_blend}")
+    frames["courtyard"] = raster_frames("courtyard", court, card, RASTER_TIMED_FRAMES)
+    if not all(sum(f[2]) > 0 for f in frames["courtyard"].values()):
+        raise AssertionError("the courtyard's raster frames ran no masked retry")
+
+    # Motion vectors on the zoo at 1080p from a moved camera.
+    w, h = FULL_RES
+    w2v = camera.look_at(MOVED_ZOO_EYE, MATERIALS_VIEW[1])
+    c2w = camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=w / h, z_near=0.01)
+    lit, mv = rz.render(scene, meta, zoo[2], zoo[3], c2w, camera.position(w2v), (w, h), 0,
+                        prev_world_to_clip=camera.world_to_clip(zoo[4]), with_motion=True)
+    px, py, _ = pt._tile_order(w, h, scene.world.position.device)
+    o, d, t_max = rz._pixel_rays(px, py, (w, h), torch.as_tensor(c2w, device=px.device))
+    bg = pt._from_tile_order(pt.closest_hit(scene, meta, o, d, torch.zeros_like(t_max), t_max,
+                                            blend_mode=bvh_ops.BLEND_EXCLUDE).tri < 0, w, h)
+    moved = torch.sqrt((mv * mv).sum(-1))[~bg]
+    log(f"[raster-blend] motion vectors {w}x{h}: background pixels {int(bg.sum())}, largest "
+        f"background |mv| {float(torch.abs(mv[bg]).max()) if bool(bg.any()) else 0.0}, surface "
+        f"|mv| mean {float(moved.mean()):.4f} max {float(moved.max()):.4f} pixels")
+    if (tuple(mv.shape) != (h, w, 2) or not bool(torch.isfinite(mv).all())
+            or not bool(torch.isfinite(lit).all()) or not bool(bg.any())
+            or bool((mv[bg] != 0).any()) or not float(moved.max()) > 0.5):
+        raise AssertionError("the zoo's motion vectors are wrong")
+    return dict(k1=k1, frames=frames)
+
+
+def images_match(got, want, share=0.98, mean_rel=0.01):
+    """The CPU tests' bar for two renders: (share of pixels within atol 1e-4
+    + rtol 1e-3, relative difference of the means, passes: at least `share`
+    of pixels and means within `mean_rel`). The defaults are the path
+    tracer's (tests/test_torch_pathtracer.py); raster frames are held to
+    0.995 and 0.1% (tests/test_torch_raster_frame.py)."""
     close = np.abs(got - want) <= 1e-4 + 1e-3 * np.abs(want)
     frac = float(close.all(-1).mean())
     rel = abs(float(got.mean()) - float(want.mean())) / max(abs(float(want.mean())), 1e-30)
-    return frac, rel, frac >= 0.98 and rel <= 0.01
+    return frac, rel, frac >= share and rel <= mean_rel
 
 
 def phase_courtyard(device, card):
@@ -1283,6 +1453,9 @@ def main() -> int:
     zoo = phase_materials(device, card)
     log(f"[done] phase 7c in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    blend = phase_raster_blend(device, card)
+    log(f"[done] phase 7d in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     brute_row = phase_brute(device)
     perlane_rows = phase_perlane(device)
     log(f"[done] phases 8-9 in {time.perf_counter() - t0:.1f}s")
@@ -1297,22 +1470,31 @@ def main() -> int:
     c_lane = court["k1"]["lane_mixed"]
     z_lane = zoo["k1"]["lane_mixed"]
     c_k2 = court["k2"]
+    r_op, r_bl = blend["k1"]["raster_opaque"], blend["k1"]["raster_blend"]
+    r_frames = [f for scene_frames in blend["frames"].values() for f in scene_frames.values()]
     print(json.dumps({"kernels": [{
         "name": "traverse_wide", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
-        "launches": launches + court["launches"] + zoo["launches"],
+        "launches": launches + court["launches"] + zoo["launches"]
+        + sum(frames[v][0] for v in frames) + sum(f[0] for f in r_frames),
         "max_abs_err": max(worst_abs, *(x["max_abs"] for x in court["k1"].values()),
-                           *(x["max_abs"] for x in zoo["k1"].values())),
+                           *(x["max_abs"] for x in zoo["k1"].values()),
+                           *(x["max_abs"] for x in blend["k1"].values())),
         "ms": lane["ms"], "plain_ms": lane["plain_ms"], "bound_ms": lane["bound_ms"],
         "bound_by": lane["bound_by"], "library_ms": None, "launcher_ms": lane["launcher_ms"],
         "courtyard_ms": c_lane["ms"], "courtyard_plain_ms": c_lane["plain_ms"],
         "courtyard_bound_ms": c_lane["bound_ms"], "courtyard_bound_by": c_lane["bound_by"],
         "materials_ms": z_lane["ms"], "materials_plain_ms": z_lane["plain_ms"],
         "materials_bound_ms": z_lane["bound_ms"], "materials_bound_by": z_lane["bound_by"],
+        "raster_opaque_ms": r_op["ms"], "raster_opaque_plain_ms": r_op["plain_ms"],
+        "raster_opaque_bound_ms": r_op["bound_ms"], "raster_opaque_bound_by": r_op["bound_by"],
+        "raster_blend_ms": r_bl["ms"], "raster_blend_plain_ms": r_bl["plain_ms"],
+        "raster_blend_bound_ms": r_bl["bound_ms"], "raster_blend_bound_by": r_bl["bound_by"],
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,
-        "launches": frames["tiled"][1], "max_abs_err": max(k2["err"], c_k2["err"]),
+        "launches": frames["tiled"][1] + sum(f[1] for f in r_frames),
+        "max_abs_err": max(k2["err"], c_k2["err"]),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None, "bound_all_px_ms": k2["bound_all_px_ms"],
         "launcher_ms": k2["launcher_ms"], "parent_launcher_ms": k2["parent_ms"],

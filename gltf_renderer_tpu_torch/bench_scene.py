@@ -31,6 +31,14 @@ tests/goldens/debug_channels.npz.
 (tests/golden_configs.py::render_helmet_raster, golden
 tests/goldens/helmet_raster.png): the small textured sphere (metallic 0.4,
 roughness 0.35) under the 32x64 analytic environment, 192x108, frame 0.
+`render_box_raster_golden` draws the box-raster golden configuration
+(tests/golden_configs.py::render_box_raster, golden
+tests/goldens/box_raster.png): the red box lit by its point light, no
+environment, 256x256 from (2, -2, 1.5), frame 0. `build_raster_scene`
+builds the zoo or the courtyard (tex_size 256) for the raster backend: the
+golden configurations' 32x64 analytic environment with the GGX and diffuse
+prefilters the raster IBL samples, seen from the zoo's golden view or down
+the courtyard's colonnade.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from gltf_renderer_tpu_torch.render import pathtracer as pt
 from gltf_renderer_tpu_torch.render import settings as S
 from gltf_renderer_tpu_torch.scene import flatten
 from gltf_renderer_tpu_torch.scene.procedural import (
+    box_scene,
     courtyard_scene,
     materials_scene,
     textured_sphere_scene,
@@ -57,7 +66,12 @@ MATERIALS_GOLDEN_RES = (160, 120)  # golden_configs.render_materials_pt
 MATERIALS_GOLDEN_FRAMES = 8
 DEBUG_CHANNELS_RES = (64, 48)      # golden_configs.render_debug_channels
 N_DEBUG_OUTPUTS = 28
+BOX_RASTER_RES = (256, 256)       # golden_configs.render_box_raster
 SCENE_KINDS = ("helmet", "courtyard", "courtyard2")
+RASTER_SCENE_KINDS = ("materials", "courtyard")
+# (eye, target) of the views the bench and golden configurations share
+COURTYARD_VIEW = ([-9.0, 0.0, 1.7], [1.0, 0.0, 1.6])  # down the colonnade
+MATERIALS_VIEW = ([0.0, -6.0, 3.0], [0.0, 0.0, 0.5])  # the zoo's golden view
 
 
 def analytic_sky(h: int = 256, w: int = 512) -> np.ndarray:
@@ -91,7 +105,7 @@ def bench_camera(width: int, height: int, scene_kind: str = "helmet") -> np.ndar
     """clip_to_world of the bench camera: eye (1.1, -1.1, 0.6) at the
     origin (helmet), or down the courtyard's colonnade."""
     if scene_kind.startswith("courtyard"):
-        w2v = camera.look_at([-9.0, 0.0, 1.7], [1.0, 0.0, 1.6])
+        w2v = camera.look_at(*COURTYARD_VIEW)
     else:
         w2v = camera.look_at([1.1, -1.1, 0.6], [0.0, 0.0, 0.0])
     return camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
@@ -156,6 +170,47 @@ def build_raster_fidelity_scene(device="cuda", diffuse_size: int = DIFFUSE_RESOL
     return ptscene, meta, rs, S.PathTracerParams(), c2w, cam_pos, (w, h)
 
 
+def render_box_raster_golden(device="cuda", visibility: str = "raycast"):
+    """The box-raster golden configuration drawn as `Renderer.draw_frame`
+    draws a raster frame: raster_step, then post_step with bloom and AgX.
+    Returns the (256, 256, 3) uint8 frame."""
+    from gltf_renderer_tpu_torch.render import renderer
+
+    w, h = BOX_RASTER_RES
+    scene = box_scene()
+    world, lights = world_from_scene(scene)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights,
+                                     device=device)
+    c2w, cam_pos = raster_camera([2.0, -2.0, 1.5], w, h)
+    rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
+    hdr = renderer.raster_step(ptscene, meta, rs, S.PathTracerParams(), c2w, cam_pos, (w, h),
+                               0, visibility=visibility)
+    return renderer.post_step(hdr, rs.tonemap, rs.bloom, 0)
+
+
+def build_raster_scene(scene_kind: str, width: int, height: int, device="cuda",
+                       diffuse_size: int = DIFFUSE_RESOLUTION):
+    """The zoo ("materials") or the courtyard ("courtyard") for the raster
+    backend on `device`. Returns (ptscene, meta, render_settings, params,
+    clip_to_world, camera_pos, resolution), as build_raster_fidelity_scene
+    does."""
+    if scene_kind not in RASTER_SCENE_KINDS:
+        raise ValueError(f"unknown raster scene {scene_kind!r}, "
+                         f"expected one of {RASTER_SCENE_KINDS}")
+    if scene_kind == "materials":
+        scene, view = materials_scene(), MATERIALS_VIEW
+    else:
+        scene, view = courtyard_scene(), COURTYARD_VIEW
+    w2v = camera.look_at(*view)
+    world, lights = world_from_scene(scene)
+    env = build_environment_pt(analytic_equirect(), device=device, diffuse_size=diffuse_size)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    c2w = camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
+    rs = S.RenderSettings(backend="rasterizer", width=width, height=height)
+    return ptscene, meta, rs, S.PathTracerParams(), c2w, camera.position(w2v), (width, height)
+
+
 def draw_frames(ptscene, meta, rs, c2w, frames: int):
     """Frames drawn as `Renderer.draw_frame` draws them: per frame k, trace
     with seed k, accumulate into the running mean, tone map (AgX, no bloom:
@@ -197,7 +252,7 @@ def render_courtyard_golden(device="cuda"):
 def materials_camera(width: int, height: int) -> np.ndarray:
     """clip_to_world of the material zoo's golden view, (0, -6, 3) looking
     at (0, 0, 0.5)."""
-    w2v = camera.look_at([0.0, -6.0, 3.0], [0.0, 0.0, 0.5])
+    w2v = camera.look_at(*MATERIALS_VIEW)
     return camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
 
 

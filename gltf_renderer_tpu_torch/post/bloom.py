@@ -14,6 +14,11 @@ TF32) is involved. The chain runs planar, (3, H, W), like the JAX
 package's. Frames smaller than 2^iterations on a side, whose deeper mips
 would be one texel wide, are refused: the JAX package's chain fails on most
 of them too.
+
+`downsample` is the channel-last entry the raster backend's transmission
+backdrop calls: the 2x stencil above where the ratio is exact, else the
+shader's five bilinear taps (4 x centre + 4 diagonals at +-0.5 output texel,
+clamp addressing).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gltf_renderer_tpu_torch.utils.math import trunc_i32
 
 
 def _pad1(img):
@@ -50,6 +57,50 @@ def _downsample_p(img, out_h, out_w):
             term = float(k[a, b]) * pad[..., a : a + 2 * out_h : 2, b : b + 2 * out_w : 2]
             out = term if out is None else out + term
     return out
+
+
+def _bilinear(img, u, v):
+    """Bilinear sample of (H, W, C) at uv in [0, 1], clamp addressing."""
+    h, w = img.shape[0], img.shape[1]
+    fx = u * w - 0.5
+    fy = v * h - 0.5
+    x0 = trunc_i32(torch.floor(fx))
+    y0 = trunc_i32(torch.floor(fy))
+    tx = (fx - x0.to(torch.float32)).unsqueeze(-1)
+    ty = (fy - y0.to(torch.float32)).unsqueeze(-1)
+
+    def fetch(xi, yi):
+        return img[torch.clamp(yi, 0, h - 1).long(), torch.clamp(xi, 0, w - 1).long()]
+
+    c00 = fetch(x0, y0)
+    c10 = fetch(x0 + 1, y0)
+    c01 = fetch(x0, y0 + 1)
+    c11 = fetch(x0 + 1, y0 + 1)
+    return (c00 * (1 - tx) + c10 * tx) * (1 - ty) + (c01 * (1 - tx) + c11 * tx) * ty
+
+
+def _uv_grid(h, w, device):
+    """Texel-centre uv of an h x w image: (uu, vv), each (h, w)."""
+    v = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+    u = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    return uu, vv
+
+
+def downsample(img, out_h, out_w):
+    """BloomDownsample.cs.hlsl on channel-last (H, W, C): 4 x centre + 4
+    diagonal taps at +-0.5 output texel, over 8."""
+    h, w = img.shape[0], img.shape[1]
+    if h >= 2 * out_h and w >= 2 * out_w:
+        return _downsample_p(img.permute(2, 0, 1), out_h, out_w).permute(1, 2, 0)
+    uu, vv = _uv_grid(out_h, out_w, img.device)
+    du, dv = 0.5 / out_w, 0.5 / out_h
+    r = 4.0 * _bilinear(img, uu, vv)
+    r = r + _bilinear(img, uu + du, vv + dv)
+    r = r + _bilinear(img, uu - du, vv - dv)
+    r = r + _bilinear(img, uu - du, vv + dv)
+    r = r + _bilinear(img, uu + du, vv - dv)
+    return r / 8.0
 
 
 @functools.lru_cache(maxsize=1)

@@ -15,7 +15,9 @@ from gltf_renderer_tpu_torch.render import settings as S
 
 def raster_step(scene, meta, settings: S.RenderSettings, params, c2w, cam_pos, resolution,
                 frame, visibility: str = "raycast"):
-    """DrawScene -> (h, w, 3) HDR linear image on the scene's device."""
+    """DrawScene -> (h, w, 3) HDR linear image on the scene's device: the
+    opaque and alpha-tested pass, the background, and the blended and
+    transmissive layers over the backdrop pyramid."""
     return rasterizer.render(scene, meta, settings, params, c2w, cam_pos, resolution, frame,
                              visibility=visibility)
 

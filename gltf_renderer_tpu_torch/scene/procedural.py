@@ -22,6 +22,9 @@ them, and the same nodes.
 - `materials_scene`: `write_materials_gltf` (:615), the material zoo: four
   24x48 UV spheres (thin transmission with volume attenuation and ior,
   clearcoat, sheen, anisotropic metal) over an emissive floor quad.
+- `box_scene`: `write_box_gltf` (:115), the unit box of the box-raster
+  golden, with its white point light (intensity 40) at (2, 2, 2) and, with
+  double_box, a second instance 1.5 along +X.
 """
 
 from __future__ import annotations
@@ -33,6 +36,29 @@ import numpy as np
 from gltf_renderer_tpu_torch.scene import types as T
 
 ATLAS_WIDTH = 4096  # the loader's AtlasBuilder default
+
+
+def box_mesh():
+    """Unit cube centred at the origin, four vertices a face with the face's
+    normal and uv. Returns (pos, normal, uv, idx)."""
+    p, n, uv, idx = [], [], [], []
+    faces = [
+        (np.array([0, 0, 1]), np.array([1, 0, 0]), np.array([0, 1, 0])),
+        (np.array([0, 0, -1]), np.array([-1, 0, 0]), np.array([0, 1, 0])),
+        (np.array([1, 0, 0]), np.array([0, 0, -1]), np.array([0, 1, 0])),
+        (np.array([-1, 0, 0]), np.array([0, 0, 1]), np.array([0, 1, 0])),
+        (np.array([0, 1, 0]), np.array([1, 0, 0]), np.array([0, 0, -1])),
+        (np.array([0, -1, 0]), np.array([1, 0, 0]), np.array([0, 0, 1])),
+    ]
+    for fn, fu, fv in faces:
+        base = len(p)
+        for su, sv in [(-1, -1), (1, -1), (1, 1), (-1, 1)]:
+            p.append(0.5 * (fn + su * fu + sv * fv))
+            n.append(fn)
+            uv.append([(su + 1) / 2, (sv + 1) / 2])
+        idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+    return (np.asarray(p, np.float32), np.asarray(n, np.float32), np.asarray(uv, np.float32),
+            np.asarray(idx, np.uint16))
 
 
 def uv_sphere(n_lat=32, n_lon=64, radius=0.5):
@@ -419,3 +445,24 @@ def materials_scene() -> T.Scene:
              for k, x in enumerate((-1.8, -0.6, 0.6, 1.8))] + [_node(mesh=4)]
     return _mesh_scene([[(p, n, uv, idx, k)] for k in range(1, 5)] + [[floor]], materials,
                        _texture_table([]), nodes, roots=[0, 1, 2, 3, 4])
+
+
+def box_scene(base_color=(0.8, 0.2, 0.2, 1.0), metallic=0.0, roughness=0.6, with_light=True,
+              double_box=False) -> T.Scene:
+    """The Scene of `write_box_gltf(...)` + `load_gltf`."""
+    p, n, uv, idx = box_mesh()
+    materials = _material_table([dict(base=base_color, metallic=metallic, roughness=roughness)])
+    nodes = [_node(mesh=0, name="box")]
+    if double_box:
+        nodes.append(_node(mesh=0, translation=(1.5, 0.0, 0.0), name="box2"))
+    lights, light_nodes = None, []
+    if with_light:
+        lights = T.LightParams(
+            type=np.asarray([T.LIGHT_TYPE_POINT], np.int32), color=np.ones((1, 3), np.float32),
+            intensity=np.asarray([40.0], np.float32), cutoff=np.zeros(1, np.float32),
+            inner_angle=np.zeros(1, np.float32),
+            outer_angle=np.full(1, np.pi / 4.0, np.float32))
+        light_nodes = [len(nodes)]
+        nodes.append(_node(translation=(2.0, 2.0, 2.0), light=0, name="light"))
+    return _mesh_scene([[(p, n, uv, idx, 1)]], materials, _texture_table([]), nodes,
+                       roots=list(range(len(nodes))), lights=lights, light_nodes=light_nodes)

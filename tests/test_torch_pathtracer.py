@@ -146,13 +146,10 @@ def test_entry_points_default_to_the_card():
         convert.from_jax_pt_scene(None, None)
 
 
-def test_unported_features_raise(scenes):
-    """The path tracer has every BSDF layer now: forced on for a scene
-    without them, each traces the image the scene's own flags give, bit for
-    bit (an absent layer is skipped for its ops only). The raster backend
-    has not ported clearcoat and still refuses it."""
-    from gltf_renderer_tpu_torch.render import rasterizer as prz
-
+def test_forced_layer_flags_trace_the_same_image(scenes):
+    """Every BSDF layer forced on for a scene without them traces the image
+    the scene's own flags give, bit for bit (an absent layer is skipped for
+    its ops only)."""
     _, _, pscene, pmeta = scenes
     pset, pparams = port_settings()
     assert not (pmeta.has_sheen or pmeta.has_clearcoat or pmeta.has_transmission)
@@ -161,10 +158,6 @@ def test_unported_features_raise(scenes):
         got = ppt.trace(pscene, pmeta._replace(**change), pset, pparams, bench_camera(*RES),
                         RES, 1)
         assert torch.equal(got.view(torch.int32), base.view(torch.int32)), change
-    hit = ppt.Hit(t=torch.ones(1), tri=torch.zeros(1, dtype=torch.int64), u=torch.zeros(1),
-                  v=torch.zeros(1))
-    with pytest.raises(NotImplementedError):
-        prz.shade_forward(pscene, pmeta._replace(has_clearcoat=True), hit, torch.ones(1, 3), 1.0)
 
 
 def test_port_imports_no_jax():

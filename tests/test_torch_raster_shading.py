@@ -221,26 +221,17 @@ def test_shade_forward_matches_jax(scenes):
                              jnp.zeros((tri.shape[0], 2)), use_env=True,
                              mip_scale=jnp.asarray(mip_scale))
     phit = ppt.Hit(t=_t(t), tri=_t(tri).long(), u=_t(u), v=_t(v))
-    got = prz.shade_forward(pscene, pmeta, phit, _t(d), 1.0, use_env=True,
-                            mip_scale=_t(mip_scale))
+    got = prz.shade_forward(pscene, pmeta, phit, _t(np.asarray(origin)), _t(d), torch.zeros(3),
+                            1.0, None, use_env=True, mip_scale=_t(mip_scale))
     rgb = got[0].numpy()
     assert np.isfinite(rgb).all() and rgb.max() > 0.05
     np.testing.assert_allclose(rgb, np.asarray(want[0]), rtol=1e-4, atol=1e-5)
     for g, w in zip(got[1:], want[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     # Level 0 and the pyramid differ: the footprint reaches the mips.
-    lvl0 = prz.shade_forward(pscene, pmeta, phit, _t(d), 1.0, use_env=True)[0].numpy()
+    lvl0 = prz.shade_forward(pscene, pmeta, phit, _t(np.asarray(origin)), _t(d), torch.zeros(3),
+                             1.0, None, use_env=True)[0].numpy()
     assert np.abs(lvl0 - rgb).max() > 1e-3
-
-
-def test_raster_refuses_unported_features(scenes):
-    _, _, pscene, pmeta = scenes
-    phit = ppt.Hit(t=torch.ones(1), tri=torch.zeros(1, dtype=torch.int64),
-                   u=torch.zeros(1), v=torch.zeros(1))
-    for change in (dict(has_blend=True), dict(has_masked=True), dict(has_clearcoat=True),
-                   dict(num_lights=1)):
-        with pytest.raises(NotImplementedError):
-            prz.shade_forward(pscene, pmeta._replace(**change), phit, torch.ones(1, 3), 1.0)
 
 
 @pytest.mark.parametrize("mips", [False, True], ids=["level0", "mips"])
