@@ -79,6 +79,27 @@ Phases (any failure exits non-zero and prints no result line):
    hop, 4 a chunk in the blend pass; a tiled frame: the same but the
    first, and one tile launch) and no plain version run; motion vectors on
    the zoo at 1080p from a moved camera, finite and 0 on background pixels;
+7e. the loader, environment IO and animation: the bench's analytic sky at
+   2048x1024 written as .hdr and as .exr ZIP float and a 256x128 crop as
+   .exr PIZ half, read back by read_environment_image (ZIP and PIZ
+   bit-identical, RGBE within 2^-8 of the maximum) with every PIZ block
+   decoded by the native decoder; build_environment (cube 128) on the card
+   and again from its cache (bit-identical); the courtyard written as a
+   GLB (tex_size 256) and read by the port's loader, every table
+   bit-identical to the in-memory courtyard, built through make_pt_scene
+   and run for one 1080p step with every traversal launch accounted for;
+   the skinned strips (64 skins) and the morph cube read by the loader,
+   8 frames of 1/30 s each at 1080p spp=4 (animate, skinning, world
+   rebuild and BVH refit on the card, trace), with per frame the refit
+   boxes equal to a CPU refit and holding their triangles and children,
+   the traversal kernel bit-identical to its plain version on 262,144
+   primary rays of the refitted tables, exactly 96 launches a frame and
+   the skin_and_refit and trace times (CUDA events); after the 8th frame
+   every pixel ray's closest t equal to a fresh build's at the same pose
+   (differing ids, on exact-t ties, counted); one raster frame of the
+   strips in each visibility (8 traversal launches raycast, 1 tile launch
+   tiled); and the anim_pose golden (render_anim_pose_golden) against
+   tests/goldens/anim_pose.png by SSIM (bar 0.99);
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -136,6 +157,7 @@ import json
 import os
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -161,6 +183,13 @@ RASTER_TIMED_FRAMES = 2
 BOX_GOLDEN = os.path.join(ROOT, "tests", "goldens", "box_raster.png")
 MOVED_ZOO_EYE = [0.2, -6.1, 3.05]  # phase 7d's motion-vector camera, at the zoo's target
 FOLIAGE_RES = (48, 48)
+SKY_HW = (1024, 2048)       # phase 7e's environment image, the bench's analytic sky
+PIZ_CROP_HW = (128, 256)    # its PIZ half crop (the PIZ writer is pure-Python Huffman)
+ENV_CUBE = 128
+ANIM_FRAMES = 8
+ANIM_DELTA = 1.0 / 30.0
+ANIM_STRIPS = 64
+ANIM_GOLDEN = os.path.join(ROOT, "tests", "goldens", "anim_pose.png")
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
 REPLACES = "gltf_renderer_tpu/ops/pallas_trace.py:123"
@@ -665,6 +694,21 @@ def raster_chunks(w, h):
     return -(-n // pt.RAY_CHUNK)
 
 
+def centre_chunk_rays(c2w, dev):
+    """(origin, direction, ray length) of one RAY_CHUNK of 1080p pixel-centre
+    rays in tile order, the chunk holding the image centre."""
+    import torch
+
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+
+    w, h = FULL_RES
+    px, py, _ = pt._tile_order(w, h, dev)
+    centre = int(torch.nonzero((px == w // 2) & (py == h // 2))[0, 0])
+    sl = slice(centre // pt.RAY_CHUNK * pt.RAY_CHUNK, (centre // pt.RAY_CHUNK + 1) * pt.RAY_CHUNK)
+    return rz._pixel_rays(px[sl], py[sl], (w, h), torch.as_tensor(c2w, device=dev))
+
+
 def raster_rays(scene, meta, c2w):
     """The raster pass's two traversal launches on one chunk of 1080p pixel
     rays, the chunk holding the image centre: the opaque pass's
@@ -675,14 +719,8 @@ def raster_rays(scene, meta, c2w):
 
     from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
     from gltf_renderer_tpu_torch.render import pathtracer as pt
-    from gltf_renderer_tpu_torch.render import rasterizer as rz
 
-    w, h = FULL_RES
-    dev = scene.world.position.device
-    px, py, _ = pt._tile_order(w, h, dev)
-    centre = int(torch.nonzero((px == w // 2) & (py == h // 2))[0, 0])
-    sl = slice(centre // pt.RAY_CHUNK * pt.RAY_CHUNK, (centre // pt.RAY_CHUNK + 1) * pt.RAY_CHUNK)
-    o, d, t_max = rz._pixel_rays(px[sl], py[sl], (w, h), torch.as_tensor(c2w, device=dev))
+    o, d, t_max = centre_chunk_rays(c2w, scene.world.position.device)
     zero = torch.zeros_like(t_max)
     opaque = pt.closest_hit(scene, meta, o, d, zero, t_max, blend_mode=bvh_ops.BLEND_EXCLUDE)
     t_far = torch.minimum(torch.where(opaque.tri >= 0, opaque.t, float("inf")), t_max)
@@ -927,7 +965,7 @@ def scene_steps(tag, scene, meta, settings, params, c2w, timed, card):
     chunks = -(-pt._tile_order(w, h, img.device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
     steps = timed + 1
     expected = steps * chunks * (1 + settings.max_bounces) + sum(a + b for a, b in hops)
-    mrays = rays / sum(step_s) / 1e6
+    mrays = rays / sum(step_s) / 1e6 if step_s else float("nan")
     log(f"[{tag}] main {w}x{h} spp={SPP} steps={[round(x, 4) for x in step_s]} "
         f"(after one warm) rays={rays:.0f} Mrays/s={mrays:.4f} nan_inf={nan:.0f} "
         f"traverse_launches={launches} in {steps} steps ({launches / steps:.1f} a step; "
@@ -1051,6 +1089,278 @@ def phase_foliage(device):
             f"{frac:.5f} of pixels within atol 1e-4 + rtol 1e-3, means {rel:.2e} apart")
         if not ok:
             raise AssertionError("foliage on the card disagrees with the CPU render")
+
+
+def phase_env_io(device, tmp):
+    """Phase 7e, environment IO: the bench's analytic sky at 2048x1024 as
+    .hdr and as .exr ZIP float, a 256x128 crop as .exr PIZ half, each read
+    back by read_environment_image (ZIP and PIZ bit-identical, RGBE within
+    its 8-bit step) with the native PIZ decoder asserted, then
+    build_environment (cube 128) on the card, fresh and from its cache.
+    Returns the environment."""
+    import torch
+
+    from gltf_renderer_tpu_torch.bench_scene import analytic_sky
+    from gltf_renderer_tpu_torch.env import hdr_io, piz
+    from gltf_renderer_tpu_torch.env.environment import build_environment
+
+    sky = analytic_sky(*SKY_HW)
+    crop = np.ascontiguousarray(sky[:PIZ_CROP_HW[0], :PIZ_CROP_HW[1]])
+    paths = {k: os.path.join(tmp, k) for k in ("sky.hdr", "sky.exr", "crop.exr")}
+    secs = {}
+    t0 = time.perf_counter()
+    hdr_io.write_hdr(paths["sky.hdr"], sky)
+    hdr_io.write_exr(paths["sky.exr"], sky, compression=3)
+    secs["write_hdr_zip"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hdr_io.write_exr(paths["crop.exr"], crop, compression=4, half=True)
+    secs["write_piz_crop"] = time.perf_counter() - t0
+    got = {}
+    for k, path in paths.items():
+        decodes = piz.NATIVE_DECODES
+        t0 = time.perf_counter()
+        got[k] = hdr_io.read_environment_image(path)
+        secs[f"read_{k}"] = time.perf_counter() - t0
+        if k == "crop.exr" and piz.NATIVE_DECODES - decodes != -(-PIZ_CROP_HW[0] // 32):
+            raise AssertionError(f"the PIZ crop's {-(-PIZ_CROP_HW[0] // 32)} blocks were not "
+                                 f"decoded natively ({piz.NATIVE_DECODES - decodes} were)")
+    hdr_err = float(np.abs(got["sky.hdr"] - sky).max() / sky.max())
+    zip_ok = got["sky.exr"].tobytes() == sky.tobytes()
+    piz_ok = got["crop.exr"].tobytes() == crop.astype(np.float16).astype(np.float32).tobytes()
+    log(f"[env-io] {SKY_HW[1]}x{SKY_HW[0]} .hdr max error {hdr_err:.5f} of the maximum "
+        f"(bar 2^-8 = {2.0 ** -8:.5f}); .exr ZIP float bit-identical={zip_ok}; "
+        f"{PIZ_CROP_HW[1]}x{PIZ_CROP_HW[0]} .exr PIZ half bit-identical={piz_ok}, native "
+        f"decoder {piz.native_piz()._name}; seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    if not (zip_ok and piz_ok and hdr_err <= 2.0 ** -8):
+        raise AssertionError("an environment image did not read back as written")
+
+    cache = os.path.join(tmp, "cache")
+    t0 = time.perf_counter()
+    env = build_environment(got["sky.exr"], ENV_CUBE, device, cache_dir=cache)
+    torch.cuda.synchronize()
+    secs["build_env"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hit = build_environment(got["sky.exr"], ENV_CUBE, device, cache_dir=cache)
+    torch.cuda.synchronize()
+    secs["build_env_cached"] = time.perf_counter() - t0
+    same = True
+    for f in env._fields:
+        a, b = getattr(env, f), getattr(hit, f)
+        a, b = (a, b) if isinstance(a, list) else ([a], [b])
+        same = same and len(a) == len(b) and all(
+            x.device == y.device and x.dtype == y.dtype and x.shape == y.shape
+            and bool(torch.equal(x.view(-1).view(torch.int32), y.view(-1).view(torch.int32)))
+            for x, y in zip(a, b))
+    log(f"[env-io] build_environment cube {ENV_CUBE} on {env.cube[0].device}: "
+        f"{secs['build_env']:.3f}s fresh, {secs['build_env_cached']:.3f}s from its cache, "
+        f"bit-identical={same}, ggx levels {len(env.ggx)}, diffuse {tuple(env.diffuse.shape)}")
+    if not same or env.cube[0].device.type != torch.device(device).type:
+        raise AssertionError("the environment cache did not give the fresh build's tensors")
+    return env
+
+
+def phase_loaded_courtyard(device, card, env, tmp):
+    """Phase 7e, the loader at full scale: the courtyard written as a GLB by
+    the port's writer and read by the port's loader, every table
+    bit-identical to the in-memory build, built through make_pt_scene and
+    run for one 1080p step with exact launch and hop counts."""
+    from gltf_renderer_tpu_torch.bench_scene import bench_camera, world_from_scene
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import settings as S
+    from gltf_renderer_tpu_torch.scene.gltf import load_gltf
+    from gltf_renderer_tpu_torch.scene.procedural import courtyard_scene, write_courtyard_glb
+
+    secs = {}
+    t0 = time.perf_counter()
+    path = write_courtyard_glb(os.path.join(tmp, "courtyard.glb"), tex_size=256)
+    secs["write"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene = load_gltf(path)
+    secs["load"] = time.perf_counter() - t0
+    ref = courtyard_scene(tex_size=256)
+    differ = [f"{t}.{f}" for t in ("pools", "primitives", "materials", "textures",
+                                   "light_params")
+              for f in getattr(ref, t)._fields
+              if not same_array(getattr(getattr(scene, t), f), getattr(getattr(ref, t), f))]
+    differ += [f"nodes[{i}].{k}" for i, (a, b) in enumerate(zip(scene.nodes, ref.nodes))
+               for k in vars(b) if not same_array(getattr(a, k), getattr(b, k))]
+    differ += [f for f in ("light_nodes", "topo_order")
+               if not same_array(getattr(scene, f), getattr(ref, f))]
+    t0 = time.perf_counter()
+    world, lights = world_from_scene(scene)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    secs["build"] = time.perf_counter() - t0
+    n_tris = int(world.tri_vertex.shape[0])
+    log(f"[loader] courtyard.glb {os.path.getsize(path)} bytes, {n_tris} triangles, atlas "
+        f"{scene.textures.atlas.shape}: tables differing from the in-memory courtyard: "
+        f"{differ or 'none'}; seconds write {secs['write']:.3f} load {secs['load']:.3f} "
+        f"world + make_pt_scene {secs['build']:.3f}")
+    if differ or n_tris != 273856 or len(scene.nodes) != len(ref.nodes):
+        raise AssertionError("the loaded courtyard is not the in-memory courtyard")
+    settings = S.PathTracerSettings(max_bounces=2, min_bounces=2, alpha_shadows=True)
+    run = scene_steps("courtyard-glb", ptscene, meta, settings, S.PathTracerParams(),
+                      bench_camera(*FULL_RES, "courtyard"), 0, card)
+    return dict(run, secs=secs)
+
+
+def same_array(a, b):
+    """Same dtype, shape and bytes (NaN-bitcast words included), or equal
+    non-arrays."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+    return a == b
+
+
+def refit_checks(anim):
+    """The refitted node boxes of `anim`'s scene against a CPU refit of the
+    same vertices (==, no NaN), and each box holding what it must: a leaf's
+    triangles, an internal node's two children. Returns (equal, contained)."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
+
+    s, tree = anim.ptscene, anim.bvh_host
+    tv = s.world.tri_vertex.long()
+    v = [s.world.position[tv[:, k]].cpu() for k in range(3)]
+    cpu = bvh_ops.refit(tree, *v)
+    lo, hi = s.bvh.aabb_min.cpu(), s.bvh.aabb_max.cpu()
+    equal = (not bool(torch.isnan(lo).any() | torch.isnan(hi).any())
+             and bool((lo == cpu.aabb_min).all() & (hi == cpu.aabb_max).all()))
+    t_lo = torch.minimum(torch.minimum(v[0], v[1]), v[2])[torch.as_tensor(tree.tri_order).long()]
+    t_hi = torch.maximum(torch.maximum(v[0], v[1]), v[2])[torch.as_tensor(tree.tri_order).long()]
+    count, first, right = (np.asarray(x) for x in (tree.count, tree.first, tree.right))
+    leaf = np.nonzero(count > 0)[0]
+    slots = np.concatenate([np.arange(first[i], first[i] + count[i]) for i in leaf])
+    owner = torch.as_tensor(np.repeat(leaf, count[leaf])).long()
+    contained = bool((t_lo[slots] >= lo[owner]).all() & (t_hi[slots] <= hi[owner]).all())
+    inner = np.nonzero(count == 0)[0]
+    for child in (torch.as_tensor(inner + 1), torch.as_tensor(right[inner])):
+        i = torch.as_tensor(inner)
+        contained = contained and bool((lo[child] >= lo[i]).all() & (hi[child] <= hi[i]).all())
+    return equal, contained
+
+
+def phase_animation(device, card, env):
+    """Phase 7e, animation at 1080p: the skinned strips and the morph cube,
+    read by the loader, under the analytic environment; 8 frames of
+    animate -> DynamicMeshState.update -> build_world_geometry ->
+    refit_pt_scene -> trace_chunked(spp=4), each frame's refit and K1 on
+    its tables checked; the last pose against a fresh build; one raster
+    frame of the strips in each visibility; the anim_pose golden."""
+    import torch
+    from PIL import Image
+
+    from gltf_renderer_tpu_torch import camera
+    from gltf_renderer_tpu_torch.bench_scene import (
+        ANIM_KINDS,
+        ANIM_VIEWS,
+        build_animated_scene,
+        render_anim_pose_golden,
+    )
+    from gltf_renderer_tpu_torch.ops import raster
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+    from gltf_renderer_tpu_torch.render import renderer
+    from gltf_renderer_tpu_torch.render import settings as S
+    from gltf_renderer_tpu_torch.utils.ssim import ssim
+
+    w, h = FULL_RES
+    out = {"k1": 0, "k2": 0, "worst_abs": 0.0}
+    for kind in ANIM_KINDS:
+        t0 = time.perf_counter()
+        anim, settings, params, c2w = build_animated_scene(kind, w, h, device, strips=ANIM_STRIPS,
+                                                           env=env)
+        torch.cuda.synchronize()
+        n_tris = int(anim.ptscene.world.tri_vertex.shape[0])
+        log(f"[anim] {kind}: {n_tris} triangles, {len(anim.dynamic.dynamic_instances)} dynamic "
+            f"primitives, {len(anim.scene.skins)} skins, built at t=0 in "
+            f"{time.perf_counter() - t0:.3f}s")
+        o, d, t_max = centre_chunk_rays(c2w, device)
+        rays = ("anim_primary", o, d, torch.zeros_like(t_max), t_max, None)
+        skin_ms, trace_ms = [], []
+        chunks = -(-pt._tile_order(w, h, device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
+        for frame in range(ANIM_FRAMES):
+            start, mid = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            anim.update(ANIM_DELTA)
+            mid.record()
+            ref_calls = tr.REFERENCE_CALLS
+            launches0 = tr.KERNEL_LAUNCHES
+            img, st = pt.trace_chunked(anim.ptscene, anim.meta, settings, params, c2w, (w, h),
+                                       frame, with_stats=True, spp=SPP)
+            end.record()
+            torch.cuda.synchronize()
+            launches = tr.KERNEL_LAUNCHES - launches0
+            plain_ran = tr.REFERENCE_CALLS != ref_calls
+            out["k1"] += launches
+            skin_ms.append(start.elapsed_time(mid))
+            trace_ms.append(mid.elapsed_time(end))
+            frac, max_abs, _, same = compare(anim.ptscene, anim.meta, rays, 0, 0)
+            out["worst_abs"] = max(out["worst_abs"], max_abs)
+            equal, contained = refit_checks(anim)
+            log(f"[anim] {kind} frame {frame} t={anim.player.time:.4f}: skin_and_refit "
+                f"{skin_ms[-1]:.3f} ms, trace {trace_ms[-1]:.3f} ms; K1 launches {launches} "
+                f"({chunks * (1 + settings.max_bounces)} expected); K1 vs plain on "
+                f"{o.shape[0]} primary rays identical={same}; boxes == CPU refit {equal}, "
+                f"contain their triangles and children {contained}; nan_inf={float(st[1]):.0f}")
+            if (not (same and equal and contained) or launches != chunks
+                    * (1 + settings.max_bounces) or plain_ran
+                    or float(st[1]) != 0.0 or not bool(torch.isfinite(img).all())):
+                raise AssertionError(f"the {kind} animation failed at frame {frame}")
+        out[kind] = dict(skin_ms=skin_ms, trace_ms=trace_ms)
+        log(f"[anim] {kind} {w}x{h} spp={SPP} per frame: skin_and_refit "
+            f"{[round(x, 3) for x in skin_ms]} ms, trace {[round(x, 3) for x in trace_ms]} ms "
+            f"(CUDA events) card={card}")
+
+        # The last pose against a fresh build at the same pose, every pixel ray.
+        fresh, *_ = build_animated_scene(kind, w, h, device, strips=ANIM_STRIPS, env=env,
+                                         time=anim.player.time)
+        px, py, _ = pt._tile_order(w, h, device)
+        po, pd, plen = rz._pixel_rays(px, py, (w, h), torch.as_tensor(c2w, device=device))
+        zero = torch.zeros_like(plen)
+        a = pt.closest_hit(anim.ptscene, anim.meta, po, pd, zero, plen)
+        b = pt.closest_hit(fresh.ptscene, fresh.meta, po, pd, zero, plen)
+        t_same = identical(a.t, b.t)
+        ties = int((a.tri != b.tri).sum())
+        log(f"[anim] {kind} frame {ANIM_FRAMES} vs a fresh make_pt_scene at t="
+            f"{anim.player.time:.4f}: closest t identical on all {po.shape[0]} rays={t_same}, "
+            f"hits {int((a.tri >= 0).sum())}, ids differing on exact-t ties {ties}")
+        if not t_same:
+            raise AssertionError(f"the refit {kind} tables miss what a fresh build hits")
+
+        if kind == "skinned":
+            rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
+            cam_pos = camera.position(camera.look_at(*ANIM_VIEWS[kind]))
+            for vis, want in (("raycast", (raster_chunks(w, h), 0)), ("tiled", (0, 1))):
+                tr.KERNEL_LAUNCHES = raster.KERNEL_LAUNCHES = 0
+                hdr = renderer.raster_step(anim.ptscene, anim.meta, rs, params, c2w, cam_pos,
+                                           (w, h), 0, visibility=vis)
+                img = renderer.post_step(hdr, rs.tonemap, rs.bloom, 0)
+                torch.cuda.synchronize()
+                got = (tr.KERNEL_LAUNCHES, raster.KERNEL_LAUNCHES)
+                out["k1"] += got[0]
+                out["k2"] += got[1]
+                log(f"[anim] skinned raster frame {vis}: K1 {got[0]} K2 {got[1]} launches "
+                    f"({want} expected), finite={bool(torch.isfinite(hdr).all())}")
+                if got != want or not bool(torch.isfinite(hdr).all()) or img.dtype != torch.uint8:
+                    raise AssertionError(f"the skinned raster frame ({vis}) is wrong")
+
+    img, stats = render_anim_pose_golden(device)
+    golden = np.asarray(Image.open(ANIM_GOLDEN))
+    img = img.cpu().numpy()
+    score = ssim(img, golden) if img.shape == golden.shape else 0.0
+    log(f"[anim] anim_pose golden {img.shape[1]}x{img.shape[0]} ssim={score:.5f} "
+        f"(bar {RASTER_SSIM_BAR}) nan_inf={float(stats[1]):.0f}")
+    if score < RASTER_SSIM_BAR or float(stats[1]) != 0.0:
+        raise AssertionError("the anim_pose golden fails its bar")
+    return out
 
 
 def identical(a, b):
@@ -1456,6 +1766,12 @@ def main() -> int:
     blend = phase_raster_blend(device, card)
     log(f"[done] phase 7d in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = phase_env_io(device, tmp)
+        glb = phase_loaded_courtyard(device, card, env, tmp)
+    anim = phase_animation(device, card, env)
+    log(f"[done] phase 7e in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     brute_row = phase_brute(device)
     perlane_rows = phase_perlane(device)
     log(f"[done] phases 8-9 in {time.perf_counter() - t0:.1f}s")
@@ -1476,8 +1792,10 @@ def main() -> int:
         "name": "traverse_wide", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
         "launches": launches + court["launches"] + zoo["launches"]
-        + sum(frames[v][0] for v in frames) + sum(f[0] for f in r_frames),
-        "max_abs_err": max(worst_abs, *(x["max_abs"] for x in court["k1"].values()),
+        + sum(frames[v][0] for v in frames) + sum(f[0] for f in r_frames) + glb["launches"]
+        + anim["k1"],
+        "max_abs_err": max(worst_abs, anim["worst_abs"],
+                           *(x["max_abs"] for x in court["k1"].values()),
                            *(x["max_abs"] for x in zoo["k1"].values()),
                            *(x["max_abs"] for x in blend["k1"].values())),
         "ms": lane["ms"], "plain_ms": lane["plain_ms"], "bound_ms": lane["bound_ms"],
@@ -1493,7 +1811,7 @@ def main() -> int:
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,
-        "launches": frames["tiled"][1] + sum(f[1] for f in r_frames),
+        "launches": frames["tiled"][1] + sum(f[1] for f in r_frames) + anim["k2"],
         "max_abs_err": max(k2["err"], c_k2["err"]),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None, "bound_all_px_ms": k2["bound_all_px_ms"],

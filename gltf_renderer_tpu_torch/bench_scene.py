@@ -39,22 +39,45 @@ builds the zoo or the courtyard (tex_size 256) for the raster backend: the
 golden configurations' 32x64 analytic environment with the GGX and diffuse
 prefilters the raster IBL samples, seen from the zoo's golden view or down
 the courtyard's colonnade.
+
+`AnimatedScene` is what `Renderer.draw_frame` does to a loaded scene's
+geometry before each frame (JAX render/renderer.py `_update_geometry`):
+advance the animation player, pose the nodes, skin and morph on the
+device, rebuild the world, then build the path tracer's tables at the first
+frame and refit them on the device after. `build_animated_scene` loads the
+skinned strips (`write_skinned_gltf`, 64 strips by default) or the morph
+cube (`write_morph_gltf`) through the port's loader. `render_anim_pose_golden`
+is the anim_pose golden configuration (tests/golden_configs.py::
+render_anim_pose, golden tests/goldens/anim_pose.png): each scene at
+128x96 with one bounce and no environment, the first frame drawn at
+delta 0.5 (the tables built at that pose), three more at delta 0 (refit,
+accumulation kept), seeds 0-3, the two images side by side.
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+
 import numpy as np
 
 from gltf_renderer_tpu_torch import camera
+from gltf_renderer_tpu_torch.anim.animation import AnimationPlayer, rest_pose
+from gltf_renderer_tpu_torch.anim.skinning import DynamicMeshState
+from gltf_renderer_tpu_torch.device import resolve
 from gltf_renderer_tpu_torch.env.environment import DIFFUSE_RESOLUTION, build_environment_pt
 from gltf_renderer_tpu_torch.render import pathtracer as pt
 from gltf_renderer_tpu_torch.render import settings as S
 from gltf_renderer_tpu_torch.scene import flatten
+from gltf_renderer_tpu_torch.scene import types as T
+from gltf_renderer_tpu_torch.scene.gltf import load_gltf
 from gltf_renderer_tpu_torch.scene.procedural import (
     box_scene,
     courtyard_scene,
     materials_scene,
     textured_sphere_scene,
+    write_morph_gltf,
+    write_skinned_gltf,
 )
 
 FIDELITY_RES = (256, 144)  # bench.FIDELITY_RES
@@ -67,6 +90,15 @@ MATERIALS_GOLDEN_FRAMES = 8
 DEBUG_CHANNELS_RES = (64, 48)      # golden_configs.render_debug_channels
 N_DEBUG_OUTPUTS = 28
 BOX_RASTER_RES = (256, 256)       # golden_configs.render_box_raster
+ANIM_GOLDEN_RES = (128, 96)       # golden_configs.render_anim_pose, each half
+ANIM_GOLDEN_FRAMES = 4            # draw_frame(delta=0.5), then three at delta 0
+ANIM_KINDS = ("skinned", "morph")
+# (eye, target) of the anim_pose golden views, and of the 1080p runs: the
+# strips' row seen whole, the morph cube from the golden view
+ANIM_GOLDEN_VIEWS = {"skinned": ([0.0, -3.0, 1.0], [0.0, 0.0, 1.0]),
+                     "morph": ([2.0, -2.0, 1.5], [0.0, 0.0, 0.0])}
+ANIM_VIEWS = {"skinned": ([18.9, -24.0, 5.0], [18.9, 0.0, 1.0]),
+              "morph": ANIM_GOLDEN_VIEWS["morph"]}
 SCENE_KINDS = ("helmet", "courtyard", "courtyard2")
 RASTER_SCENE_KINDS = ("materials", "courtyard")
 # (eye, target) of the views the bench and golden configurations share
@@ -211,25 +243,31 @@ def build_raster_scene(scene_kind: str, width: int, height: int, device="cuda",
     return ptscene, meta, rs, S.PathTracerParams(), c2w, camera.position(w2v), (width, height)
 
 
-def draw_frames(ptscene, meta, rs, c2w, frames: int):
-    """Frames drawn as `Renderer.draw_frame` draws them: per frame k, trace
-    with seed k, accumulate into the running mean, tone map (AgX, no bloom:
-    bloom is raster-only) with frame index k as the dither's, -> u8.
-    Returns ((h, w, 3) uint8 of the last frame, the summed [ray_count,
-    nan_count] of the traces)."""
+def draw_frame(ptscene, meta, rs, c2w, k: int, accum):
+    """Frame k as `Renderer.draw_frame` draws it: trace with seed k,
+    accumulate into the running mean `accum` (None at frame 0), tone map
+    (AgX, no bloom: bloom is raster-only) with frame index k as the
+    dither's, -> u8. Returns (accum, (h, w, 3) uint8, [ray_count,
+    nan_count])."""
     import torch
 
     from gltf_renderer_tpu_torch.render import renderer
 
-    res = (rs.width, rs.height)
+    radiance, st = pt.trace(ptscene, meta, rs.pt, S.PathTracerParams(), c2w,
+                            (rs.width, rs.height), k, with_stats=True)
+    accum = radiance if accum is None else pt.accumulate(
+        accum, radiance, torch.tensor(k, device=radiance.device), rs.pt)
+    return accum, renderer.post_step(accum, rs.tonemap, None, k), st
+
+
+def draw_frames(ptscene, meta, rs, c2w, frames: int):
+    """`frames` frames (`draw_frame`, seeds 0..frames-1). Returns ((h, w,
+    3) uint8 of the last frame, the summed [ray_count, nan_count] of the
+    traces)."""
     accum, stats, img = None, 0.0, None
     for k in range(frames):
-        radiance, st = pt.trace(ptscene, meta, rs.pt, S.PathTracerParams(), c2w, res, k,
-                                with_stats=True)
-        accum = radiance if accum is None else pt.accumulate(
-            accum, radiance, torch.tensor(k, device=radiance.device), rs.pt)
+        accum, img, st = draw_frame(ptscene, meta, rs, c2w, k, accum)
         stats = stats + st
-        img = renderer.post_step(accum, rs.tonemap, None, k)
     return img, stats
 
 
@@ -292,3 +330,103 @@ def render_debug_channels(device="cuda"):
                                                      debug_output=dbg),
                  S.PathTracerParams(), c2w, res, 5)
         for dbg in range(N_DEBUG_OUTPUTS)])
+
+
+class AnimatedScene:
+    """A loaded scene whose first animation drives the path tracer's tables
+    on `device` (JAX Renderer: load_scene's derived state and
+    `_update_geometry`). The rest pools, instance plan and triangle flags
+    are uploaded once; `update` runs a frame's geometry. The port refits
+    whenever it rebuilds the world; the JAX renderer refits only scenes with
+    skinned or morphed meshes (every scene here has them)."""
+
+    def __init__(self, scene: T.Scene, device="cuda", env=None):
+        import torch
+
+        self.scene, self.env = scene, env
+        self.device = dev = resolve(device)
+        plan = flatten.build_instance_plan(scene)
+        self.plan = plan._replace(**{k: torch.as_tensor(v, device=dev)
+                                     for k, v in plan._asdict().items()})
+        self.tri_flags = {k: torch.as_tensor(v, device=dev)
+                          for k, v in flatten.plan_tri_flags(plan, scene.primitives).items()}
+        self.pools = scene.pools._replace(**{k: torch.as_tensor(v, device=dev)
+                                             for k, v in scene.pools._asdict().items()})
+        self.dynamic = DynamicMeshState(scene, dev)
+        self.player = AnimationPlayer(scene.animations[0] if scene.animations else None)
+        self.ptscene = self.meta = self.bvh_host = None
+
+    def update(self, delta: float):
+        """Advance the player by `delta` seconds and bring the tables to the
+        new pose: built by make_pt_scene at the first call, refit on the
+        device after. Returns the node transforms."""
+        scene = self.scene
+        pose = self.player.tick(scene, delta) if self.player.animation else rest_pose(scene)
+        node_tf = flatten.compute_global_transforms(scene, None, pose.t, pose.r, pose.s)
+        lights = flatten.gather_lights(scene, node_tf)
+        dyn = (None, None, None)
+        if self.dynamic.dynamic_instances:
+            self.dynamic.update(node_tf, pose.weights)
+            dyn = (self.dynamic.positions, self.dynamic.normals, self.dynamic.tangents)
+        world = flatten.build_world_geometry(self.pools, self.plan, node_tf,
+                                             flatten.normal_transforms(node_tf),
+                                             self.tri_flags, *dyn)
+        if self.ptscene is None:
+            self.ptscene, self.meta = pt.make_pt_scene(world, scene.materials, scene.textures,
+                                                       lights, env=self.env, device=self.device)
+            self.bvh_host = self.ptscene.bvh
+        else:
+            self.ptscene = pt.refit_pt_scene(self.ptscene, world, lights, self.bvh_host)
+        return node_tf
+
+
+def write_animated(kind: str, directory: str, strips: int = 1) -> str:
+    """Write the skinned strips or the morph cube into `directory`."""
+    if kind not in ANIM_KINDS:
+        raise ValueError(f"unknown animated scene {kind!r}, expected one of {ANIM_KINDS}")
+    if kind == "skinned":
+        return write_skinned_gltf(os.path.join(directory, "skin.gltf"), strips=strips)
+    return write_morph_gltf(os.path.join(directory, "morph.gltf"))
+
+
+def anim_camera(kind: str, width: int, height: int, views=ANIM_VIEWS) -> np.ndarray:
+    """clip_to_world of an animated scene's view (60 degrees, z_near 0.01)."""
+    w2v = camera.look_at(*views[kind])
+    return camera.clip_to_world(w2v, y_fov=np.pi / 3, aspect=width / height, z_near=0.01)
+
+
+def build_animated_scene(kind: str, width: int, height: int, device="cuda", strips: int = 64,
+                         env=None, time: float = 0.0):
+    """The skinned strips (`strips` of them) or the morph cube, written and
+    read back by the port's loader, posed at `time` seconds with the tables
+    built there, under `env`. Returns (AnimatedScene, settings, params,
+    clip_to_world): env NEE + MIS with 2 bounces, the kind's 1080p view."""
+    with tempfile.TemporaryDirectory() as d:
+        scene = load_gltf(write_animated(kind, d, strips))
+    anim = AnimatedScene(scene, device, env=env)
+    anim.update(time)
+    return (anim, S.PathTracerSettings(max_bounces=2, min_bounces=2), S.PathTracerParams(),
+            anim_camera(kind, width, height))
+
+
+def render_anim_pose_golden(device="cuda"):
+    """The anim_pose golden configuration drawn as `Renderer.draw_frame`
+    draws it. Returns the (96, 256, 3) uint8 image and the summed
+    [ray_count, nan_count] of its traces."""
+    import torch
+
+    w, h = ANIM_GOLDEN_RES
+    rs = S.RenderSettings(width=w, height=h,
+                          pt=S.PathTracerSettings(max_bounces=1, min_bounces=1))
+    halves, stats = [], 0.0
+    for kind in ANIM_KINDS:
+        with tempfile.TemporaryDirectory() as d:
+            anim = AnimatedScene(load_gltf(write_animated(kind, d)), device)
+        c2w = anim_camera(kind, w, h, ANIM_GOLDEN_VIEWS)
+        accum = img = None
+        for k in range(ANIM_GOLDEN_FRAMES):
+            anim.update(0.5 if k == 0 else 0.0)
+            accum, img, st = draw_frame(anim.ptscene, anim.meta, rs, c2w, k, accum)
+            stats = stats + st
+        halves.append(img)
+    return torch.cat(halves, 1), stats

@@ -1,4 +1,9 @@
-"""State carried across from the JAX package: its PTScene -> the port's.
+"""State carried across from the JAX package: its Scene and PTScene -> the
+port's.
+
+`from_jax_scene` takes a host Scene of the JAX package's loader (numpy
+leaves) and returns the port's `scene.types.Scene` with the same values, so
+both packages can start from identical inputs.
 
 `from_jax_pt_scene` takes a JAX `PTScene` whose leaves were pulled to numpy
 (`jax.tree.map(np.asarray, scene)`) and its `PTMeta`, and returns the
@@ -10,6 +15,8 @@ JAX.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,6 +35,32 @@ def _tensor(x, dev):
 
 def _fields(cls, src, convert=lambda v: v):
     return cls(**{f: convert(getattr(src, f)) for f in cls._fields if hasattr(src, f)})
+
+
+def _dataclass(cls, src):
+    return cls(**{f.name: getattr(src, f.name) for f in dataclasses.fields(cls)})
+
+
+def from_jax_scene(scene) -> T.Scene:
+    """JAX host Scene (numpy leaves) -> the port's Scene, field by field."""
+    tables = {f: _fields(getattr(T, type(getattr(scene, f)).__name__), getattr(scene, f))
+              for f in ("pools", "primitives", "materials", "textures", "light_params")}
+    return T.Scene(
+        **tables,
+        light_nodes=scene.light_nodes,
+        nodes=[_dataclass(T.Node, n) for n in scene.nodes],
+        scenes=[list(s) for s in scene.scenes],
+        default_scene=scene.default_scene,
+        meshes=[_dataclass(T.MeshDef, m) for m in scene.meshes],
+        skins=[_dataclass(T.Skin, s) for s in scene.skins],
+        animations=[T.Animation(name=a.name,
+                                channels=[_dataclass(T.AnimationChannel, c) for c in a.channels])
+                    for a in scene.animations],
+        cameras=[_dataclass(T.CameraDef, c) for c in scene.cameras],
+        iridescence=[_dataclass(T.IridescenceParams, i) for i in scene.iridescence],
+        topo_order=scene.topo_order,
+        name=scene.name,
+    )
 
 
 def from_jax_pt_scene(scene_np, meta, device="cuda"):

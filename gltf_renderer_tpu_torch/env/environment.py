@@ -6,10 +6,18 @@ compute shaders). The path tracer reads cube level 0, the importance
 pyramid and the alias rows; the raster backend's IBL reads the prefiltered
 cubes. The JAX package's quad-packed cubes (`build_cube_quads`) are a TPU
 gather layout holding the same texels and are not ported.
+
+`build_environment` is `build_environment_pt` behind the JAX package's npz
+disk cache (:512-553), keyed by the equirect's content, shape, the build
+sizes and `ENV_CACHE_VERSION`, in `<cache_dir>/env` of a cache root the
+caller names (utils/scene_cache.py keeps the scene tables beside it).
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
+import zipfile
 from typing import Any, List, NamedTuple
 
 import numpy as np
@@ -38,6 +46,7 @@ from gltf_renderer_tpu_torch.utils.math import (
 IMPORTANCE_RESOLUTION = 1024       # EnvironmentMap.cpp:99
 DIFFUSE_RESOLUTION = 256           # EnvironmentMap.cpp:114
 GGX_SMALLEST_MIP = 4               # EnvironmentMap.cpp:106
+ENV_CACHE_VERSION = 1  # bump when a table build_environment_pt makes changes
 GGX_SAMPLES, GGX_MIP_BIAS = 256, 2.0          # EnvironmentMap.cpp:395
 DIFFUSE_SAMPLES, DIFFUSE_MIP_BIAS = 512, 3.0  # EnvironmentMap.cpp:400
 
@@ -268,6 +277,58 @@ def build_environment_pt(equirect, cube_size: int = None, device="cuda",
     return EnvMaps(cube=[cube_mips[0]], importance=importance, equirect=eq,
                    alias_rows=alias_rows, ggx=build_ggx_cube(cube_mips),
                    diffuse=build_diffuse_cube(cube_mips, size=diffuse_size))
+
+
+def build_environment(equirect, cube_size: int = None, device="cuda", cache_dir: str = None,
+                      diffuse_size: int = DIFFUSE_RESOLUTION,
+                      prefilters: bool = True) -> EnvMaps:
+    """`build_environment_pt`'s tables, read from the npz cache under the
+    cache root `cache_dir` when an entry for these inputs is there, else
+    built and stored there. cache_dir None: no cache. A hit gives tensors
+    bit-identical to a fresh build, on `device`."""
+    dev = resolve(device)
+    eq = np.ascontiguousarray(np.asarray(equirect, np.float32))
+    if cache_dir is None:
+        return build_environment_pt(eq, cube_size, dev, diffuse_size, prefilters)
+    key = hashlib.sha1(eq.tobytes() + repr(
+        (eq.shape, cube_size, diffuse_size, prefilters, ENV_CACHE_VERSION)).encode()).hexdigest()
+    path = os.path.join(cache_dir, "env", f"{key}.npz")
+    if os.path.exists(path):
+        try:
+            return _load_env_npz(path, dev)
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+            pass  # a torn or stale entry: rebuild it
+    env = build_environment_pt(eq, cube_size, dev, diffuse_size, prefilters)
+    _save_env_npz(path, env)
+    return env
+
+
+def _save_env_npz(path: str, env: EnvMaps) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arrays = {"equirect": env.equirect, "alias_rows": env.alias_rows}
+    for field in ("cube", "importance", "ggx"):
+        for i, a in enumerate(getattr(env, field) or []):
+            arrays[f"{field}_{i}"] = a
+    if env.diffuse is not None:
+        arrays["diffuse"] = env.diffuse
+    tmp = f"{path}.{os.getpid()}.tmp.npz"
+    np.savez(tmp, **{k: v.cpu().numpy() for k, v in arrays.items()})
+    os.replace(tmp, path)
+
+
+def _load_env_npz(path: str, dev) -> EnvMaps:
+    with np.load(path) as z:
+        def lst(field):
+            out = []
+            while f"{field}_{len(out)}" in z:
+                out.append(torch.as_tensor(z[f"{field}_{len(out)}"], device=dev))
+            return out
+
+        return EnvMaps(cube=lst("cube"), importance=lst("importance"),
+                       equirect=torch.as_tensor(z["equirect"], device=dev),
+                       alias_rows=torch.as_tensor(z["alias_rows"], device=dev), ggx=lst("ggx"),
+                       diffuse=torch.as_tensor(z["diffuse"], device=dev)
+                       if "diffuse" in z else None)
 
 
 def env_radiance(env: EnvMaps, direction):

@@ -2,8 +2,10 @@
 
 Port of the host half of gltf_renderer_tpu/ops/bvh.py: the binned-SAH build
 (`build`, native C++ builder loaded with ctypes, numpy fallback), the packed
-leaf tables (`pack`) and the 4-wide node maps (`build_wide_maps`). The
-traversal over these tables lives in ops/traverse.py.
+leaf tables (`pack`) and the 4-wide node maps (`build_wide_maps`), and the
+refresh of those tables for geometry that moves under a fixed topology
+(`refit`, `pack_update`, and `assemble_wide` on tensors), which runs on the
+tables' device. The traversal over these tables lives in ops/traverse.py.
 
 The native builder is compiled from `native/bvh_builder.cpp` into the
 port's build directory with portable flags, so the library runs on any x86
@@ -23,6 +25,7 @@ import sys
 from typing import Any, NamedTuple
 
 import numpy as np
+import torch
 
 log = logging.getLogger(__name__)
 
@@ -174,6 +177,28 @@ _NATIVE = None
 _NATIVE_TRIED = False
 
 
+def host_library(src: str) -> ctypes.CDLL:
+    """Compile the C++ source `src` with g++ into BUILD_DIR (once, the
+    library named by the source's hash) and load it. Raises if g++ is
+    missing or the build fails."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: cannot build {src}")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:16]
+    stem = os.path.splitext(os.path.basename(src))[0]
+    lib_path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.{os.getpid()}.tmp"
+        proc = subprocess.run([cxx, "-O3", "-fPIC", "-std=c++17", "-shared", "-o", tmp, src],
+                              capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {src}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    return ctypes.CDLL(lib_path)
+
+
 def _load_native():
     """Build (once, keyed by the source hash) and load the C++ SAH builder.
 
@@ -183,22 +208,10 @@ def _load_native():
     if _NATIVE_TRIED:
         return _NATIVE
     _NATIVE_TRIED = True
-    cxx = shutil.which("g++")
-    if cxx is None:
+    if shutil.which("g++") is None:
         log.warning("g++ not found: building BVHs with the numpy builder")
         return None
-    with open(_NATIVE_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(BUILD_DIR, f"libbvh_builder_{digest}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        subprocess.run(
-            [cxx, "-O3", "-fPIC", "-std=c++17", "-shared", "-o", tmp, _NATIVE_SRC],
-            check=True, capture_output=True, timeout=300,
-        )
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(lib_path)
+    lib = host_library(_NATIVE_SRC)
     f_p = ctypes.POINTER(ctypes.c_float)
     i_p = ctypes.POINTER(ctypes.c_int32)
     lib.bvh_build.argtypes = [f_p, f_p, f_p, ctypes.c_int, ctypes.c_int,
@@ -349,13 +362,86 @@ def build_wide_maps(bvh: FlatBVH, width: int = 4) -> "tuple[WideMaps, int]":
                     leaf_ids=np.asarray(leaf_ids or [0], np.int32)), 0
 
 
-def assemble_wide(packed_nodes: np.ndarray, child_src: np.ndarray) -> np.ndarray:
+def assemble_wide(packed_nodes, child_src: np.ndarray):
     """(N4, 24) f32 wide box rows gathered from the binary node rows;
-    empty children get the far-point sentinel box."""
+    empty children get the far-point sentinel box. A tensor `packed_nodes`
+    (a refitted frame's) gives a tensor on its device with the same bits."""
+    if isinstance(packed_nodes, torch.Tensor):
+        dev = packed_nodes.device
+        src = torch.as_tensor(np.asarray(child_src), device=dev).long()
+        boxes = packed_nodes[src.clamp(min=0), 0:6]
+        boxes = torch.where((src < 0)[..., None], torch.as_tensor(_EMPTY_BOX, device=dev), boxes)
+        return boxes.reshape(src.shape[0], src.shape[1] * 6)
     src = np.asarray(child_src)
     boxes = np.asarray(packed_nodes)[np.clip(src, 0, None), 0:6]
     boxes = np.where((src < 0)[..., None], _EMPTY_BOX, boxes)
     return boxes.reshape(src.shape[0], src.shape[1] * 6).astype(np.float32)
+
+
+def _leaf_slots(bvh: FlatBVH, t: int):
+    """(N, LEAF_SIZE) slot ids of each node's triangles (clipped to the
+    slot range) and which of them the node holds."""
+    first = np.asarray(bvh.first)
+    ks = np.arange(LEAF_SIZE)[None, :]
+    slot = np.clip(first[:, None] + ks, 0, max(t - 1, 0))
+    return slot, ks < np.asarray(bvh.count)[:, None]
+
+
+def refit(bvh: FlatBVH, v0, v1, v2) -> FlatBVH:
+    """Node boxes of the host tree `bvh` (static topology) around moved
+    triangles, on the vertices' device (JAX ops/bvh.py:271): leaf boxes as
+    the min / max over their LEAF_SIZE slots (padding +-inf), then internal
+    nodes bottom-up by depth level, one gather and scatter a level. The
+    host topology drives the loop; its index arrays go to the device in
+    one upload.
+
+    v0/v1/v2: (T, 3) tensors of the current vertices, original triangle
+    order. Returns bvh with aabb_min / aabb_max tensors."""
+    counts = np.asarray(bvh.count)
+    levels = np.asarray(bvh.levels)
+    rights = np.asarray(bvh.right)
+    slot, valid = _leaf_slots(bvh, v0.shape[0])
+    parts = [np.asarray(bvh.tri_order), slot, valid, counts > 0]
+    for lev in range(int(levels.max()) - 1 if len(levels) else -1, -1, -1):
+        sel = np.nonzero((levels == lev) & (counts == 0))[0]
+        if len(sel):
+            parts += [sel, sel + 1, rights[sel]]
+    flat = torch.as_tensor(np.concatenate([np.asarray(x, np.int64).ravel() for x in parts]),
+                           device=v0.device)
+    ix = list(torch.split(flat, [int(np.asarray(x).size) for x in parts]))
+    tri = ix[0]
+    slot = ix[1].view(slot.shape)
+    valid = ix[2].view(valid.shape) != 0
+    is_leaf = ix[3][:, None] != 0
+    t_lo = torch.minimum(torch.minimum(v0[tri], v1[tri]), v2[tri])
+    t_hi = torch.maximum(torch.maximum(v0[tri], v1[tri]), v2[tri])
+    inf = torch.tensor(float("inf"), device=v0.device)
+    leaf_lo = torch.where(valid[..., None], t_lo[slot], inf).amin(1)
+    leaf_hi = torch.where(valid[..., None], t_hi[slot], -inf).amax(1)
+    lo = torch.where(is_leaf, leaf_lo, inf)
+    hi = torch.where(is_leaf, leaf_hi, -inf)
+    for sel, left, right in zip(ix[4::3], ix[5::3], ix[6::3]):
+        lo[sel] = torch.minimum(lo[left], lo[right])
+        hi[sel] = torch.maximum(hi[left], hi[right])
+    return bvh._replace(aabb_min=lo, aabb_max=hi)
+
+
+def pack_update(packed: PackedBVH, bvh_host: FlatBVH, slot_v0, slot_e1, slot_e2,
+                refitted: FlatBVH = None) -> PackedBVH:
+    """The packed tables of moved geometry (JAX ops/bvh.py:615), on the
+    tensors' device: every node's LEAF_SIZE [v0, e1, e2] records gathered
+    from the slot-order tensors as `pack` lays them out, and, given
+    `refit`'s result, node boxes from it with columns 6-7 (leaf first,
+    skip) kept. The id words and the topology do not change."""
+    dev = slot_v0.device
+    slot, _ = _leaf_slots(bvh_host, slot_v0.shape[0])
+    slot = torch.as_tensor(slot, device=dev).long()
+    records = torch.stack([slot_v0[slot], slot_e1[slot], slot_e2[slot]], 2)
+    nodes = packed.nodes
+    if refitted is not None:
+        nodes = torch.cat([refitted.aabb_min, refitted.aabb_max,
+                           torch.as_tensor(packed.nodes[:, 6:8], device=dev)], 1)
+    return packed._replace(nodes=nodes, records=records.reshape(slot.shape[0], REC_GEO))
 
 
 def wide_stack_bound(meta: np.ndarray, root_meta: int) -> int:

@@ -62,6 +62,7 @@ from gltf_renderer_tpu_torch.scene.flatten import (
     TRI_HAS_UV1,
     WorldGeometry,
 )
+from gltf_renderer_tpu_torch.utils import scene_cache
 from gltf_renderer_tpu_torch.utils.math import (
     PI,
     create_basis,
@@ -199,21 +200,23 @@ def _scene_meta(world, materials, textures, lights, env) -> PTMeta:
 
 
 def _to_device(tup, dev):
-    """NamedTuple of host arrays -> the same with torch tensors on dev."""
+    """NamedTuple of host arrays or tensors -> the same with tensors on dev."""
     return tup._replace(**{
-        k: torch.as_tensor(np.asarray(v), device=dev)
-        for k, v in tup._asdict().items() if isinstance(v, np.ndarray)
+        k: torch.as_tensor(v, device=dev)
+        for k, v in tup._asdict().items() if isinstance(v, (np.ndarray, torch.Tensor))
     })
 
 
-def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
-                  device="cuda") -> "tuple[PTScene, PTMeta]":
-    """Build the BVH and the traversal / shading tables on the host (the
-    texture mip pyramid the raster backend samples included), then place
-    them on `device`."""
-    dev = resolve(device)
-    meta = _scene_meta(world, materials, textures, lights, env)
+def _to_host(tup):
+    """NamedTuple of tensors or arrays -> the same with numpy arrays."""
+    return tup._replace(**{k: v.cpu().numpy() for k, v in tup._asdict().items()
+                           if isinstance(v, torch.Tensor)})
 
+
+def _host_tables(world, materials, textures, lights, env):
+    """(meta, tree, packed, maps, textures with mips, compact material rows)
+    built on the host from host inputs."""
+    meta = _scene_meta(world, materials, textures, lights, env)
     wpos = np.asarray(world.position)
     tv = np.asarray(world.tri_vertex)
     p0, p1, p2 = wpos[tv[:, 0]], wpos[tv[:, 1]], wpos[tv[:, 2]]
@@ -224,19 +227,40 @@ def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
     maps, wide_root = bvh_ops.build_wide_maps(tree)
     meta = meta._replace(wide_root=wide_root,
                          stack_bound=bvh_ops.wide_stack_bound(maps.meta, wide_root))
-
     if textures.atlas_linear is None and np.asarray(textures.atlas).size:
         textures = build_atlas_mips(decode_atlas_linear(textures))
     tex_rows = None if textures.rows is None else np.asarray(textures.rows)
-    materials = materials._replace(rows=torch.as_tensor(
-        compact_material_rows(np.asarray(materials.rows), meta.used_slots, tex_rows), device=dev))
+    mat_rows = compact_material_rows(np.asarray(materials.rows), meta.used_slots, tex_rows)
+    return meta, tree, packed, maps, textures, mat_rows
+
+
+def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
+                  device="cuda", cache_dir=None) -> "tuple[PTScene, PTMeta]":
+    """Build the BVH and the traversal / shading tables on the host (the
+    texture mip pyramid the raster backend samples included), then place
+    them on `device`. `world` may hold tensors on any device (a posed
+    frame's); the build reads it on the host. With a cache root
+    `cache_dir`, the host tables are read from and stored in
+    utils.scene_cache under it."""
+    dev = resolve(device)
+    world = _to_host(world)
+    directory = scene_cache.cache_dir(cache_dir)
+    key = None if directory is None else scene_cache.compute_key(
+        (world, materials, textures, _to_host(lights), env is not None))
+    built = None if key is None else scene_cache.load(key, directory)
+    if built is None:
+        built = _host_tables(world, materials, textures, lights, env)
+        if key is not None:
+            scene_cache.store(key, built, directory)
+    meta, tree, packed, maps, textures, mat_rows = built
+    tex_rows = textures.rows
     scene = PTScene(
         world=_to_device(world, dev),
         bvh=tree,
         packed=packed,
-        materials=materials,
+        materials=materials._replace(rows=torch.as_tensor(mat_rows, device=dev)),
         textures=textures._replace(
-            rows=None if tex_rows is None else torch.as_tensor(tex_rows, device=dev),
+            rows=None if tex_rows is None else torch.as_tensor(np.asarray(tex_rows), device=dev),
             atlas_linear=torch.as_tensor(np.asarray(textures.atlas_linear), device=dev),
             mip_flat=None if textures.mip_flat is None else torch.as_tensor(
                 textures.mip_flat, device=dev),
@@ -252,6 +276,33 @@ def make_pt_scene(world: WorldGeometry, materials, textures, lights, env=None,
         leaf_words=torch.as_tensor(np.asarray(packed.words)[maps.leaf_ids], device=dev),
     )
     return scene, meta
+
+
+def refit_pt_scene(scene: PTScene, world: WorldGeometry, lights, bvh_host) -> PTScene:
+    """`scene` with moved geometry under the same topology (JAX
+    Renderer._update_geometry, its refit branch), on the scene's device:
+    the new world and lights, the node boxes refitted from the world's
+    vertices (bvh_host: the host tree `make_pt_scene` built), the packed
+    records and nodes, the wide node boxes and the leaf records. Every other
+    field depends on no position (materials, textures, environment, wide
+    maps, leaf words), and the PTMeta, its stack bound included, stays."""
+    dev = scene.leaf_records.device
+    world = _to_device(world, dev)
+    tv = world.tri_vertex.long()
+    p0, p1, p2 = (world.position[tv[:, k]] for k in range(3))
+    refitted = bvh_ops.refit(bvh_host, p0, p1, p2)
+    order = torch.as_tensor(np.asarray(bvh_host.tri_order), device=dev).long()
+    packed = bvh_ops.pack_update(scene.packed, bvh_host, p0[order], (p1 - p0)[order],
+                                 (p2 - p0)[order], refitted=refitted)
+    leaf_ids = torch.as_tensor(np.asarray(scene.wide_maps.leaf_ids), device=dev).long()
+    return scene._replace(
+        world=world,
+        bvh=scene.bvh._replace(aabb_min=refitted.aabb_min, aabb_max=refitted.aabb_max),
+        packed=packed,
+        lights=_to_device(lights, dev),
+        wide_nodes=bvh_ops.assemble_wide(packed.nodes, scene.wide_maps.child_src),
+        leaf_records=packed.records[leaf_ids],
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Scene data model (host side, numpy) — the subset the port's path uses.
+"""Scene data model (host side, numpy).
 
-Mirrors gltf_renderer_tpu/scene/types.py field for field, so a scene loaded
-by the JAX package's glTF loader can be handed to the port's flatten and
-scene-build functions unchanged (they read fields by name).
+Mirrors gltf_renderer_tpu/scene/types.py field for field: the port's glTF
+loader (scene/gltf.py) fills these types, and a scene loaded by the JAX
+package's loader converts into them (`convert.from_jax_scene`).
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ TEX_THICKNESS = 14
 N_TEX_SLOTS = 15
 
 MATERIAL_FLAG_DOUBLE_SIDED = 1 << 0
+MATERIAL_FLAG_UNLIT = 1 << 1
 
 ALPHA_MODE_OPAQUE = 0
 ALPHA_MODE_MASK = 1
@@ -43,6 +44,15 @@ LIGHT_TYPE_DIRECTIONAL = 2
 WRAP_REPEAT = 0
 WRAP_CLAMP = 1
 WRAP_MIRROR = 2
+
+# Animation paths / interpolation.
+PATH_TRANSLATION = 0
+PATH_ROTATION = 1
+PATH_SCALE = 2
+PATH_WEIGHTS = 3
+INTERP_STEP = 0
+INTERP_LINEAR = 1
+INTERP_CUBICSPLINE = 2
 
 # Packed material row layout (see pack_material_rows).
 MATERIAL_ROW_FACTORS = 34
@@ -182,6 +192,53 @@ class Node:
 
 
 @dataclasses.dataclass
+class Skin:
+    joints: np.ndarray            # (J,) node ids
+    inverse_bind: np.ndarray      # (J, 4, 4) row-major
+    skeleton: int = -1
+
+
+@dataclasses.dataclass
+class AnimationChannel:
+    node: int
+    path: int            # PATH_*
+    interpolation: int   # INTERP_*
+    times: np.ndarray    # (K,)
+    values: np.ndarray   # (K, D), or (3K, D) for a cubic spline
+
+
+@dataclasses.dataclass
+class Animation:
+    name: str
+    channels: List[AnimationChannel]
+
+    @property
+    def duration(self) -> float:
+        return max((float(c.times[-1]) for c in self.channels if len(c.times)), default=0.0)
+
+
+@dataclasses.dataclass
+class IridescenceParams:
+    """KHR_materials_iridescence, parsed but read by neither backend."""
+
+    factor: float = 0.0
+    ior: float = 1.3
+    thickness_minimum: float = 100.0
+    thickness_maximum: float = 400.0
+
+
+@dataclasses.dataclass
+class CameraDef:
+    type: str = "perspective"   # or "orthographic"
+    yfov: float = 1.0
+    aspect: float = 0.0         # 0 = use the viewport's
+    znear: float = 0.1
+    zfar: float = 0.0           # 0 = infinite
+    xmag: float = 1.0
+    ymag: float = 1.0
+
+
+@dataclasses.dataclass
 class MeshDef:
     primitives: List[int]
     weights: Optional[np.ndarray] = None
@@ -189,7 +246,7 @@ class MeshDef:
 
 @dataclasses.dataclass
 class Scene:
-    """Host scene: the fields the flatten and scene-build steps read."""
+    """Host scene as the glTF loader returns it."""
 
     pools: GeometryPools
     primitives: PrimitiveTable
@@ -201,7 +258,12 @@ class Scene:
     scenes: List[List[int]] = dataclasses.field(default_factory=list)
     default_scene: int = 0
     meshes: List[MeshDef] = dataclasses.field(default_factory=list)
+    skins: List[Skin] = dataclasses.field(default_factory=list)
+    animations: List[Animation] = dataclasses.field(default_factory=list)
+    cameras: List[CameraDef] = dataclasses.field(default_factory=list)
+    iridescence: List[IridescenceParams] = dataclasses.field(default_factory=list)
     topo_order: np.ndarray = None
+    name: str = ""
 
     def num_nodes(self) -> int:
         return len(self.nodes)

@@ -1,7 +1,7 @@
 """Core mapping / basis math on torch tensors (vectors on the last axis).
 
-Port of gltf_renderer_tpu/utils/math.py, restricted to what the path tracer
-uses. Sums over the last axis are written out term by term in index order,
+Port of gltf_renderer_tpu/utils/math.py, restricted to what the renderers
+and the skinning use. Sums over the last axis are written out term by term in index order,
 so the rounding matches the reference's sequential reduction on every device.
 """
 
@@ -55,6 +55,71 @@ def saturate(x):
 def max_value(color):
     """MaxValue — Bsdf.hlsli:34-37."""
     return torch.amax(color, dim=-1, keepdim=True)
+
+
+def sign_not_zero(x):
+    """SignNotZero — Common.hlsli:70-76 (>= 0 -> 1 else -1)."""
+    return torch.where(x >= 0.0, 1.0, -1.0).to(x.dtype)
+
+
+def encode_octahedral(n):
+    """Unit vector -> [-1, 1]^2 octahedral map (Common.hlsli:78-89)."""
+    octa = n / (torch.abs(n[..., 0:1]) + torch.abs(n[..., 1:2]) + torch.abs(n[..., 2:3]))
+    xy = octa[..., 0:2]
+    folded = sign_not_zero(xy) * (1.0 - torch.abs(octa[..., [1, 0]]))
+    return torch.where(octa[..., 2:3] >= 0.0, xy, folded)
+
+
+def decode_octahedral(e):
+    """[-1, 1]^2 -> unit vector (Common.hlsli:91-103)."""
+    z = 1.0 - torch.abs(e[..., 0:1]) - torch.abs(e[..., 1:2])
+    xy = torch.where(z >= 0.0, e, sign_not_zero(e) * (1.0 - torch.abs(e[..., [1, 0]])))
+    return normalize(torch.cat([xy, z], -1))
+
+
+def create_basis_accurate(n):
+    """Duff et al. branchless orthonormal basis (Common.hlsli:46-53)."""
+    s = sign_not_zero(n[..., 2:3])
+    a = -1.0 / (s + n[..., 2:3])
+    b = n[..., 0:1] * n[..., 1:2] * a
+    b1 = torch.cat([1.0 + s * n[..., 0:1] * n[..., 0:1] * a, s * b, -s * n[..., 0:1]], -1)
+    b2 = torch.cat([b, s + n[..., 1:2] * n[..., 1:2] * a, -n[..., 1:2]], -1)
+    return b1, b2
+
+
+def decode_tangent_space(encoded):
+    """Normalised float4 of the 10:10:10:2 codec -> (normal, tangent[4])
+    (Vertex.hlsli DecodeTangentSpace:5-20): octahedral normal, the tangent
+    as an angle in the Duff basis, the winding in .w."""
+    normal = decode_octahedral(encoded[..., 0:2] * 2.0 - 1.0)
+    ct, cb = create_basis_accurate(normal)
+    angle = TAU * encoded[..., 2:3]
+    tangent_xyz = torch.cos(angle) * ct + torch.sin(angle) * cb
+    tangent_w = torch.where(encoded[..., 3:4] > 0.0, 1.0, -1.0).to(encoded.dtype)
+    return normal, torch.cat([tangent_xyz, tangent_w], -1)
+
+
+def encode_tangent_space(normal, tangent):
+    """(normal, tangent[4]) -> the packed 32-bit word, held in an int64
+    tensor (Vertex.hlsli EncodeTangentSpace:22-44)."""
+    en = 0.5 * encode_octahedral(normal) + 0.5
+    qn = trunc_i32(torch.clamp(en, 0.0, 1.0) * 1023.0 + 0.5)
+    n2 = decode_octahedral(2.0 * (qn.to(torch.float32) / 1023.0) - 1.0)
+    ct, cb = create_basis_accurate(n2)
+    angle = torch.atan2(sum_last(tangent[..., 0:3] * cb), sum_last(tangent[..., 0:3] * ct))
+    qt = trunc_i32((angle / TAU + 0.5) * 1023.0 + 0.5).to(torch.int64)
+    qw = torch.where(tangent[..., 3] == 1.0, 3, 0).to(torch.int64)
+    qn = qn.to(torch.int64)
+    return qn[..., 0] | (qn[..., 1] << 10) | (qt << 20) | (qw << 30)
+
+
+def unpack_r10g10b10a2(packed):
+    """Packed 32-bit word (int64 tensor) -> normalised float4 (Vertex.hlsli:46-49)."""
+    p = packed.to(torch.int64)
+    return torch.stack([(p & 0x3FF).to(torch.float32) / 1023.0,
+                        ((p >> 10) & 0x3FF).to(torch.float32) / 1023.0,
+                        ((p >> 20) & 0x3FF).to(torch.float32) / 1023.0,
+                        ((p >> 30) & 0x3).to(torch.float32) / 3.0], -1)
 
 
 def create_basis(n):

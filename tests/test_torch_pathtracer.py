@@ -182,6 +182,13 @@ def test_port_imports_no_jax():
         "import gltf_renderer_tpu_torch.tools.bench_traverse\n"
         "import gltf_renderer_tpu_torch.tools.bench_launch\n"
         "import gltf_renderer_tpu_torch.tools.count_ops\n"
+        "import gltf_renderer_tpu_torch.scene.gltf\n"
+        "import gltf_renderer_tpu_torch.scene.textures\n"
+        "import gltf_renderer_tpu_torch.env.hdr_io\n"
+        "import gltf_renderer_tpu_torch.env.piz\n"
+        "import gltf_renderer_tpu_torch.anim.animation\n"
+        "import gltf_renderer_tpu_torch.anim.skinning\n"
+        "import gltf_renderer_tpu_torch.utils.scene_cache\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gltf_renderer_tpu' or m.startswith('gltf_renderer_tpu.')]\n"
