@@ -33,8 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
    its launcher is timed in turns with this one's (parent, new, new,
    parent) and its outputs held to this one's;
 6. raster fidelity: the helmet-raster golden configuration (192x108, frame
-   0) through raster_step + post_step in both visibilities, against the
-   committed CPU golden tests/goldens/helmet_raster.png by SSIM (bar 0.99);
+   0; the port's GLB through Renderer.load_scene(path)) in both
+   visibilities, against the committed CPU golden
+   tests/goldens/helmet_raster.png by SSIM (bar 0.99);
 7. the raster frame at full size: bench scene, 1920x1080, raycast
    visibility + bloom + AgX -> u8, one warm and three timed frames, then the
    same with tiled visibility; the traversal kernel launches once a chunk
@@ -100,6 +101,27 @@ Phases (any failure exits non-zero and prints no result line):
    strips in each visibility (8 traversal launches raycast, 1 tile launch
    tiled); and the anim_pose golden (render_anim_pose_golden) against
    tests/goldens/anim_pose.png by SSIM (bar 0.99);
+7f. the Renderer, the CLI and the viewer (the five golden configurations,
+   each written by the port's writers and drawn through
+   Renderer.load_scene(path) as tests/golden_configs.py configures the JAX
+   renderer, are drawn once each in phases 6, 7b, 7c, 7d and 7e, and their
+   SSIMs logged together after 7f): on phase 7e's courtyard GLB at
+   1920x1080 under phase 7e's environment, the save / load round trip (two
+   frames, save_state, the third; a fresh Renderer's first frame after
+   load_state identical to it, u8 and HDR), then one warm and four timed
+   path-tracer frames with profile on (frame_ms, pass_ms, every traversal
+   launch accounted for: 3 a chunk plus one a retry or alpha-shadow hop;
+   rays per second beside phase 7b's step) and one warm and three timed
+   raster frames (one traversal launch a chunk plus one a retry hop, no
+   tile launch); the CLI as four subprocesses at once (`python -m
+   gltf_renderer_tpu_torch.app.cli`): the courtyard at 1920x1080 path
+   traced (spp 4) and rasterized under the .hdr sky, rc 0 and a PNG of the
+   right shape with nonzero std each, three numbered frames of the
+   animated strips that differ, rc 1 for a missing file; the viewer
+   (`app.viewer.serve` on a loopback port) on the strips at 960x540: an
+   orbit, a debug-output `set`, a backend toggle and an animation
+   transport input, each seen in /state and followed by a newer
+   /frame.png, then shut down with its render thread;
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -190,6 +212,10 @@ ANIM_FRAMES = 8
 ANIM_DELTA = 1.0 / 30.0
 ANIM_STRIPS = 64
 ANIM_GOLDEN = os.path.join(ROOT, "tests", "goldens", "anim_pose.png")
+APP_TIMED_PT = 4       # phase 7f: the Renderer's timed 1080p path-tracer frames
+APP_TIMED_RASTER = 3   # and raster frames, each after one warm frame
+CLI_TIMEOUT_S = 300
+VIEWER_DEADLINE_S = 60
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
 REPLACES = "gltf_renderer_tpu/ops/pallas_trace.py:123"
@@ -627,35 +653,38 @@ def phase_raster_kernel(scene):
 
 
 def phase_raster_fidelity(device):
+    """The helmet-raster golden through the Renderer (the port's GLB, one
+    fresh Renderer a visibility under one environment build) against
+    tests/goldens/helmet_raster.png. Returns the two SSIMs."""
     import torch
 
     from PIL import Image
 
-    from gltf_renderer_tpu_torch.bench_scene import build_raster_fidelity_scene
-    from gltf_renderer_tpu_torch.render import renderer
+    from gltf_renderer_tpu_torch.bench_scene import analytic_equirect, helmet_raster_renderer
+    from gltf_renderer_tpu_torch.env.environment import build_environment
+    from gltf_renderer_tpu_torch.ops import raster
     from gltf_renderer_tpu_torch.utils.ssim import ssim
 
-    from gltf_renderer_tpu_torch import camera
-    from gltf_renderer_tpu_torch.ops import raster
-
-    scene, meta, rs, params, c2w, cam_pos, res = build_raster_fidelity_scene(device=device)
-    ins = raster.prepare_tiles(scene.world.position, scene.world.tri_vertex,
-                               camera.world_to_clip(c2w), *res,
-                               double_sided=scene.world.tri_double_sided)
-    log(f"[raster-fidelity] {res[0]}x{res[1]} pairs={int(ins.n_pairs)}/{ins.pair_cap} "
-        f"crossers={int(ins.n_cross)}/{ins.clip_cap}")
+    env = build_environment(analytic_equirect(), device=device)
     golden = np.asarray(Image.open(RASTER_GOLDEN))
     scores = {}
     for vis in ("raycast", "tiled"):
-        hdr = renderer.raster_step(scene, meta, rs, params, c2w, cam_pos, res, 0, visibility=vis)
-        img = renderer.post_step(hdr, rs.tonemap, rs.bloom, 0).cpu().numpy()
-        if img.shape != golden.shape or not bool(torch.isfinite(hdr).all()):
+        r = helmet_raster_renderer(device, env)
+        r.raster_visibility = vis
+        img = r.draw_frame()
+        if img.shape != golden.shape or not bool(torch.isfinite(r._accum).all()):
             raise AssertionError(f"raster fidelity {vis}: shape {img.shape} or non-finite HDR")
         scores[vis] = ssim(img, golden)
         diff = np.abs(img.astype(np.int16) - golden.astype(np.int16))
-        log(f"[raster-fidelity] {vis} {res[0]}x{res[1]} ssim={scores[vis]:.5f} "
-            f"(bar {RASTER_SSIM_BAR}) u8 within 1: {(diff <= 1).all(-1).mean():.5f} "
-            f"max diff {int(diff.max())}")
+        log(f"[raster-fidelity] {vis} {img.shape[1]}x{img.shape[0]} through "
+            f"Renderer.load_scene(path): ssim={scores[vis]:.6f} (bar {RASTER_SSIM_BAR}) u8 "
+            f"within 1: {(diff <= 1).all(-1).mean():.5f} max diff {int(diff.max())}")
+    world = r._ptscene.world
+    ins = raster.prepare_tiles(world.position, world.tri_vertex, r.camera.world_to_clip(),
+                               r.settings.width, r.settings.height,
+                               double_sided=world.tri_double_sided)
+    log(f"[raster-fidelity] pairs={int(ins.n_pairs)}/{ins.pair_cap} "
+        f"crossers={int(ins.n_cross)}/{ins.clip_cap}")
     if scores["raycast"] < RASTER_SSIM_BAR or scores["tiled"] < RASTER_SSIM_BAR:
         raise AssertionError(f"raster fidelity below the bar: {scores}")
     return scores
@@ -819,12 +848,14 @@ def phase_raster_blend(device, card):
           "raster_blend": k1_main_size(scene, meta, blend_rays, "[raster-blend] kernel",
                                        blend=bvh_ops.BLEND_ONLY)}
 
-    # The box-raster golden, drawn as the renderer draws a raster frame.
+    # The box-raster golden, through the Renderer.
     golden = np.asarray(Image.open(BOX_GOLDEN))
+    box_ssim = {}
     for vis in ("raycast", "tiled"):
-        img = render_box_raster_golden(device, vis).cpu().numpy()
-        score = ssim(img, golden) if img.shape == golden.shape else 0.0
-        log(f"[raster-blend] box-raster golden {vis} ssim={score:.5f} (bar {RASTER_SSIM_BAR})")
+        img = render_box_raster_golden(device, vis)
+        score = box_ssim[vis] = ssim(img, golden) if img.shape == golden.shape else 0.0
+        log(f"[raster-blend] box-raster golden {vis} through Renderer.load_scene(path): "
+            f"ssim={score:.6f} (bar {RASTER_SSIM_BAR})")
         if score < RASTER_SSIM_BAR:
             raise AssertionError(f"the box-raster golden fails its bar ({vis})")
 
@@ -872,7 +903,7 @@ def phase_raster_blend(device, card):
             or not bool(torch.isfinite(lit).all()) or not bool(bg.any())
             or bool((mv[bg] != 0).any()) or not float(moved.max()) > 0.5):
         raise AssertionError("the zoo's motion vectors are wrong")
-    return dict(k1=k1, frames=frames)
+    return dict(k1=k1, frames=frames, ssim=box_ssim)
 
 
 def images_match(got, want, share=0.98, mean_rel=0.01):
@@ -912,12 +943,12 @@ def phase_courtyard(device, card):
     # Phase 5's tile-kernel check and timing on the courtyard's bench view.
     k2 = raster_view("courtyard", scene.world, c2w, timed=True)
 
-    # The golden configuration, drawn as the renderer draws it.
+    # The golden configuration, through the Renderer.
     img, stats = render_courtyard_golden(device)
     golden = np.asarray(Image.open(COURTYARD_GOLDEN))
-    img = img.cpu().numpy()
     score = ssim(img, golden) if img.shape == golden.shape else 0.0
-    log(f"[courtyard] golden {img.shape[1]}x{img.shape[0]} ssim={score:.5f} "
+    log(f"[courtyard] golden {img.shape[1]}x{img.shape[0]} through Renderer.load_scene(path): "
+        f"ssim={score:.6f} "
         f"(bar {RASTER_SSIM_BAR}) nan_inf={float(stats[1]):.0f}")
     if score < RASTER_SSIM_BAR or float(stats[1]) != 0.0:
         raise AssertionError("the courtyard golden fails its bar")
@@ -928,7 +959,7 @@ def phase_courtyard(device, card):
                       card)
     if sum(a for a, _ in run["hops"]) == 0:
         raise AssertionError("the courtyard step ran no masked retry")
-    return dict(k1=k1, k2=k2, **run)
+    return dict(k1=k1, k2=k2, ssim=score, **run)
 
 
 def scene_steps(tag, scene, meta, settings, params, c2w, timed, card):
@@ -1008,12 +1039,12 @@ def phase_materials(device, card):
     k1 = {rays[0]: k1_main_size(scene, meta, rays, "[materials] kernel")
           for rays in (sets[0], sets[2])}
 
-    # The golden configuration, drawn as the renderer draws it.
+    # The golden configuration, through the Renderer.
     img, stats = render_materials_golden(device)
     golden = np.asarray(Image.open(MATERIALS_GOLDEN))
-    img = img.cpu().numpy()
     score = ssim(img, golden) if img.shape == golden.shape else 0.0
-    log(f"[materials] golden {img.shape[1]}x{img.shape[0]} ssim={score:.5f} "
+    log(f"[materials] golden {img.shape[1]}x{img.shape[0]} through Renderer.load_scene(path): "
+        f"ssim={score:.6f} "
         f"(bar {RASTER_SSIM_BAR}) nan_inf={float(stats[1]):.0f}")
     if score < RASTER_SSIM_BAR or float(stats[1]) != 0.0:
         raise AssertionError("the materials golden fails its bar")
@@ -1021,7 +1052,7 @@ def phase_materials(device, card):
     phase_materials_modes(device)
     run = scene_steps("materials", scene, meta, settings, params, c2w, MATERIALS_TIMED_STEPS,
                       card)
-    return dict(k1=k1, **run)
+    return dict(k1=k1, ssim=score, **run)
 
 
 def phase_materials_modes(device):
@@ -1354,13 +1385,265 @@ def phase_animation(device, card, env):
 
     img, stats = render_anim_pose_golden(device)
     golden = np.asarray(Image.open(ANIM_GOLDEN))
-    img = img.cpu().numpy()
     score = ssim(img, golden) if img.shape == golden.shape else 0.0
-    log(f"[anim] anim_pose golden {img.shape[1]}x{img.shape[0]} ssim={score:.5f} "
+    log(f"[anim] anim_pose golden {img.shape[1]}x{img.shape[0]} through "
+        f"Renderer.load_scene(path): ssim={score:.6f} "
         f"(bar {RASTER_SSIM_BAR}) nan_inf={float(stats[1]):.0f}")
     if score < RASTER_SSIM_BAR or float(stats[1]) != 0.0:
         raise AssertionError("the anim_pose golden fails its bar")
+    out["ssim"] = score
     return out
+
+
+def phase_app(device, card, env, tmp, court, blend):
+    """Phase 7f, the Renderer, the CLI and the viewer on the card: the save
+    / load round trip and the Renderer's 1080p frames on the courtyard GLB
+    (phase 7e's file and environment); the CLI as subprocesses; the viewer
+    over HTTP on the skinned strips. Returns the K1 launches this process
+    made and the numbers logged."""
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+
+    tr.KERNEL_LAUNCHES = 0
+    ref_calls = tr.REFERENCE_CALLS
+    path = os.path.join(tmp, "courtyard.glb")
+    out = app_courtyard(device, card, env, path, tmp, court, blend)
+    out["cli"] = app_cli(tmp, path)
+    out["viewer"] = app_viewer(device, card, tmp)
+    out["k1"] = tr.KERNEL_LAUNCHES
+    if tr.REFERENCE_CALLS != ref_calls:
+        raise AssertionError("phase 7f ran the traversal's plain version")
+    return out
+
+
+def app_renderer(device, env, path):
+    """A Renderer on the courtyard GLB at 1920x1080 as the bench's
+    courtyard (2 bounces, alpha shadows, the colonnade view) under `env`."""
+    from gltf_renderer_tpu_torch.bench_scene import COURTYARD_VIEW, golden_renderer
+
+    return golden_renderer(path, *FULL_RES, "pathtracer", COURTYARD_VIEW, device,
+                           pt_kw=dict(max_bounces=2, min_bounces=2, alpha_shadows=True),
+                           env=env)
+
+
+def app_courtyard(device, card, env, path, tmp, court, blend):
+    """The save / load round trip at 1080p (the third frame of a renderer
+    and the first after load_state in a fresh one: u8 and HDR identical),
+    then the Renderer's 1080p frames with profile on, path tracer (one warm
+    and APP_TIMED_PT frames: every K1 launch accounted for) and raster (one
+    warm and APP_TIMED_RASTER frames)."""
+    import dataclasses
+
+    from gltf_renderer_tpu_torch.ops import raster
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+
+    w, h = FULL_RES
+    r1 = app_renderer(device, env, path)
+    t0 = time.perf_counter()
+    r1.draw_frame()
+    first_s = time.perf_counter() - t0
+    r1.draw_frame()
+    ckpt = os.path.join(tmp, "state.npz")
+    r1.save_state(ckpt)
+    third = r1.draw_frame()
+    r2 = app_renderer(device, env, path)
+    r2.load_state(ckpt)
+    resumed = r2.draw_frame()
+    same_u8 = resumed.shape == third.shape and bool((resumed == third).all())
+    same_hdr = identical(r2._accum, r1._accum)
+    log(f"[app] save/load round trip, courtyard GLB {w}x{h} path tracer: frame 3 after "
+        f"load_state identical u8={same_u8} HDR={same_hdr} (accumulated "
+        f"{r2.accumulated_frames}, frame {r2.frame_index}); first frame with the build "
+        f"{first_s:.3f}s")
+    if not (same_u8 and same_hdr):
+        raise AssertionError("the resumed frame differs from the third frame")
+
+    # The Renderer's path-tracer frame: one warm, then timed, profile on.
+    r1.profile = True
+    chunks = -(-pt._tile_order(w, h, r1.device)[0].shape[0] // pt.RAY_CHUNK)
+    r1.draw_frame()
+    launches0, rays0 = tr.KERNEL_LAUNCHES, r1.ray_stats.clone()
+    hops0 = pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS
+    frame_ms, passes = [], []
+    for _ in range(APP_TIMED_PT):
+        img = r1.draw_frame()
+        frame_ms.append(r1.stats["frame_ms"])
+        passes.append(r1.stats["pass_ms"])
+    launches = tr.KERNEL_LAUNCHES - launches0
+    hops = pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS - hops0
+    rays, nan = (float(x) for x in (r1.ray_stats - rays0))
+    expected = APP_TIMED_PT * chunks * (1 + r1.settings.pt.max_bounces) + hops
+    mrays = rays / (sum(frame_ms) / 1e3) / 1e6
+    log(f"[app] Renderer path-tracer frame {w}x{h} spp=1 (courtyard GLB): frame_ms "
+        f"{frame_ms} pass_ms {passes}; K1 launches {launches} in {APP_TIMED_PT} frames "
+        f"({expected} expected: {chunks} chunks x 3 + {hops} retry / alpha-shadow hops); "
+        f"rays {rays:.0f} -> {mrays:.4f} Mrays/s of the Renderer's frame against phase 7b's "
+        f"spp=4 step {court['mrays']:.4f} (the difference: per-frame reset key, u8 copy to "
+        f"the host, post and profile syncs); nan_inf={nan:.0f} card={card}")
+    if (launches != expected or nan != 0.0 or img.shape != (h, w, 3)
+            or set(passes[-1]) != {"skin_and_refit", "path_trace_scene",
+                                   "post(bloom+tonemap)"}):
+        raise AssertionError("the Renderer's 1080p path-tracer frames are wrong")
+
+    # The raster backend through the same Renderer.
+    r1.settings = dataclasses.replace(r1.settings, backend="rasterizer")
+    r1.draw_frame()
+    k1_0, k2_0, rh0 = tr.KERNEL_LAUNCHES, raster.KERNEL_LAUNCHES, rz.RASTER_RETRY_HOPS
+    r_ms, r_passes = [], []
+    for _ in range(APP_TIMED_RASTER):
+        img = r1.draw_frame()
+        r_ms.append(r1.stats["frame_ms"])
+        r_passes.append(r1.stats["pass_ms"])
+    k1 = tr.KERNEL_LAUNCHES - k1_0
+    r_hops = rz.RASTER_RETRY_HOPS - rh0
+    r_chunks = raster_chunks(w, h)
+    d7 = blend["frames"]["courtyard"]["raycast"]
+    log(f"[app] Renderer raster frame {w}x{h} raycast (courtyard GLB): frame_ms {r_ms} "
+        f"pass_ms {r_passes}; K1 launches {k1} ({APP_TIMED_RASTER * r_chunks} + {r_hops} "
+        f"retry hops expected), K2 {raster.KERNEL_LAUNCHES - k2_0}; phase 7d's courtyard "
+        f"raycast frame: draw {[round(x * 1e3, 3) for x in d7[3]]} ms + post "
+        f"{[round(x * 1e3, 3) for x in d7[4]]} ms card={card}")
+    if (k1 != APP_TIMED_RASTER * r_chunks + r_hops or raster.KERNEL_LAUNCHES != k2_0
+            or img.shape != (h, w, 3) or float(img.std()) == 0.0):
+        raise AssertionError("the Renderer's 1080p raster frames are wrong")
+    return dict(frame_ms=frame_ms, pass_ms=passes, mrays=mrays, pt_launches=launches,
+                pt_hops=hops, raster_ms=r_ms, raster_pass_ms=r_passes)
+
+
+def app_cli(tmp, courtyard):
+    """`python -m gltf_renderer_tpu_torch.app.cli` as a user runs it, the
+    four runs started together (each its own process on the one card).
+    Returns each run's wall seconds."""
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    from gltf_renderer_tpu_torch.scene.procedural import write_skinned_gltf
+
+    strips = write_skinned_gltf(os.path.join(tmp, "strips.gltf"), strips=ANIM_STRIPS)
+    w, h = FULL_RES
+    size = ["--width", str(w), "--height", str(h)]
+    sky = ["--environment-map", os.path.join(tmp, "sky.hdr")]
+    runs = {
+        "pathtracer": (["--gltf", courtyard, *size, "--spp", "4", *sky], ["cli_pt.png"], 0),
+        "rasterizer": (["--gltf", courtyard, *size, "--backend", "rasterizer", *sky],
+                       ["cli_raster.png"], 0),
+        "frames": (["--gltf", strips, "--width", "960", "--height", "540", "--spp", "1",
+                    "--frames", "3", "--animation", "0"],
+                   [f"cli_frames_{k:04d}.png" for k in range(3)], 0),
+        "missing": (["--gltf", os.path.join(tmp, "missing.glb")], [], 1),
+    }
+
+    def run(name):
+        argv, files, _ = runs[name]
+        out = os.path.join(tmp, "cli_frames.png" if name == "frames" else
+                           files[0] if files else "cli_missing.png")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gltf_renderer_tpu_torch.app.cli", *argv,
+                               "--output", out], cwd=ROOT, capture_output=True, text=True,
+                              timeout=CLI_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(runs)) as pool:
+        done = dict(zip(runs, pool.map(run, runs)))
+    log(f"[app] cli: {len(runs)} runs at once in {time.perf_counter() - t0:.2f}s wall")
+    walls = {}
+    for name, (argv, files, rc_want) in runs.items():
+        proc, walls[name] = done[name]
+        imgs = [np.asarray(Image.open(os.path.join(tmp, f))) for f in files
+                if os.path.exists(os.path.join(tmp, f))]
+        shape = (540, 960, 3) if name == "frames" else (h, w, 3)
+        ok = (proc.returncode == rc_want and len(imgs) == len(files)
+              and all(i.shape == shape and i.dtype == np.uint8 and i.std() > 0 for i in imgs))
+        if name == "frames":
+            ok = ok and all((imgs[k] != imgs[k + 1]).any() for k in range(2))
+        log(f"[app] cli {name}: rc {proc.returncode} (want {rc_want}), {walls[name]:.2f}s wall, "
+            f"files {files} shapes {[i.shape for i in imgs]} std "
+            f"{[round(float(i.std()), 2) for i in imgs]}; last stderr line: "
+            f"{(proc.stderr.strip().splitlines() or [''])[-1]}")
+        if not ok:
+            for line in proc.stderr.splitlines()[-20:]:
+                log(f"[app:cli:stderr] {line}")
+            raise AssertionError(f"the CLI run {name} failed its checks")
+        if proc.stdout.strip():
+            raise AssertionError(f"the CLI printed on stdout: {proc.stdout[:200]!r}")
+    return walls
+
+
+def app_viewer(device, card, tmp):
+    """The viewer on the skinned strips at 960x540, on a loopback port:
+    one orbit, one `set` of debug_output, one backend toggle and one
+    animation transport input, each seen in /state and followed by a newer
+    /frame.png; then shut down. Returns the wall seconds of each wait."""
+    import urllib.request
+
+    from gltf_renderer_tpu_torch.app import viewer
+
+    def get(path):
+        return urllib.request.urlopen(base + path, timeout=10)
+
+    def state():
+        return json.loads(get("/state").read())
+
+    def wait(pred, what):
+        deadline = time.perf_counter() + VIEWER_DEADLINE_S
+        while time.perf_counter() < deadline:
+            st = state()
+            if st["error"]:
+                raise AssertionError(f"the viewer's render loop failed: {st['error']}")
+            if pred(st):
+                return st
+            time.sleep(0.02)
+        raise AssertionError(f"the viewer timed out waiting for {what}")
+
+    def seq():
+        return int(get("/frame.png").headers["X-Frame-Seq"])
+
+    t0 = time.perf_counter()
+    server, vstate, thread = viewer.serve(os.path.join(tmp, "strips.gltf"), width=960,
+                                          height=540, port=0, block=False, device=device,
+                                          host="127.0.0.1")
+    walls = {}
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        wait(lambda st: st["frame"] > 0, "the first frame")
+        walls["first_frame"] = time.perf_counter() - t0
+        inputs = {
+            "orbit": ({"type": "orbit", "dx": 60, "dy": 10}, lambda st: st["orbit"][0] != 0.0),
+            "set": ({"type": "set", "field": "debug_output", "value": 11},
+                    lambda st: st["settings"]["debug_output"] == 11),
+            "backend": ({"type": "backend"}, lambda st: st["backend"] == "rasterizer"),
+            "anim": ({"type": "anim", "playing": False, "time": 0.25},
+                     lambda st: not st["animation_playing"] and st["animation_time"] == 0.25),
+        }
+        for name, (ev, shown) in inputs.items():
+            t1 = time.perf_counter()
+            req = urllib.request.Request(base + "/input", data=json.dumps(ev).encode(),
+                                         method="POST")
+            if urllib.request.urlopen(req, timeout=10).read() != b"ok":
+                raise AssertionError(f"the viewer refused {ev}")
+            seen = wait(shown, f"{name} in /state")["frame"]
+            wait(lambda st: st["frame"] > seen, f"a frame after {name}")
+            if seq() <= seen:
+                raise AssertionError(f"/frame.png did not advance after {name}")
+            walls[name] = time.perf_counter() - t1
+        st = state()
+        log(f"[app] viewer 960x540 strips: first frame {walls['first_frame']:.2f}s; input -> "
+            f"/state -> newer frame: " + ", ".join(f"{k} {v:.3f}s" for k, v in walls.items()
+                                                   if k != "first_frame")
+            + f"; frames {st['frame']}, last frame_ms {st['stats'].get('frame_ms')} "
+              f"card={card}")
+    finally:
+        vstate.running = False
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=VIEWER_DEADLINE_S)
+    if thread.is_alive() or vstate.error:
+        raise AssertionError(f"the viewer's render loop did not stop cleanly: {vstate.error}")
+    return walls
 
 
 def identical(a, b):
@@ -1753,7 +2036,7 @@ def main() -> int:
     phase_fidelity(scene, meta, settings, params)
     launches, mrays, _ = phase_main_path(scene, meta, settings, params, c2w, card)
     k2 = phase_raster_kernel(scene)
-    phase_raster_fidelity(device)
+    helmet_ssim = phase_raster_fidelity(device)
     frames = phase_raster_frame(scene, meta, params, c2w, card)
     log(f"[done] phases 1-7 in {time.perf_counter() - t_start:.1f}s")
     t0 = time.perf_counter()
@@ -1769,8 +2052,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         env = phase_env_io(device, tmp)
         glb = phase_loaded_courtyard(device, card, env, tmp)
-    anim = phase_animation(device, card, env)
-    log(f"[done] phase 7e in {time.perf_counter() - t0:.1f}s")
+        anim = phase_animation(device, card, env)
+        log(f"[done] phase 7e in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        app = phase_app(device, card, env, tmp, court, blend)
+        log(f"[done] phase 7f in {time.perf_counter() - t0:.1f}s; K1 launches {app['k1']}")
+    log(f"[goldens] each drawn once through Renderer.load_scene(path) (bar {RASTER_SSIM_BAR}): "
+        f"box_raster {blend['ssim']}, helmet_raster {helmet_ssim}, anim_pose "
+        f"{anim['ssim']:.6f}, materials_pt {zoo['ssim']:.6f}, courtyard_pt {court['ssim']:.6f}")
     t0 = time.perf_counter()
     brute_row = phase_brute(device)
     perlane_rows = phase_perlane(device)
@@ -1793,7 +2082,7 @@ def main() -> int:
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
         "launches": launches + court["launches"] + zoo["launches"]
         + sum(frames[v][0] for v in frames) + sum(f[0] for f in r_frames) + glb["launches"]
-        + anim["k1"],
+        + anim["k1"] + app["k1"],
         "max_abs_err": max(worst_abs, anim["worst_abs"],
                            *(x["max_abs"] for x in court["k1"].values()),
                            *(x["max_abs"] for x in zoo["k1"].values()),

@@ -10,48 +10,38 @@ materials, alpha-MASKed banners) seen down the colonnade from
 size 128, env NEE + MIS with 2 bounces and the luminance clamp. The
 courtyard skips the raster-only environment prefilters.
 
-`render_courtyard_golden` is the courtyard golden configuration
-(tests/golden_configs.py::render_courtyard_pt, golden
-tests/goldens/courtyard_pt.png): 128x72, tex_size 64, alpha shadows, the
-32x64 analytic environment, two frames (seeds 0 and 1) accumulated and
-tone-mapped as `Renderer.draw_frame` does.
+The five golden configurations (tests/golden_configs.py, goldens in
+tests/goldens/) are drawn through the port's Renderer, each from a file
+the port's writers write and `Renderer.load_scene(path)` reads, set up as
+golden_configs._renderer sets up the JAX renderer (`golden_renderer`):
+`render_box_raster_golden` (the box and its point light rasterized at
+256x256), `helmet_raster_renderer` (the textured sphere GLB under the
+32x64 analytic environment, to be rasterized at 192x108), `render_anim_pose_golden`
+(the skinned strip and the morph cube at 128x96, one bounce, the first frame
+at delta 0.5, three more at delta 0, side by side), `render_materials_golden`
+(the zoo under the analytic environment, 160x120, eight frames) and
+`render_courtyard_golden` (the courtyard GLB at tex_size 64, 128x72, two
+frames, alpha shadows). The raster ones draw with the Renderer's
+`raster_visibility`: raycast as the JAX renderer draws, or tiled.
 
-`build_materials_scene` is the material zoo (`write_materials_gltf`:
-transmission, clearcoat, sheen, anisotropic metal, an emissive floor)
-under the golden configurations' 32x64 analytic environment, seen from
-(0, -6, 3), with env NEE + MIS and 2 bounces. `render_materials_golden` is
-its golden configuration (tests/golden_configs.py::render_materials_pt,
-golden tests/goldens/materials_pt.png): 160x120, eight frames (seeds 0-7)
-accumulated and tone-mapped. `render_debug_channels` renders the 28 debug
-outputs at 64x48 with one bounce and seed 5, as
+`build_materials_scene` is the material zoo (`materials_scene`) under the
+golden configurations' 32x64 analytic environment, seen from (0, -6, 3),
+with env NEE + MIS and 2 bounces; `render_debug_channels` renders its 28
+debug outputs at 64x48 with one bounce and seed 5, as
 tests/golden_configs.py::render_debug_channels does for
 tests/goldens/debug_channels.npz.
 
-`build_raster_fidelity_scene` is the helmet-raster golden configuration
-(tests/golden_configs.py::render_helmet_raster, golden
-tests/goldens/helmet_raster.png): the small textured sphere (metallic 0.4,
-roughness 0.35) under the 32x64 analytic environment, 192x108, frame 0.
-`render_box_raster_golden` draws the box-raster golden configuration
-(tests/golden_configs.py::render_box_raster, golden
-tests/goldens/box_raster.png): the red box lit by its point light, no
-environment, 256x256 from (2, -2, 1.5), frame 0. `build_raster_scene`
-builds the zoo or the courtyard (tex_size 256) for the raster backend: the
-golden configurations' 32x64 analytic environment with the GGX and diffuse
+`build_raster_scene` builds the zoo or the courtyard (tex_size 256) for the
+raster backend: the analytic environment with the GGX and diffuse
 prefilters the raster IBL samples, seen from the zoo's golden view or down
 the courtyard's colonnade.
 
-`AnimatedScene` is what `Renderer.draw_frame` does to a loaded scene's
-geometry before each frame (JAX render/renderer.py `_update_geometry`):
-advance the animation player, pose the nodes, skin and morph on the
-device, rebuild the world, then build the path tracer's tables at the first
-frame and refit them on the device after. `build_animated_scene` loads the
-skinned strips (`write_skinned_gltf`, 64 strips by default) or the morph
-cube (`write_morph_gltf`) through the port's loader. `render_anim_pose_golden`
-is the anim_pose golden configuration (tests/golden_configs.py::
-render_anim_pose, golden tests/goldens/anim_pose.png): each scene at
-128x96 with one bounce and no environment, the first frame drawn at
-delta 0.5 (the tables built at that pose), three more at delta 0 (refit,
-accumulation kept), seeds 0-3, the two images side by side.
+`AnimatedScene` is a loaded scene posed by a Renderer's `_update_geometry`
+(advance the player, pose the nodes, skin and morph on the device, rebuild
+the world, build the path tracer's tables at the first frame and refit
+them after), without the frame. `build_animated_scene` loads the skinned
+strips (`write_skinned_gltf`, 64 strips by default) or the morph cube
+(`write_morph_gltf`) through the port's loader.
 """
 
 from __future__ import annotations
@@ -62,22 +52,23 @@ import tempfile
 import numpy as np
 
 from gltf_renderer_tpu_torch import camera
-from gltf_renderer_tpu_torch.anim.animation import AnimationPlayer, rest_pose
-from gltf_renderer_tpu_torch.anim.skinning import DynamicMeshState
-from gltf_renderer_tpu_torch.device import resolve
 from gltf_renderer_tpu_torch.env.environment import DIFFUSE_RESOLUTION, build_environment_pt
 from gltf_renderer_tpu_torch.render import pathtracer as pt
 from gltf_renderer_tpu_torch.render import settings as S
+from gltf_renderer_tpu_torch.render.renderer import Renderer
 from gltf_renderer_tpu_torch.scene import flatten
 from gltf_renderer_tpu_torch.scene import types as T
 from gltf_renderer_tpu_torch.scene.gltf import load_gltf
 from gltf_renderer_tpu_torch.scene.procedural import (
-    box_scene,
     courtyard_scene,
     materials_scene,
     textured_sphere_scene,
+    write_box_gltf,
+    write_courtyard_glb,
+    write_materials_gltf,
     write_morph_gltf,
     write_skinned_gltf,
+    write_textured_sphere_glb,
 )
 
 FIDELITY_RES = (256, 144)  # bench.FIDELITY_RES
@@ -187,45 +178,65 @@ def raster_camera(eye, width: int, height: int):
     return c2w, camera.position(w2v)
 
 
-def build_raster_fidelity_scene(device="cuda", diffuse_size: int = DIFFUSE_RESOLUTION):
-    """The helmet-raster golden configuration on `device`. Returns
-    (ptscene, meta, render_settings, params, clip_to_world, camera_pos,
-    resolution)."""
-    w, h = RASTER_FIDELITY_RES
-    scene = textured_sphere_scene(metallic=0.4, roughness=0.35)
-    world, lights = world_from_scene(scene)
-    env = build_environment_pt(analytic_equirect(), device=device, diffuse_size=diffuse_size)
-    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
-                                     device=device)
-    c2w, cam_pos = raster_camera([1.2, -1.2, 0.8], w, h)
-    rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
-    return ptscene, meta, rs, S.PathTracerParams(), c2w, cam_pos, (w, h)
+def golden_renderer(path, width: int, height: int, backend: str, view, device="cuda",
+                    pt_kw=None, env=None):
+    """A Renderer on `path` set up as tests/golden_configs.py::_renderer
+    sets up the JAX one: `backend` at width x height, PathTracerSettings
+    from pt_kw, the environment `env` (EnvMaps on `device`, or None), the
+    default 60-degree lens with z_near 0.01, looking from view[0] at
+    view[1]."""
+    rs = S.RenderSettings(backend=backend, width=width, height=height,
+                          pt=S.PathTracerSettings(**(pt_kw or {})))
+    r = Renderer(rs, device=device)
+    r.env = env
+    r.load_scene(path)
+    r.camera.aspect_ratio = width / height
+    r.camera.z_near = 0.01
+    r.camera.world_to_view = camera.look_at(*view)
+    return r
+
+
+def draw_frames(renderer, frames: int):
+    """`frames` frames of `renderer` at delta 0. Returns the last (h, w, 3)
+    uint8 frame and the summed [ray_count, nan_count] of the path tracer's
+    samples since the scene was loaded."""
+    img = None
+    for _ in range(frames):
+        img = renderer.draw_frame()
+    return img, renderer.ray_stats
 
 
 def render_box_raster_golden(device="cuda", visibility: str = "raycast"):
-    """The box-raster golden configuration drawn as `Renderer.draw_frame`
-    draws a raster frame: raster_step, then post_step with bloom and AgX.
+    """The box-raster golden configuration through the Renderer: the box
+    file, rasterized at 256x256 from (2, -2, 1.5) with `visibility`.
     Returns the (256, 256, 3) uint8 frame."""
-    from gltf_renderer_tpu_torch.render import renderer
-
     w, h = BOX_RASTER_RES
-    scene = box_scene()
-    world, lights = world_from_scene(scene)
-    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights,
-                                     device=device)
-    c2w, cam_pos = raster_camera([2.0, -2.0, 1.5], w, h)
-    rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
-    hdr = renderer.raster_step(ptscene, meta, rs, S.PathTracerParams(), c2w, cam_pos, (w, h),
-                               0, visibility=visibility)
-    return renderer.post_step(hdr, rs.tonemap, rs.bloom, 0)
+    with tempfile.TemporaryDirectory() as d:
+        r = golden_renderer(write_box_gltf(os.path.join(d, "box.gltf")), w, h, "rasterizer",
+                            ([2.0, -2.0, 1.5], [0.0, 0.0, 0.0]), device)
+    r.raster_visibility = visibility
+    return r.draw_frame()
+
+
+def helmet_raster_renderer(device, env):
+    """The helmet-raster golden configuration's Renderer: the textured
+    sphere GLB (metallic 0.4, roughness 0.35) under `env` (the analytic
+    environment's EnvMaps with its prefilters, on `device`), rasterized at
+    192x108 from (1.2, -1.2, 0.8). Its draw_frame gives the (108, 192, 3)
+    uint8 frame."""
+    w, h = RASTER_FIDELITY_RES
+    with tempfile.TemporaryDirectory() as d:
+        path = write_textured_sphere_glb(os.path.join(d, "sphere.glb"), metallic=0.4,
+                                         roughness=0.35)
+        return golden_renderer(path, w, h, "rasterizer", ([1.2, -1.2, 0.8], [0.0, 0.0, 0.0]),
+                               device, env=env)
 
 
 def build_raster_scene(scene_kind: str, width: int, height: int, device="cuda",
                        diffuse_size: int = DIFFUSE_RESOLUTION):
     """The zoo ("materials") or the courtyard ("courtyard") for the raster
     backend on `device`. Returns (ptscene, meta, render_settings, params,
-    clip_to_world, camera_pos, resolution), as build_raster_fidelity_scene
-    does."""
+    clip_to_world, camera_pos, resolution), raster_step's arguments."""
     if scene_kind not in RASTER_SCENE_KINDS:
         raise ValueError(f"unknown raster scene {scene_kind!r}, "
                          f"expected one of {RASTER_SCENE_KINDS}")
@@ -243,48 +254,18 @@ def build_raster_scene(scene_kind: str, width: int, height: int, device="cuda",
     return ptscene, meta, rs, S.PathTracerParams(), c2w, camera.position(w2v), (width, height)
 
 
-def draw_frame(ptscene, meta, rs, c2w, k: int, accum):
-    """Frame k as `Renderer.draw_frame` draws it: trace with seed k,
-    accumulate into the running mean `accum` (None at frame 0), tone map
-    (AgX, no bloom: bloom is raster-only) with frame index k as the
-    dither's, -> u8. Returns (accum, (h, w, 3) uint8, [ray_count,
-    nan_count])."""
-    import torch
-
-    from gltf_renderer_tpu_torch.render import renderer
-
-    radiance, st = pt.trace(ptscene, meta, rs.pt, S.PathTracerParams(), c2w,
-                            (rs.width, rs.height), k, with_stats=True)
-    accum = radiance if accum is None else pt.accumulate(
-        accum, radiance, torch.tensor(k, device=radiance.device), rs.pt)
-    return accum, renderer.post_step(accum, rs.tonemap, None, k), st
-
-
-def draw_frames(ptscene, meta, rs, c2w, frames: int):
-    """`frames` frames (`draw_frame`, seeds 0..frames-1). Returns ((h, w,
-    3) uint8 of the last frame, the summed [ray_count, nan_count] of the
-    traces)."""
-    accum, stats, img = None, 0.0, None
-    for k in range(frames):
-        accum, img, st = draw_frame(ptscene, meta, rs, c2w, k, accum)
-        stats = stats + st
-    return img, stats
-
-
 def render_courtyard_golden(device="cuda"):
-    """The courtyard golden configuration drawn as `Renderer.draw_frame`
-    draws it (`draw_frames`)."""
+    """The courtyard golden configuration through the Renderer: the
+    courtyard GLB (tex_size 64) under the analytic environment, two frames
+    down the colonnade. Returns `draw_frames`' (uint8 frame, stats)."""
     w, h = COURTYARD_GOLDEN_RES
-    scene = courtyard_scene(tex_size=64)
-    world, lights = world_from_scene(scene)
-    env = build_environment_pt(analytic_equirect(), device=device, prefilters=False)
-    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
-                                     device=device)
-    rs = S.RenderSettings(width=w, height=h,
-                          pt=S.PathTracerSettings(max_bounces=2, min_bounces=2,
-                                                  alpha_shadows=True))
-    return draw_frames(ptscene, meta, rs, bench_camera(w, h, "courtyard"),
-                       COURTYARD_GOLDEN_FRAMES)
+    with tempfile.TemporaryDirectory() as d:
+        path = write_courtyard_glb(os.path.join(d, "courtyard.glb"), tex_size=64)
+        r = golden_renderer(path, w, h, "pathtracer", COURTYARD_VIEW, device,
+                            pt_kw=dict(max_bounces=2, min_bounces=2, alpha_shadows=True),
+                            env=build_environment_pt(analytic_equirect(), device=device,
+                                                     prefilters=False))
+    return draw_frames(r, COURTYARD_GOLDEN_FRAMES)
 
 
 def materials_camera(width: int, height: int) -> np.ndarray:
@@ -309,12 +290,17 @@ def build_materials_scene(width: int, height: int, device="cuda"):
 
 
 def render_materials_golden(device="cuda"):
-    """The materials golden configuration drawn as `Renderer.draw_frame`
-    draws it (`draw_frames`)."""
+    """The materials golden configuration through the Renderer: the zoo
+    file under the analytic environment, eight frames from the zoo's golden
+    view. Returns `draw_frames`' (uint8 frame, stats)."""
     w, h = MATERIALS_GOLDEN_RES
-    ptscene, meta, settings, _, c2w, _ = build_materials_scene(w, h, device)
-    return draw_frames(ptscene, meta, S.RenderSettings(width=w, height=h, pt=settings), c2w,
-                       MATERIALS_GOLDEN_FRAMES)
+    with tempfile.TemporaryDirectory() as d:
+        r = golden_renderer(write_materials_gltf(os.path.join(d, "zoo.gltf")), w, h,
+                            "pathtracer", MATERIALS_VIEW, device,
+                            pt_kw=dict(max_bounces=2, min_bounces=2),
+                            env=build_environment_pt(analytic_equirect(), device=device,
+                                                     prefilters=False))
+    return draw_frames(r, MATERIALS_GOLDEN_FRAMES)
 
 
 def render_debug_channels(device="cuda"):
@@ -334,50 +320,27 @@ def render_debug_channels(device="cuda"):
 
 class AnimatedScene:
     """A loaded scene whose first animation drives the path tracer's tables
-    on `device` (JAX Renderer: load_scene's derived state and
-    `_update_geometry`). The rest pools, instance plan and triangle flags
-    are uploaded once; `update` runs a frame's geometry. The port refits
-    whenever it rebuilds the world; the JAX renderer refits only scenes with
-    skinned or morphed meshes (every scene here has them)."""
+    on `device`: a Renderer's scene and `_update_geometry`, without the
+    frame. `update(delta)` advances the player and poses the tables (built
+    at the first call, refit after)."""
 
     def __init__(self, scene: T.Scene, device="cuda", env=None):
-        import torch
-
-        self.scene, self.env = scene, env
-        self.device = dev = resolve(device)
-        plan = flatten.build_instance_plan(scene)
-        self.plan = plan._replace(**{k: torch.as_tensor(v, device=dev)
-                                     for k, v in plan._asdict().items()})
-        self.tri_flags = {k: torch.as_tensor(v, device=dev)
-                          for k, v in flatten.plan_tri_flags(plan, scene.primitives).items()}
-        self.pools = scene.pools._replace(**{k: torch.as_tensor(v, device=dev)
-                                             for k, v in scene.pools._asdict().items()})
-        self.dynamic = DynamicMeshState(scene, dev)
-        self.player = AnimationPlayer(scene.animations[0] if scene.animations else None)
-        self.ptscene = self.meta = self.bvh_host = None
+        self.renderer = Renderer(device=device)
+        self.renderer.env = env
+        self.renderer.load_scene(scene)
 
     def update(self, delta: float):
         """Advance the player by `delta` seconds and bring the tables to the
-        new pose: built by make_pt_scene at the first call, refit on the
-        device after. Returns the node transforms."""
-        scene = self.scene
-        pose = self.player.tick(scene, delta) if self.player.animation else rest_pose(scene)
-        node_tf = flatten.compute_global_transforms(scene, None, pose.t, pose.r, pose.s)
-        lights = flatten.gather_lights(scene, node_tf)
-        dyn = (None, None, None)
-        if self.dynamic.dynamic_instances:
-            self.dynamic.update(node_tf, pose.weights)
-            dyn = (self.dynamic.positions, self.dynamic.normals, self.dynamic.tangents)
-        world = flatten.build_world_geometry(self.pools, self.plan, node_tf,
-                                             flatten.normal_transforms(node_tf),
-                                             self.tri_flags, *dyn)
-        if self.ptscene is None:
-            self.ptscene, self.meta = pt.make_pt_scene(world, scene.materials, scene.textures,
-                                                       lights, env=self.env, device=self.device)
-            self.bvh_host = self.ptscene.bvh
-        else:
-            self.ptscene = pt.refit_pt_scene(self.ptscene, world, lights, self.bvh_host)
-        return node_tf
+        new pose. Returns the node transforms."""
+        r = self.renderer
+        return r._update_geometry(r.player.tick(r.scene, delta) if r.player.animation else None)
+
+    scene = property(lambda self: self.renderer.scene)
+    player = property(lambda self: self.renderer.player)
+    dynamic = property(lambda self: self.renderer._dynamic)
+    ptscene = property(lambda self: self.renderer._ptscene)
+    meta = property(lambda self: self.renderer._meta)
+    bvh_host = property(lambda self: self.renderer._bvh_host)
 
 
 def write_animated(kind: str, directory: str, strips: int = 1) -> str:
@@ -410,23 +373,20 @@ def build_animated_scene(kind: str, width: int, height: int, device="cuda", stri
 
 
 def render_anim_pose_golden(device="cuda"):
-    """The anim_pose golden configuration drawn as `Renderer.draw_frame`
-    draws it. Returns the (96, 256, 3) uint8 image and the summed
-    [ray_count, nan_count] of its traces."""
-    import torch
-
+    """The anim_pose golden configuration through the Renderer: each
+    scene's first frame at delta 0.5, three more at delta 0, the two
+    images side by side. Returns the (96, 256, 3) uint8 image and the
+    summed [ray_count, nan_count] of its samples."""
     w, h = ANIM_GOLDEN_RES
-    rs = S.RenderSettings(width=w, height=h,
-                          pt=S.PathTracerSettings(max_bounces=1, min_bounces=1))
     halves, stats = [], 0.0
     for kind in ANIM_KINDS:
         with tempfile.TemporaryDirectory() as d:
-            anim = AnimatedScene(load_gltf(write_animated(kind, d)), device)
-        c2w = anim_camera(kind, w, h, ANIM_GOLDEN_VIEWS)
-        accum = img = None
-        for k in range(ANIM_GOLDEN_FRAMES):
-            anim.update(0.5 if k == 0 else 0.0)
-            accum, img, st = draw_frame(anim.ptscene, anim.meta, rs, c2w, k, accum)
-            stats = stats + st
+            r = golden_renderer(write_animated(kind, d), w, h, "pathtracer",
+                                ANIM_GOLDEN_VIEWS[kind], device,
+                                pt_kw=dict(max_bounces=1, min_bounces=1))
+        r.select_animation(0)
+        r.draw_frame(delta=0.5)
+        img, st = draw_frames(r, ANIM_GOLDEN_FRAMES - 1)
         halves.append(img)
-    return torch.cat(halves, 1), stats
+        stats = stats + st
+    return np.concatenate(halves, 1), stats

@@ -41,6 +41,8 @@ DEBUG_BOUNCE_WEIGHT = 25
 DEBUG_BOUNCE_IS_TRANSMISSION = 26
 DEBUG_HEMISPHERE_VIEW_SIDE = 27
 
+MAX_BOUNCES_HARD_CAP = 5  # Pathtracer.h:102
+
 TONEMAPPER_NONE = 0
 TONEMAPPER_AGX = 1
 
@@ -49,6 +51,9 @@ TONEMAPPER_AGX = 1
 class PathTracerSettings:
     cull_backface: bool = False
     accumulate: bool = True
+    # Pathtracer.h:78-79: seed each accumulation pass by the frame counter,
+    # or pin it to PathTracerParams.fixed_seed.
+    use_frame_as_seed: bool = True
     luminance_clamp_enabled: bool = True
     indirect_environment_only: bool = False
     point_lights: bool = True
@@ -65,6 +70,7 @@ class PathTracerSettings:
     min_bounces: int = 2
     max_bounces: int = 2
     debug_output: int = DEBUG_NONE
+    max_accumulated_frames: int = 8196  # Main.cpp:474
     # Binary punctual-light shadow rays ride the merged bounce + env-shadow
     # launch instead of their own any-hit launch (same image).
     merged_light_dispatch: bool = True
@@ -72,6 +78,7 @@ class PathTracerSettings:
 
 class PathTracerParams(NamedTuple):
     environment_intensity: Any = 1.0
+    fixed_seed: Any = 0  # Pathtracer.h:79, the seed when use_frame_as_seed is off
     environment_color: Any = (1.0, 1.0, 1.0)
     luminance_clamp: Any = 20.0
     min_russian_roulette_continue_prob: Any = 0.05

@@ -207,16 +207,19 @@ def _unit(v):
 
 def build_world_geometry(pools, plan, node_tf, node_normal_tf, tri_flags,
                          dynamic_positions=None, dynamic_normals=None,
-                         dynamic_tangents=None) -> WorldGeometry:
+                         dynamic_tangents=None, device=None) -> WorldGeometry:
     """Gather + transform object pools into world-space pools and the packed
     f32 hit-attribute rows.
 
-    Static scenes: host inputs in, numpy arrays out. With the dynamic pools
-    of anim.skinning.DynamicMeshState (tensors, object space of their node),
-    the skinned vertices source from them and every field comes out as a
-    tensor on their device; pools, plan and tri_flags may then already lie
-    there (as tensors), which spares their upload each frame."""
-    dev = torch.device("cpu") if dynamic_positions is None else dynamic_positions.device
+    Static scenes: host inputs in, numpy arrays out, unless `device` is
+    given. With the dynamic pools of anim.skinning.DynamicMeshState
+    (tensors, object space of their node), the skinned vertices source from
+    them. With either, every field comes out as a tensor on `device` (by
+    default the dynamic pools'); pools, plan and tri_flags may then already
+    lie there (as tensors), which spares their upload each frame."""
+    if device is None and dynamic_positions is not None:
+        device = dynamic_positions.device
+    dev = torch.device("cpu") if device is None else torch.device(device)
 
     def t(a):
         return torch.as_tensor(a, device=dev)
@@ -268,7 +271,7 @@ def build_world_geometry(pools, plan, node_tf, node_normal_tf, tri_flags,
         tri_has_uv1=flags["tri_has_uv1"], tri_has_color=flags["tri_has_color"],
         vertex_rows=vertex_rows, tri_rows=tri_rows, tri_attr_rows=tri_attr_rows,
     )
-    if dynamic_positions is not None:
+    if device is not None:
         return world
     return WorldGeometry(*[np.array(x.numpy()) for x in world])
 

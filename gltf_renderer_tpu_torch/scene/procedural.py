@@ -22,13 +22,12 @@ them, and the same nodes.
 - `materials_scene`: `write_materials_gltf` (:615), the material zoo: four
   24x48 UV spheres (thin transmission with volume attenuation and ior,
   clearcoat, sheen, anisotropic metal) over an emissive floor quad.
-- `box_scene`: `write_box_gltf` (:115), the unit box of the box-raster
-  golden, with its white point light (intensity 40) at (2, 2, 2) and, with
-  double_box, a second instance 1.5 along +X.
 
-The writers `write_courtyard_glb`, `write_skinned_gltf` and
-`write_morph_gltf` are copies of the JAX package's (:895, :244, :573): the
-card reads the files they write through the port's loader.
+The writers `write_box_gltf`, `write_textured_sphere_glb`,
+`write_materials_gltf`, `write_courtyard_glb`, `write_skinned_gltf` and
+`write_morph_gltf` are copies of the JAX package's (:115, :174, :615, :895,
+:244, :573) and write the same bytes: the golden configurations and the
+card read the files they write through the port's loader.
 """
 
 from __future__ import annotations
@@ -414,27 +413,6 @@ def materials_scene() -> T.Scene:
                        _texture_table([]), nodes, roots=[0, 1, 2, 3, 4])
 
 
-def box_scene(base_color=(0.8, 0.2, 0.2, 1.0), metallic=0.0, roughness=0.6, with_light=True,
-              double_box=False) -> T.Scene:
-    """The Scene of `write_box_gltf(...)` + `load_gltf`."""
-    p, n, uv, idx = box_mesh()
-    materials = _material_table([dict(base=base_color, metallic=metallic, roughness=roughness)])
-    nodes = [_node(mesh=0, name="box")]
-    if double_box:
-        nodes.append(_node(mesh=0, translation=(1.5, 0.0, 0.0), name="box2"))
-    lights, light_nodes = None, []
-    if with_light:
-        lights = T.LightParams(
-            type=np.asarray([T.LIGHT_TYPE_POINT], np.int32), color=np.ones((1, 3), np.float32),
-            intensity=np.asarray([40.0], np.float32), cutoff=np.zeros(1, np.float32),
-            inner_angle=np.zeros(1, np.float32),
-            outer_angle=np.full(1, np.pi / 4.0, np.float32))
-        light_nodes = [len(nodes)]
-        nodes.append(_node(translation=(2.0, 2.0, 2.0), light=0, name="light"))
-    return _mesh_scene([[(p, n, uv, idx, 1)]], materials, _texture_table([]), nodes,
-                       roots=list(range(len(nodes))), lights=lights, light_nodes=light_nodes)
-
-
 # ---------------------------------------------------------------------------
 # Writers: copies of gltf_renderer_tpu/scene/procedural.py's, for the scenes
 # the loader reads back on the card.
@@ -560,20 +538,167 @@ def write_morph_gltf(path):
     return _write_json(path, doc, bin_parts)
 
 
+def _png_bytes(img) -> bytes:
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img, "RGBA").save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _append_image(doc, bin_parts, png: bytes) -> int:
+    """Append a PNG to the binary chunk (4-byte aligned) with its bufferView
+    and image. Returns the image index."""
+    offset = sum(len(b) for b in bin_parts)
+    pad = (-offset) % 4
+    if pad:
+        bin_parts.append(b"\x00" * pad)
+        offset += pad
+    bin_parts.append(png)
+    doc["bufferViews"].append({"buffer": 0, "byteOffset": offset, "byteLength": len(png)})
+    doc.setdefault("images", []).append({"bufferView": len(doc["bufferViews"]) - 1,
+                                         "mimeType": "image/png"})
+    return len(doc["images"]) - 1
+
+
+def _write_glb(path, doc, bin_parts):
+    """The document and its binary chunk as a GLB file."""
+    import struct
+
+    blob = b"".join(bin_parts)
+    blob += b"\x00" * ((-len(blob)) % 4)
+    doc["buffers"] = [{"byteLength": len(blob)}]
+    js = json.dumps(doc).encode()
+    js += b" " * ((-len(js)) % 4)
+    total = 12 + 8 + len(js) + 8 + len(blob)
+    glb = struct.pack("<III", 0x46546C67, 2, total)
+    glb += struct.pack("<II", len(js), 0x4E4F534A) + js
+    glb += struct.pack("<II", len(blob), 0x004E4942) + blob
+    with open(path, "wb") as f:
+        f.write(glb)
+    return path
+
+
+def write_box_gltf(path, base_color=(0.8, 0.2, 0.2, 1.0), metallic=0.0, roughness=0.6,
+                   with_light=True, double_box=False):
+    """The unit box (`box_mesh`) with a KHR punctual point light
+    (intensity 40) at (2, 2, 2); with double_box a second instance 1.5
+    along +X."""
+    doc = {"asset": {"version": "2.0"}, "scene": 0}
+    bin_parts = []
+    p, n, uv, idx = box_mesh()
+    attrs = {"POSITION": _acc(doc, bin_parts, p, target=34962),
+             "NORMAL": _acc(doc, bin_parts, n, target=34962),
+             "TEXCOORD_0": _acc(doc, bin_parts, uv, target=34962)}
+    ii = _acc(doc, bin_parts, idx, target=34963)
+    doc["meshes"] = [{"primitives": [{"attributes": attrs, "indices": ii, "material": 0}]}]
+    doc["materials"] = [{"pbrMetallicRoughness": {"baseColorFactor": list(base_color),
+                                                  "metallicFactor": metallic,
+                                                  "roughnessFactor": roughness}}]
+    nodes = [{"mesh": 0, "name": "box"}]
+    scene_nodes = [0]
+    if double_box:
+        nodes.append({"mesh": 0, "translation": [1.5, 0.0, 0.0], "name": "box2"})
+        scene_nodes.append(1)
+    if with_light:
+        doc["extensionsUsed"] = ["KHR_lights_punctual"]
+        doc["extensions"] = {"KHR_lights_punctual": {
+            "lights": [{"type": "point", "intensity": 40.0, "color": [1, 1, 1]}]}}
+        nodes.append({"translation": [2.0, 2.0, 2.0],
+                      "extensions": {"KHR_lights_punctual": {"light": 0}}, "name": "light"})
+        scene_nodes.append(len(nodes) - 1)
+    doc["nodes"] = nodes
+    doc["scenes"] = [{"nodes": scene_nodes}]
+    return _write_json(path, doc, bin_parts)
+
+
+def write_textured_sphere_glb(path, tex_size=64, n_lat=16, n_lon=32, metallic=0.0,
+                              roughness=0.8):
+    """The textured sphere (`textured_sphere_scene`) as a GLB: one
+    checkerboard PNG in the binary chunk, wrap REPEAT x CLAMP."""
+    doc = {"asset": {"version": "2.0"}, "scene": 0}
+    bin_parts = []
+    p, n, uv, idx = uv_sphere(n_lat, n_lon)
+    attrs = {"POSITION": _acc(doc, bin_parts, p, target=34962),
+             "NORMAL": _acc(doc, bin_parts, n, target=34962),
+             "TEXCOORD_0": _acc(doc, bin_parts, uv, target=34962)}
+    ii = _acc(doc, bin_parts, idx, target=34963)
+    _append_image(doc, bin_parts, _png_bytes(checker_image(tex_size)))
+    doc["samplers"] = [{"wrapS": 10497, "wrapT": 33071}]
+    doc["textures"] = [{"source": 0, "sampler": 0}]
+    doc["materials"] = [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                                  "metallicFactor": metallic,
+                                                  "roughnessFactor": roughness}}]
+    doc["meshes"] = [{"primitives": [{"attributes": attrs, "indices": ii, "material": 0}]}]
+    doc["nodes"] = [{"mesh": 0}]
+    doc["scenes"] = [{"nodes": [0]}]
+    return _write_glb(path, doc, bin_parts)
+
+
+def write_materials_gltf(path):
+    """The material zoo (`materials_scene`): a transmissive sphere with
+    volume attenuation and ior, a clearcoat sphere, a sheen sphere and an
+    anisotropic metal sphere over an emissive floor quad."""
+    doc = {"asset": {"version": "2.0"}, "scene": 0}
+    doc["extensionsUsed"] = [
+        "KHR_materials_transmission", "KHR_materials_volume", "KHR_materials_clearcoat",
+        "KHR_materials_sheen", "KHR_materials_anisotropy", "KHR_materials_ior",
+        "KHR_materials_emissive_strength", "KHR_materials_specular",
+    ]
+    bin_parts = []
+
+    def prim(p, n, uv, idx, **kw):
+        return dict({"attributes": {"POSITION": _acc(doc, bin_parts, p, target=34962),
+                                    "NORMAL": _acc(doc, bin_parts, n, target=34962),
+                                    "TEXCOORD_0": _acc(doc, bin_parts, uv, target=34962)},
+                     "indices": _acc(doc, bin_parts, idx, target=34963)}, **kw)
+
+    sphere = prim(*uv_sphere(24, 48))
+    # Floor quad (y = -0.5 in glTF space).
+    floor = prim(np.asarray([[-4, -0.5, -4], [4, -0.5, -4], [4, -0.5, 4], [-4, -0.5, 4]],
+                            np.float32),
+                 np.tile(np.asarray([[0, 1, 0]], np.float32), (4, 1)),
+                 np.asarray([[0, 0], [4, 0], [4, 4], [0, 4]], np.float32),
+                 np.asarray([0, 2, 1, 0, 3, 2], np.uint16), material=4)
+
+    def mr(color, metallic, roughness):
+        return {"baseColorFactor": color, "metallicFactor": metallic,
+                "roughnessFactor": roughness}
+
+    doc["materials"] = [
+        {"pbrMetallicRoughness": mr([1, 1, 1, 1], 0.0, 0.05),
+         "extensions": {
+             "KHR_materials_transmission": {"transmissionFactor": 1.0},
+             "KHR_materials_volume": {"thicknessFactor": 0.5, "attenuationDistance": 0.5,
+                                      "attenuationColor": [0.9, 0.4, 0.3]},
+             "KHR_materials_ior": {"ior": 1.5}}},
+        {"pbrMetallicRoughness": mr([0.6, 0.05, 0.05, 1], 0.4, 0.5),
+         "extensions": {"KHR_materials_clearcoat": {"clearcoatFactor": 1.0,
+                                                    "clearcoatRoughnessFactor": 0.05}}},
+        {"pbrMetallicRoughness": mr([0.1, 0.1, 0.4, 1], 0.0, 0.9),
+         "extensions": {"KHR_materials_sheen": {"sheenColorFactor": [0.6, 0.5, 0.4],
+                                                "sheenRoughnessFactor": 0.5}}},
+        {"pbrMetallicRoughness": mr([0.9, 0.85, 0.7, 1], 1.0, 0.3),
+         "extensions": {"KHR_materials_anisotropy": {"anisotropyStrength": 0.8,
+                                                     "anisotropyRotation": 0.5}}},
+        {"pbrMetallicRoughness": mr([0.7, 0.7, 0.7, 1], 0.0, 0.9),
+         "extensions": {"KHR_materials_emissive_strength": {"emissiveStrength": 0.4}},
+         "emissiveFactor": [1.0, 1.0, 1.0]},
+    ]
+    doc["meshes"] = [{"primitives": [dict(sphere, material=m)]} for m in range(4)]
+    doc["meshes"].append({"primitives": [floor]})
+    doc["nodes"] = [{"mesh": m, "translation": [x, 0, 0]}
+                    for m, x in enumerate((-1.8, -0.6, 0.6, 1.8))] + [{"mesh": 4}]
+    doc["scenes"] = [{"nodes": [0, 1, 2, 3, 4]}]
+    return _write_json(path, doc, bin_parts)
+
+
 def write_courtyard_glb(path, density=1, tex_size=256):
     """The courtyard (`courtyard_scene`) as a GLB: five primitives, three
     PNG textures in the binary chunk, the colonnade camera, and the root
     rotation that keeps the authored Z-up coordinates as world ones."""
-    import io
-    import struct
-
-    from PIL import Image
-
-    def png_bytes(img):
-        buf = io.BytesIO()
-        Image.fromarray(img, "RGBA").save(buf, format="PNG")
-        return buf.getvalue()
-
     doc = {"asset": {"version": "2.0"}, "scene": 0, "bufferViews": [], "accessors": []}
     bin_parts = []
     doc["materials"] = [
@@ -596,18 +721,8 @@ def write_courtyard_glb(path, density=1, tex_size=256):
                                      "NORMAL": _acc(doc, bin_parts, n, target=34962),
                                      "TEXCOORD_0": _acc(doc, bin_parts, uv, target=34962)},
                       "indices": _acc(doc, bin_parts, idx, target=34963), "material": mi})
-    doc["images"], doc["textures"] = [], []
-    for png in map(png_bytes, courtyard_images(tex_size)):
-        offset = sum(len(b) for b in bin_parts)
-        pad = (-offset) % 4
-        if pad:
-            bin_parts.append(b"\x00" * pad)
-            offset += pad
-        bin_parts.append(png)
-        doc["bufferViews"].append({"buffer": 0, "byteOffset": offset, "byteLength": len(png)})
-        doc["images"].append({"bufferView": len(doc["bufferViews"]) - 1,
-                              "mimeType": "image/png"})
-        doc["textures"].append({"source": len(doc["images"]) - 1, "sampler": 0})
+    doc["textures"] = [{"source": _append_image(doc, bin_parts, _png_bytes(img)), "sampler": 0}
+                       for img in courtyard_images(tex_size)]
     doc["samplers"] = [{"wrapS": 10497, "wrapT": 10497}]
     doc["meshes"] = [{"primitives": prims}]
     doc["cameras"] = [{"type": "perspective", "perspective": {"yfov": 1.0472, "znear": 0.05}}]
@@ -618,15 +733,4 @@ def write_courtyard_glb(path, density=1, tex_size=256):
         {"camera": 0, "translation": [-9.0, 0.0, 1.7], "rotation": [0.5, -0.5, -0.5, 0.5]},
     ]
     doc["scenes"] = [{"nodes": [0]}]
-    blob = b"".join(bin_parts)
-    blob += b"\x00" * ((-len(blob)) % 4)
-    doc["buffers"] = [{"byteLength": len(blob)}]
-    js = json.dumps(doc).encode()
-    js += b" " * ((-len(js)) % 4)
-    total = 12 + 8 + len(js) + 8 + len(blob)
-    glb = struct.pack("<III", 0x46546C67, 2, total)
-    glb += struct.pack("<II", len(js), 0x4E4F534A) + js
-    glb += struct.pack("<II", len(blob), 0x004E4942) + blob
-    with open(path, "wb") as f:
-        f.write(glb)
-    return path
+    return _write_glb(path, doc, bin_parts)

@@ -408,6 +408,6 @@ def test_anim_pose_golden():
     img, stats = bench_scene.render_anim_pose_golden("cpu")
     golden = np.asarray(Image.open(GOLDEN))
     assert img.shape == golden.shape and float(stats[1]) == 0.0
-    score = ssim(img.numpy(), golden)
+    score = ssim(img, golden)
     print(f"anim_pose ssim={score:.8f}")
     assert score >= 0.99

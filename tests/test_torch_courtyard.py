@@ -10,7 +10,8 @@ the courtyard golden configuration (tests/golden_configs.py:112-121):
   same tables in both packages, at the bar of tests/test_torch_pathtracer.py
   (at least 98% of pixels within atol 1e-4 + rtol 1e-3, the mean within
   1%); the masked-retry loop runs, so rays reach the banners;
-- the golden configuration drawn by the port (`render_courtyard_golden`)
+- the golden configuration drawn through the port's Renderer from the
+  port's courtyard GLB (`render_courtyard_golden`)
   against tests/goldens/courtyard_pt.png at the SSIM bar of
   tests/test_ssim_baseline.py (0.99).
 """
@@ -109,7 +110,6 @@ def test_courtyard_golden_ssim():
 
     img, stats = render_courtyard_golden(device="cpu")
     golden = np.asarray(Image.open(GOLDEN))
-    img = img.numpy()
     assert img.shape == golden.shape and img.dtype == np.uint8
     assert float(stats[1]) == 0.0
     assert ssim(img, golden) >= 0.99

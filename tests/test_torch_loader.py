@@ -340,20 +340,27 @@ def test_from_jax_scene_is_the_ports_read(tmp_path):
     assert type(conv.materials) is T.MaterialTable and type(conv.skins[0]) is T.Skin
 
 
-@pytest.mark.parametrize("kind", ["courtyard", "skinned", "morph"])
+PORT_WRITERS = {  # kind: (writer name, file extension, keywords)
+    "courtyard": ("write_courtyard_glb", ".glb", dict(tex_size=32)),
+    "skinned": ("write_skinned_gltf", ".gltf", dict(strips=3)),
+    "morph": ("write_morph_gltf", ".gltf", {}),
+    "box": ("write_box_gltf", ".gltf", {}),
+    "double_box_unlit": ("write_box_gltf", ".gltf", dict(double_box=True, with_light=False,
+                                                         base_color=(0.1, 0.9, 0.1, 1.0))),
+    "textured_sphere": ("write_textured_sphere_glb", ".glb", dict(metallic=0.4,
+                                                                  roughness=0.35)),
+    "materials": ("write_materials_gltf", ".gltf", {}),
+}
+
+
+@pytest.mark.parametrize("kind", list(PORT_WRITERS))
 def test_port_writers_match_jax_writers(kind, tmp_path):
-    """The port's writers write what the JAX package's write, as the loader
-    reads it."""
-    d = str(tmp_path)
-    if kind == "courtyard":
-        a = pproc.write_courtyard_glb(os.path.join(d, "p.glb"), tex_size=32)
-        b = jproc.write_courtyard_glb(os.path.join(d, "j.glb"), tex_size=32)
-    elif kind == "skinned":
-        a = pproc.write_skinned_gltf(os.path.join(d, "p.gltf"), strips=3)
-        b = jproc.write_skinned_gltf(os.path.join(d, "j.gltf"), strips=3)
-    else:
-        a = pproc.write_morph_gltf(os.path.join(d, "p.gltf"))
-        b = jproc.write_morph_gltf(os.path.join(d, "j.gltf"))
+    """The port's writers write what the JAX package's write, byte for
+    byte, and as the loader reads it."""
+    name, ext, kw = PORT_WRITERS[kind]
+    a = getattr(pproc, name)(os.path.join(str(tmp_path), "p" + ext), **kw)
+    b = getattr(jproc, name)(os.path.join(str(tmp_path), "j" + ext), **kw)
+    assert open(a, "rb").read() == open(b, "rb").read()
     _same(dataclasses.replace(load_gltf(a), name=""), dataclasses.replace(load_gltf(b), name=""))
 
 

@@ -20,8 +20,8 @@ anisotropic metal; an emissive floor), both packages on the same tables
   tests/test_torch_pathtracer.py (at least 98% of pixels within atol 1e-4
   + rtol 1e-3, the mean within 1%).
 
-Port only: the materials golden configuration (`render_materials_golden`,
-160x120, eight frames) against tests/goldens/materials_pt.png at the SSIM
+Port only: the materials golden configuration through the port's Renderer
+(`render_materials_golden`, the port's zoo file, 160x120, eight frames) against tests/goldens/materials_pt.png at the SSIM
 bar of tests/test_ssim_baseline.py (0.99), and the layer furnace of
 tests/test_pathtracer.py::test_pt_layer_furnace_no_energy_gain (a white box
 in a uniform 0.5 environment, 5 bounces, 16 frames: the centre's mean
@@ -270,7 +270,6 @@ def test_materials_golden_ssim():
 
     img, stats = render_materials_golden(device="cpu")
     golden = np.asarray(Image.open(GOLDEN))
-    img = img.numpy()
     assert img.shape == golden.shape and img.dtype == np.uint8
     assert float(stats[1]) == 0.0
     assert ssim(img, golden) >= 0.99

@@ -161,34 +161,17 @@ def test_forced_layer_flags_trace_the_same_image(scenes):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port (found by pkgutil.walk_packages, so a new
+    module is covered without a list to edit) and chip_smoke import neither
+    JAX nor the JAX package."""
     code = (
-        "import sys\n"
-        "import gltf_renderer_tpu_torch.render.pathtracer\n"
-        "import gltf_renderer_tpu_torch.ops.lights\n"
-        "import gltf_renderer_tpu_torch.bench_scene\n"
-        "import gltf_renderer_tpu_torch.convert\n"
-        "import gltf_renderer_tpu_torch.ops.raster\n"
-        "import gltf_renderer_tpu_torch.render.rasterizer\n"
-        "import gltf_renderer_tpu_torch.render.renderer\n"
-        "import gltf_renderer_tpu_torch.post.bloom\n"
-        "import gltf_renderer_tpu_torch.post.tonemap\n"
-        "import gltf_renderer_tpu_torch.profile_raster\n"
-        "import gltf_renderer_tpu_torch.ops.brute\n"
-        "import gltf_renderer_tpu_torch.ops.perlane\n"
-        "import gltf_renderer_tpu_torch.ops.warm\n"
-        "import gltf_renderer_tpu_torch.bench\n"
-        "import gltf_renderer_tpu_torch.tools.bench_mxu\n"
-        "import gltf_renderer_tpu_torch.tools.bench_perlane\n"
-        "import gltf_renderer_tpu_torch.tools.bench_traverse\n"
-        "import gltf_renderer_tpu_torch.tools.bench_launch\n"
-        "import gltf_renderer_tpu_torch.tools.count_ops\n"
-        "import gltf_renderer_tpu_torch.scene.gltf\n"
-        "import gltf_renderer_tpu_torch.scene.textures\n"
-        "import gltf_renderer_tpu_torch.env.hdr_io\n"
-        "import gltf_renderer_tpu_torch.env.piz\n"
-        "import gltf_renderer_tpu_torch.anim.animation\n"
-        "import gltf_renderer_tpu_torch.anim.skinning\n"
-        "import gltf_renderer_tpu_torch.utils.scene_cache\n"
+        "import importlib, pkgutil, sys\n"
+        "import gltf_renderer_tpu_torch as port\n"
+        "mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
+        "assert 'gltf_renderer_tpu_torch.app.cli' in mods, mods\n"
+        "assert 'gltf_renderer_tpu_torch.app.viewer' in mods, mods\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'gltf_renderer_tpu' or m.startswith('gltf_renderer_tpu.')]\n"

@@ -43,11 +43,13 @@ analytic environment with small prefilters (`jax_raster_env`).
   chunk where the scene has blended or transmissive triangles; a tiled
   frame the same but the first, and one tile pass.
 
-Port only: `box_scene` bit-identical to the JAX loader's read of
-`write_box_gltf` (with and without the light, and with double_box), and the
-port-built box-raster frame (`render_box_raster_golden`) in both
-visibilities against tests/goldens/box_raster.png at the SSIM bar of
-tests/test_ssim_baseline.py (0.99).
+Port only: the port's loader's read of the port's `write_box_gltf` bit-identical
+to the JAX loader's read of JAX's `write_box_gltf` (with and without the light,
+and with double_box), tables, world geometry and lights; and the box-raster
+frame drawn through the port's Renderer from the port's box file
+(`render_box_raster_golden`) in both visibilities against
+tests/goldens/box_raster.png at the SSIM bar of tests/test_ssim_baseline.py
+(0.99).
 """
 
 import json
@@ -71,7 +73,8 @@ from gltf_renderer_tpu_torch.render import pathtracer as ppt
 from gltf_renderer_tpu_torch.render import rasterizer as prz
 from gltf_renderer_tpu_torch.render import renderer as prend
 from gltf_renderer_tpu_torch.render import settings as PS
-from gltf_renderer_tpu_torch.scene.procedural import box_scene
+from gltf_renderer_tpu_torch.scene import gltf as pgltf
+from gltf_renderer_tpu_torch.scene import procedural as pproc
 from gltf_renderer_tpu_torch.utils.ssim import ssim
 from tests.test_torch_alpha import jax_pt_scene
 from tests.test_torch_raster_shading import RASTER_KNOBS, jax_raster_env
@@ -377,8 +380,8 @@ def test_box_scene_tables_equal_loader(tmp_path, kw):
     from gltf_renderer_tpu.scene.gltf import load_gltf
     from gltf_renderer_tpu.scene.procedural import write_box_gltf
 
-    j = load_gltf(write_box_gltf(str(tmp_path / "box.gltf"), **kw))
-    p = box_scene(**kw)
+    j = load_gltf(write_box_gltf(str(tmp_path / "jax_box.gltf"), **kw))
+    p = pgltf.load_gltf(pproc.write_box_gltf(str(tmp_path / "port_box.gltf"), **kw))
     for grp in ("pools", "primitives", "materials"):
         for f in getattr(p, grp)._fields:
             a, b = getattr(getattr(j, grp), f), getattr(getattr(p, grp), f)
@@ -402,7 +405,7 @@ def test_box_scene_tables_equal_loader(tmp_path, kw):
 def test_box_raster_golden(vis):
     from PIL import Image
 
-    img = render_box_raster_golden("cpu", vis).numpy()
+    img = render_box_raster_golden("cpu", vis)
     golden = np.asarray(Image.open(GOLDEN))
     assert img.shape == golden.shape
     assert ssim(img, golden) >= 0.99

@@ -13,7 +13,9 @@
   agree within 1 on every pixel, and exactly on at least 99% (AgX runs
   through log2 and pow, whose last bits can cross a rounding boundary;
   measured: 1 of 27,648 channel values off by one).
-- The whole port, its own scene and environment build included, in both
+- The whole port through its Renderer (`helmet_raster_renderer`: the
+  port's GLB writer and loader, under the port's environment build with a
+  16-texel diffuse prefilter to keep the CPU build short), in both
   visibilities against the committed CPU golden tests/goldens/helmet_raster.png
   at the golden test's SSIM bar of 0.99.
 """
@@ -94,17 +96,20 @@ def test_post_step_matches_jax(frame_case):
 
 @pytest.mark.parametrize("vis", ["raycast", "tiled"])
 def test_port_built_frame_matches_golden(vis):
-    """The port's own helmet-raster build -> u8 frame, against the CPU golden."""
+    """The helmet-raster golden configuration through the port's Renderer
+    (the port's GLB writer, loader and environment build) -> u8 frame,
+    against the CPU golden."""
     from PIL import Image
 
-    from gltf_renderer_tpu_torch.bench_scene import build_raster_fidelity_scene
+    from gltf_renderer_tpu_torch.bench_scene import analytic_equirect, helmet_raster_renderer
+    from gltf_renderer_tpu_torch.env.environment import build_environment
     from gltf_renderer_tpu_torch.utils.ssim import ssim
     from tests.golden_configs import GOLDEN_DIR
 
-    scene, meta, rs, params, c2w, cam_pos, res = build_raster_fidelity_scene(
-        device="cpu", diffuse_size=16)
-    hdr = prend.raster_step(scene, meta, rs, params, c2w, cam_pos, res, 0, visibility=vis)
-    img = prend.post_step(hdr, rs.tonemap, rs.bloom, 0).numpy()
+    r = helmet_raster_renderer("cpu", build_environment(analytic_equirect(), device="cpu",
+                                                        diffuse_size=16))
+    r.raster_visibility = vis
+    img = r.draw_frame()
     golden = np.asarray(Image.open(f"{GOLDEN_DIR}/helmet_raster.png"))
     assert img.shape == golden.shape
     assert ssim(img, golden) >= 0.99
