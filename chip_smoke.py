@@ -122,6 +122,31 @@ Phases (any failure exits non-zero and prints no result line):
    orbit, a debug-output `set`, a backend toggle and an animation
    transport input, each seen in /state and followed by a newer
    /frame.png, then shut down with its render thread;
+7g. multi-device rendering (parallel/sharding.py) and the rest of the
+   port, inside 7f's temporary directory: (a) in this process, with no
+   process group, the courtyard GLB path traced (7f's settings) and the
+   material zoo rasterized (raycast; its transmissive sphere puts the
+   backdrop gather on the path) at 1920x1080 under 7e's environment, two
+   frames each unsharded and through Renderer(mesh=make_mesh(1, 4)),
+   identical in u8 and HDR, every traversal launch accounted for (3 a
+   chunk of each cell + one a hop; 5 a chunk of the raster region); the
+   courtyard's first frame through a 2 x 2 mesh against the mean of its
+   two seeds' unsharded samples; (b) two ranks spawned on this card in a
+   gloo group (file store), each loading the GLB, the zoo and the
+   environment (from 7e's cache) itself and drawing the same frames
+   through Renderer(mesh="auto"), identical to (a), each rank's launches
+   accounted for and its wall and collective ms logged; both are joined
+   within SHARD_RANK_DEADLINE_S or killed, and the run fails; (c) an nccl
+   group of world 1 in this process, one sharded frame identical to
+   (a)'s; (d) the host-binned rasterize (ops/raster.rasterize) at
+   1920x1080 on the helmet's and the courtyard's bench views: one tile
+   launch a call, the tile kernel on the host-built lists bit-identical
+   to its plain version, the pixels differing from rasterize_device all
+   on near-clipped triangles, the host stages' and the kernel's ms; (e)
+   the hop-bound scene (scene.procedural.write_alpha_stack_gltf) on the
+   card: the masked retries and alpha shadows through the traversal
+   kernel equal to the same calls on the CPU, and the bounded results
+   tests/test_torch_hop_bounds.py pins for every N;
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -172,6 +197,7 @@ with torch.add.
 
 The second-to-last lines are the kernel table as JSON and the card's name
 and power limit; the last line is {"ok": true, "device": {...}}.
+
 """
 
 import itertools
@@ -216,6 +242,9 @@ APP_TIMED_PT = 4       # phase 7f: the Renderer's timed 1080p path-tracer frames
 APP_TIMED_RASTER = 3   # and raster frames, each after one warm frame
 CLI_TIMEOUT_S = 300
 VIEWER_DEADLINE_S = 60
+SHARD_MESH = (1, 4)          # phase 7g (a): four row tiles drawn in turn by one process
+SHARD_FRAMES = 2             # frames a renderer draws in 7g (a) and (b)
+SHARD_RANK_DEADLINE_S = 120  # 7g (b): the two ranks are killed, and the run fails, past it
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
 REPLACES = "gltf_renderer_tpu/ops/pallas_trace.py:123"
@@ -1646,6 +1675,390 @@ def app_viewer(device, card, tmp):
     return walls
 
 
+def shard_renderer(path, kind, device, env, mesh=None):
+    """A 1080p Renderer for phase 7g: the courtyard path traced as 7f's
+    (2 bounces, alpha shadows, the colonnade view) or the zoo rasterized
+    (raycast; its transmissive sphere puts the backdrop gather on the
+    path), under `env`."""
+    from gltf_renderer_tpu_torch.bench_scene import (COURTYARD_VIEW, MATERIALS_VIEW,
+                                                     golden_renderer)
+
+    if kind == "pathtracer":
+        return golden_renderer(path, *FULL_RES, "pathtracer", COURTYARD_VIEW, device,
+                               pt_kw=dict(max_bounces=2, min_bounces=2, alpha_shadows=True),
+                               env=env, mesh=mesh)
+    return golden_renderer(path, *FULL_RES, "rasterizer", MATERIALS_VIEW, device, env=env,
+                           mesh=mesh)
+
+
+def shard_frames(renderer, frames=SHARD_FRAMES):
+    """`frames` frames of `renderer`, each counted: u8 and HDR frames (on
+    the host), K1 launches, alpha hops, wall ms, collective ms and the
+    gathers (name, bytes) of each frame."""
+    import torch
+
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+
+    out = dict(u8=[], hdr=[], k1=[], hops=[], wall_ms=[], collective_ms=[], gathers=[])
+    for _ in range(frames):
+        k1 = tr.KERNEL_LAUNCHES
+        hops = pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS + rz.RASTER_RETRY_HOPS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["u8"].append(renderer.draw_frame())
+        out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["hdr"].append(renderer._accum.cpu().numpy())
+        out["k1"].append(tr.KERNEL_LAUNCHES - k1)
+        out["hops"].append(pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS + rz.RASTER_RETRY_HOPS
+                           - hops)
+        out["collective_ms"].append(renderer.stats.get("collective_ms"))
+        if renderer.mesh is not None:
+            out["gathers"].append([(name, b) for name, b, _ in renderer.mesh.log])
+    return out
+
+
+def expected_k1(kind, mesh, hops):
+    """K1 launches of one 1080p frame on this rank: the path tracer 3 a
+    chunk of each cell (2 bounces), the raster frame one a chunk of its
+    region and MAX_BLEND_LAYERS more in the blend pass; one a hop."""
+    from gltf_renderer_tpu_torch.parallel import sharding
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+
+    w, h = FULL_RES
+    tile_h = -(-h // mesh.n_tile)
+    if kind == "pathtracer":
+        return 3 * raster_chunks(w, tile_h) * len(mesh.cells()) + hops
+    rows = sharding._regions(mesh)[mesh.rank][1] * tile_h
+    return (1 + rz.MAX_BLEND_LAYERS) * raster_chunks(w, rows) + hops
+
+
+def same_frames(a, b):
+    """Every u8 and HDR frame of two shard_frames runs identical."""
+    return (len(a["u8"]) == len(b["u8"])
+            and all(x.shape == y.shape and (x == y).all() for x, y in zip(a["u8"], b["u8"]))
+            and all(x.tobytes() == y.tobytes() for x, y in zip(a["hdr"], b["hdr"])))
+
+
+def phase_sharded(device, card, env, tmp, helmet_world):
+    """Phase 7g, multi-device rendering and the rest of queue A on the
+    card. Returns the K1 and K2 launches of its main-path runs."""
+    import torch
+
+    from gltf_renderer_tpu_torch.scene.procedural import write_materials_gltf
+
+    paths = {"pathtracer": os.path.join(tmp, "courtyard.glb"),
+             "rasterizer": write_materials_gltf(os.path.join(tmp, "zoo.gltf"))}
+    t0 = time.perf_counter()
+    one = shard_one_process(device, card, env, paths)
+    log(f"[done] phase 7g (a) in {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = shard_two_ranks(device, card, tmp, paths, one)
+    log(f"[done] phase 7g (b) in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    nccl_k1 = shard_nccl(device, card, env, paths, one)
+    log(f"[done] phase 7g (c) in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    k2 = phase_host_raster(device, card, helmet_world, paths["pathtracer"])
+    log(f"[done] phase 7g (d) in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    hop_k1 = phase_hop_bounds(device, card, tmp)
+    log(f"[done] phase 7g (e) in {time.perf_counter() - t0:.1f}s")
+    return dict(k1=one["k1"] + ranks + nccl_k1 + hop_k1, k2=k2)
+
+
+def shard_one_process(device, card, env, paths):
+    """7g (a): one process, no process group. Each kind's frames unsharded
+    and through Renderer(mesh=make_mesh(1, 4)), identical in u8 and HDR;
+    the path tracer's first frame through a 2 x 2 mesh against the mean of
+    its two seeds' unsharded samples."""
+    import torch
+
+    from gltf_renderer_tpu_torch.parallel import sharding
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+
+    out, k1 = {}, 0
+    for kind, path in paths.items():
+        single = shard_frames(shard_renderer(path, kind, device, env))
+        mesh = sharding.make_mesh(*SHARD_MESH, device=device)
+        sharded = shard_frames(shard_renderer(path, kind, device, env, mesh))
+        want = [expected_k1(kind, mesh, h) for h in sharded["hops"]]
+        same = same_frames(single, sharded)
+        log(f"[shard] (a) {kind} {FULL_RES[0]}x{FULL_RES[1]} {SHARD_MESH[0]}x{SHARD_MESH[1]} mesh, one process, "
+            f"{SHARD_FRAMES} frames: identical to unsharded (u8, HDR)={same}; K1 launches "
+            f"{sharded['k1']} (expected {want}: {len(mesh.cells())} cells, hops "
+            f"{sharded['hops']}), unsharded {single['k1']}; wall ms {[round(x, 3) for x in sharded['wall_ms']]} "
+            f"unsharded {[round(x, 3) for x in single['wall_ms']]} card={card}")
+        if not same or sharded["k1"] != want:
+            raise AssertionError(f"the one-process sharded {kind} frames are wrong")
+        out[kind] = sharded
+        k1 += sum(sharded["k1"])
+
+    # The 2 x 2 mesh: the frame is the mean of seeds 0 and 0 + SEED_STRIDE.
+    mesh = sharding.make_mesh(2, 2, device=device)
+    r = shard_renderer(paths["pathtracer"], "pathtracer", device, env, mesh)
+    got = shard_frames(r, frames=1)
+    k1 += got["k1"][0]
+    halves = [pt.trace(r._ptscene, r._meta, r.settings.pt, r.params, r.camera.clip_to_world(),
+                       FULL_RES, (s * pt.SEED_STRIDE) & 0xFFFFFFFF) for s in range(2)]
+    want = ((halves[0] + halves[1]) / 2).cpu().numpy()
+    diff = float(np.abs(got["hdr"][0] - want).max())
+    log(f"[shard] (a) pathtracer 2x2 mesh, first frame vs the mean of the two seeds' unsharded "
+        f"samples: identical={got['hdr'][0].tobytes() == want.tobytes()}, largest difference "
+        f"{diff}; K1 launches {got['k1'][0]} (expected "
+        f"{expected_k1('pathtracer', mesh, got['hops'][0])}) card={card}")
+    if diff > 1e-5 or got["k1"][0] != expected_k1("pathtracer", mesh, got["hops"][0]):
+        raise AssertionError("the 2x2 mesh's frame is not the mean of its two samples")
+    return dict(out, k1=k1)
+
+
+def shard_rank(rank, world, store, tmp, paths, result, device):
+    """7g (b): one rank of a gloo group on `device` (cuda:0 for both). Loads
+    the scenes and the environment itself and draws each kind's frames
+    through Renderer(mesh="auto"); writes shard_frames' results to
+    `result`."""
+    import pickle
+
+    import torch
+
+    from gltf_renderer_tpu_torch.env.environment import build_environment
+    from gltf_renderer_tpu_torch.env.hdr_io import read_environment_image
+    from gltf_renderer_tpu_torch.parallel import distributed
+
+    distributed.initialize(backend="gloo", init_method=f"file://{store}", world_size=world,
+                           rank=rank, device=device)
+    try:
+        env = build_environment(read_environment_image(os.path.join(tmp, "sky.exr")), ENV_CUBE,
+                                device, cache_dir=os.path.join(tmp, "cache"))
+        out = {}
+        for kind, path in paths.items():
+            r = shard_renderer(path, kind, device, env, mesh="auto")
+            res = shard_frames(r)
+            out[kind] = dict(res, cells=r.mesh.cells(), rank=r.mesh.rank,
+                             world=r.mesh.world_size, backend=torch.distributed.get_backend(),
+                             expected=[expected_k1(kind, r.mesh, h) for h in res["hops"]])
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(result, "wb") as f:
+        pickle.dump(out, f)
+
+
+def shard_two_ranks(device, card, tmp, paths, one):
+    """7g (b): two spawned ranks on the one card (gloo), each against 7g
+    (a)'s frames; both joined within SHARD_RANK_DEADLINE_S or killed and
+    failed. Returns the ranks' K1 launches."""
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, "shard_store")
+    results = [os.path.join(tmp, f"shard_rank{r}.pkl") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=shard_rank, args=(r, 2, store, tmp, paths, results[r],
+                                                  str(device))) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_RANK_DEADLINE_S
+    for p in procs:
+        p.join(timeout=max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"7g (b): ranks {hung} hung past {SHARD_RANK_DEADLINE_S}s or a rank "
+                             f"failed (exit codes {[p.exitcode for p in procs]})")
+    log(f"[shard] (b) two gloo ranks on {device} done in {time.perf_counter() - t0:.2f}s wall "
+        f"(start, import, scene builds and frames)")
+    k1 = 0
+    for r, path in enumerate(results):
+        with open(path, "rb") as f:
+            got = pickle.load(f)
+        for kind, res in got.items():
+            same = same_frames(res, one[kind])
+            per = "3 a chunk + alpha hops" if kind == "pathtracer" else "5 a chunk + retry hops"
+            log(f"[shard] (b) rank {res['rank']}/{res['world']} ({res['backend']}, {device}) {kind} "
+                f"cells {res['cells']}: identical to (a) (u8, HDR)={same}; K1 launches "
+                f"{res['k1']} (expected {res['expected']}: {per} {res['hops']}); wall ms "
+                f"{[round(x, 3) for x in res['wall_ms']]}; collective ms {res['collective_ms']} "
+                f"(gathers {res['gathers'][-1]}) card={card}")
+            if not same or res["k1"] != res["expected"] or res["backend"] != "gloo":
+                raise AssertionError(f"rank {r}'s {kind} frames are wrong")
+            k1 += sum(res["k1"])
+    return k1
+
+
+def shard_nccl(device, card, env, paths, one):
+    """7g (c): an nccl group of world 1 in this process, the sharded
+    path-tracer frames of (a) through Renderer(mesh=make_mesh(1, 4)),
+    identical to (a)'s (the first gather also sets NCCL up); the group is
+    destroyed after. Returns its K1 launches."""
+    import socket
+
+    import torch
+
+    from gltf_renderer_tpu_torch.parallel import distributed, sharding
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(backend="nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                           rank=0, device=device)
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = sharding.make_mesh(*SHARD_MESH, device=device)
+        got = shard_frames(shard_renderer(paths["pathtracer"], "pathtracer", device, env, mesh))
+    finally:
+        torch.distributed.destroy_process_group()
+    same = same_frames(got, one["pathtracer"])
+    log(f"[shard] (c) {backend} group of world 1, {SHARD_MESH[0]}x{SHARD_MESH[1]} mesh, "
+        f"pathtracer, {SHARD_FRAMES} frames: identical to (a) (u8, HDR)={same}; gathers "
+        f"{got['gathers'][-1]}, collective ms {got['collective_ms']}; K1 launches {got['k1']}; "
+        f"wall ms {[round(x, 3) for x in got['wall_ms']]} card={card}")
+    if not same or backend != "nccl" or not all(got["gathers"]):
+        raise AssertionError("the nccl-group frame differs from the one-process frame")
+    return sum(got["k1"])
+
+
+def phase_host_raster(device, card, helmet_world, court_path):
+    """7g (d): the host-binned rasterize at 1080p on the helmet's and the
+    courtyard's bench views (cull +1): its one K2 launch a call; K2 on the
+    host-built lists bit-identical to its plain version; the pixels whose
+    triangle differs from rasterize_device's, all of them on near-clipped
+    triangles; the host stages' and K2's ms. Returns the K2 launches of
+    the two rasterize calls."""
+    import torch
+
+    from gltf_renderer_tpu_torch import camera
+    from gltf_renderer_tpu_torch.bench_scene import bench_camera, world_from_scene
+    from gltf_renderer_tpu_torch.ops import raster
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.scene.gltf import load_gltf
+
+    court_world = pt._to_device(world_from_scene(load_gltf(court_path))[0], device)
+    w, h = FULL_RES
+    launches = 0
+    for name, world in (("helmet", helmet_world), ("courtyard", court_world)):
+        args = (world.position, world.tri_vertex, camera.world_to_clip(bench_camera(w, h, name)),
+                w, h)
+        ds = world.tri_double_sided
+        raster.KERNEL_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z, tri, u, v = raster.rasterize(*args, double_sided=ds)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
+        k2 = raster.KERNEL_LAUNCHES
+        launches += k2
+
+        ms = {}
+        t0 = time.perf_counter()
+        setup = raster.build_setup(*args, double_sided=ds)
+        ms["build_setup"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        flat, offsets, tiles = raster.bin_triangles(setup, w, h)
+        ms["bin_triangles"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        lists = (torch.as_tensor(flat, device=device), torch.as_tensor(offsets, device=device))
+        torch.cuda.synchronize()
+        ms["lists_to_card"] = (time.perf_counter() - t0) * 1e3
+        kargs = (setup.rows, setup.rows_i, *lists, tiles)
+        got = raster.rasterize_tiles(*kargs, cull_sign=1)
+        want = raster.rasterize_tiles_ref(*kargs, cull_sign=1)
+        same = {n: identical(a, b) for n, a, b in zip(("z", "tri", "u", "v"), got, want)}
+        crop = identical(got[1][:h, :w], tri)
+        k2_ms = cuda_ms(lambda: raster.rasterize_tiles(*kargs, cull_sign=1), 10)
+
+        dev = raster.rasterize_device(*args, double_sided=ds)
+        n = world.tri_vertex.shape[0]
+        crossers = torch.unique(setup.rows_i[n:, 0])
+        differ = dev[1] != tri
+        near = torch.isin(tri, crossers) | torch.isin(dev[1], crossers)
+        n_diff, away = int(differ.sum()), int((differ & ~near).sum())
+        log(f"[host-raster] {name} {w}x{h}: rasterize {call_ms:.3f} ms wall, K2 launches {k2}; "
+            f"host stages " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+            + f"; K2 on the host lists {k2_ms:.4f} ms (CUDA events, 10 calls); rows "
+              f"{setup.rows.shape[0]} ({setup.rows.shape[0] - n} clipped pieces of "
+              f"{len(crossers)} crossers), pairs {len(flat)}; K2 vs plain identical={same}, "
+              f"rasterize's crop identical={crop}; vs rasterize_device: {n_diff} pixels "
+              f"differ, {away} away from near-clipped triangles; covered "
+              f"{int((tri >= 0).sum())} card={card}")
+        if k2 != 1 or not all(same.values()) or not crop or away or not (tri >= 0).any():
+            raise AssertionError(f"the host-binned rasterize is wrong on the {name} view")
+    return launches
+
+
+def phase_hop_bounds(device, card, tmp):
+    """7g (e): the hop-bound scene (tests/test_torch_hop_bounds.py) on the
+    card: trace_closest, the raster retry and trace_shadow(alpha_shadow)
+    through K1 against the same calls on the CPU (the plain version), and
+    the bounded results the CPU test pins for every N. Returns the card's
+    K1 launches."""
+    import torch
+
+    from gltf_renderer_tpu_torch.bench_scene import world_from_scene
+    from gltf_renderer_tpu_torch.ops import bvh as bvh_ops
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+    from gltf_renderer_tpu_torch.scene.gltf import load_gltf
+    from gltf_renderer_tpu_torch.scene.procedural import (ALPHA_STACK_LAYERS, alpha_stack_rays,
+                                                          write_alpha_stack_gltf)
+
+    srcs = {m: load_gltf(write_alpha_stack_gltf(os.path.join(tmp, f"stack_{m}.gltf"), m, 0.25))
+            for m in ("MASK", "BLEND")}
+    origin, direction, stack = alpha_stack_rays()
+    res, k1 = {}, 0
+    for dev in ("cpu", device):
+        sc = {}
+        for m, src in srcs.items():
+            world, lights = world_from_scene(src)
+            sc[m] = pt.make_pt_scene(world, src.materials, src.textures, lights, device=dev)
+        o, d = (torch.as_tensor(x, device=dev) for x in (origin, direction))
+        t_min = torch.zeros(len(origin), device=dev)
+        t_max = torch.full((len(origin),), 100.0, device=dev)
+        launches = tr.KERNEL_LAUNCHES
+        first = pt.closest_hit(*sc["MASK"], o, d, t_min, t_max, blend_mode=bvh_ops.BLEND_EXCLUDE)
+        res[str(dev)] = dict(
+            closest=pt.trace_closest(*sc["MASK"], o, d, t_min, t_max),
+            raster=rz._alpha_retry_raster(*sc["MASK"], first, o, d, t_max),
+            shadow=pt.trace_shadow(*sc["BLEND"], o, d, t_max, alpha_shadow=True))
+        if dev != "cpu":
+            k1 = tr.KERNEL_LAUNCHES - launches
+    cpu, card_res = res["cpu"], res[str(device)]
+    bounded = np.float32(1.0)
+    for _ in range(pt.MAX_SHADOW_HOPS):
+        bounded = bounded * (np.float32(1.0) - np.float32(0.25))
+    rows, ok = [], k1 == 2 + 2 * pt.MAX_ALPHA_HOPS + pt.MAX_SHADOW_HOPS
+    for path in ("closest", "raster"):
+        a, b = card_res[path], cpu[path]
+        bits = all(identical(x.cpu(), y) for x, y in zip(a, b))
+        ok &= bool(torch.equal(a.tri.cpu(), b.tri)) and bool(torch.allclose(a.t.cpu(), b.t,
+                                                                            rtol=1e-6, atol=0))
+        rows.append(f"{path} identical to the CPU's (t, tri, u, v bits)={bits}")
+    shadow = card_res["shadow"].cpu().numpy()
+    ok &= shadow.tobytes() == cpu["shadow"].numpy().tobytes()
+    per_n = []
+    for k, n in enumerate(ALPHA_STACK_LAYERS):
+        lanes = stack == k
+        t = card_res["closest"].t.cpu().numpy()[lanes]
+        want_t = 30.0 if n <= pt.MAX_ALPHA_HOPS else 9.0
+        want_s = 0.0 if n + 1 <= pt.MAX_SHADOW_HOPS else bounded
+        ok &= bool(np.allclose(t, want_t, rtol=1e-6)) and bool((shadow[lanes] == want_s).all())
+        per_n.append(f"N={n}: hit x={float(t[0]):.4f} transmission {float(shadow[lanes][0]):.6g}")
+    log(f"[hops] alpha stacks on the card, {len(origin)} rays: " + "; ".join(rows)
+        + f"; shadow identical={shadow.tobytes() == cpu['shadow'].numpy().tobytes()}; "
+          + ", ".join(per_n) + f"; K1 launches {k1} (expected {2 + 2 * pt.MAX_ALPHA_HOPS + pt.MAX_SHADOW_HOPS}: a "
+          f"first hit and {pt.MAX_ALPHA_HOPS} hops for each retry, {pt.MAX_SHADOW_HOPS} shadow "
+          f"hops) card={card}")
+    if not ok:
+        raise AssertionError("the hop-bound scene differs on the card")
+    return k1
+
+
 def identical(a, b):
     """Bit-identical (same shape, same 32-bit words)."""
     import torch
@@ -2057,6 +2470,10 @@ def main() -> int:
         t0 = time.perf_counter()
         app = phase_app(device, card, env, tmp, court, blend)
         log(f"[done] phase 7f in {time.perf_counter() - t0:.1f}s; K1 launches {app['k1']}")
+        t0 = time.perf_counter()
+        shard = phase_sharded(device, card, env, tmp, scene.world)
+        log(f"[done] phase 7g in {time.perf_counter() - t0:.1f}s; K1 launches {shard['k1']} "
+            f"(both ranks' included), K2 launches {shard['k2']}")
     log(f"[goldens] each drawn once through Renderer.load_scene(path) (bar {RASTER_SSIM_BAR}): "
         f"box_raster {blend['ssim']}, helmet_raster {helmet_ssim}, anim_pose "
         f"{anim['ssim']:.6f}, materials_pt {zoo['ssim']:.6f}, courtyard_pt {court['ssim']:.6f}")
@@ -2082,7 +2499,7 @@ def main() -> int:
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
         "launches": launches + court["launches"] + zoo["launches"]
         + sum(frames[v][0] for v in frames) + sum(f[0] for f in r_frames) + glb["launches"]
-        + anim["k1"] + app["k1"],
+        + anim["k1"] + app["k1"] + shard["k1"],
         "max_abs_err": max(worst_abs, anim["worst_abs"],
                            *(x["max_abs"] for x in court["k1"].values()),
                            *(x["max_abs"] for x in zoo["k1"].values()),
@@ -2100,7 +2517,7 @@ def main() -> int:
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,
-        "launches": frames["tiled"][1] + sum(f[1] for f in r_frames) + anim["k2"],
+        "launches": frames["tiled"][1] + sum(f[1] for f in r_frames) + anim["k2"] + shard["k2"],
         "max_abs_err": max(k2["err"], c_k2["err"]),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None, "bound_all_px_ms": k2["bound_all_px_ms"],

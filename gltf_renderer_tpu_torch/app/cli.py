@@ -8,6 +8,11 @@ Reference flags kept: --width --height --gltf --environment-map
 for scripted animation, orbit-camera parameters, tone map / exposure and
 debug-output selection (the ImGui Graphics tab, Main.cpp:224-340, as flags).
 Renders on the CUDA card; `main(argv, device="cpu")` renders on the CPU.
+
+Sharded over several cards, one process a card (rank 0 writes the files):
+
+    torchrun --nproc_per_node N -m gltf_renderer_tpu_torch.app.cli \
+        --gltf scene.glb --output out.png --shard auto
 """
 
 from __future__ import annotations
@@ -52,8 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frames", type=int, default=1, help="animation frames to write")
     p.add_argument("--fps", type=float, default=30.0)
     p.add_argument("--shard", choices=["off", "auto"], default="off",
-                   help="auto: shard rendering over every visible device (one device: "
-                        "unsharded; several: not ported yet)")
+                   help="auto: shard each frame's pixel rows over the ranks of the "
+                        "process group (torchrun; one rank: unsharded; "
+                        "parallel/sharding.py)")
     p.add_argument("--profile", action="store_true",
                    help="print a per-pass ms table each frame")
     p.add_argument("--trace-dir", type=str, default=None,
@@ -88,6 +94,7 @@ def main(argv=None, device="cuda") -> int:
     args = build_parser().parse_args(argv)
 
     from gltf_renderer_tpu_torch.camera import OrbitController
+    from gltf_renderer_tpu_torch.parallel import distributed
     from gltf_renderer_tpu_torch.render import settings as S
     from gltf_renderer_tpu_torch.render.renderer import Renderer
 
@@ -105,6 +112,9 @@ def main(argv=None, device="cuda") -> int:
             exposure=args.exposure,
         ),
     )
+    rank = 0
+    if args.shard == "auto":
+        rank, _ = distributed.initialize(device=device)
     renderer = Renderer(settings, mesh="auto" if args.shard == "auto" else None, device=device)
     renderer.params = renderer.params._replace(
         environment_intensity=args.environment_intensity,
@@ -178,7 +188,8 @@ def main(argv=None, device="cuda") -> int:
                 parts = "  ".join(f"{k}={v:.1f}ms" for k, v in renderer.stats["pass_ms"].items())
                 logging.info("frame %d passes: %s", frame, parts)
             out_path = args.output if args.frames == 1 else f"{base}_{frame:04d}{ext}"
-            save_png(out_path, img)
+            if rank == 0:
+                save_png(out_path, img)
             if args.frames > 1 and args.backend == "pathtracer":
                 renderer.draw_frame(delta=1.0 / args.fps)  # advance the animation
     logging.info("rendered %d frame(s) in %.2fs -> %s", args.frames, time.time() - t0,

@@ -30,6 +30,19 @@ animation transport = Main.cpp:196-222; drag-drop load = Main.cpp:238-254.
 The render thread owns the Renderer (on the CUDA card unless `serve` is
 given another device); the HTTP threads read the published PNG and queue
 inputs. A frame that raises stops the loop, and /state reports the error.
+
+Sharded (`--shard auto` under torchrun, several ranks), rank 0 runs the
+HTTP server and the frame loop, and before each frame broadcasts that
+frame's inputs (scene and environment paths, settings, params, camera,
+animation state, delta, and a stop flag); the other ranks follow: they
+apply the inputs and draw the same frame, whose collectives every rank
+joins. While rank 0 idles it broadcasts an idle packet each poll, and when
+it stops it broadcasts the stop that ends every follower. Before rank 0
+applies a `load` input it asks every rank whether the file is there (a
+probe packet and one all_gather): if a rank lacks it, rank 0 refuses the
+load, keeps the scene and reports the refusal in /state's `load_error`,
+as it does a file that fails to load on rank 0. A drag-drop upload is
+written on rank 0's host only, so over several hosts it is refused.
 """
 
 from __future__ import annotations
@@ -253,7 +266,9 @@ class ViewerState:
         self.spp = 0
         self.running = True
         self.scene_path = ""
+        self.env_path = None
         self.error = None          # the exception that stopped the render loop
+        self.load_error = None     # the last load input that failed or was refused
 
     def post_input(self, ev):
         with self.lock:
@@ -465,11 +480,13 @@ def _apply_inputs(state: ViewerState, evs) -> bool:
                 p = str(ev.get("path", ""))
                 if p.lower().endswith((".exr", ".hdr")):
                     state.renderer.load_environment(p)
+                    state.env_path = p
                 else:
                     state.renderer.load_scene(p)
                     state.scene_path = p
                 moved = True
             except Exception as e:  # drag-drop of a bad file must not kill the loop
+                state.load_error = f"{type(e).__name__}: {e}"
                 logging.error("load failed: %s", e)
     if moved:
         active = free if state.cam_mode == "free" else orbit
@@ -494,21 +511,109 @@ def render_loop(state: ViewerState, max_spp: int = 512):
 def _frames(state: ViewerState, max_spp: int):
     from PIL import Image
 
+    from gltf_renderer_tpu_torch.parallel.distributed import broadcast_object
+
+    sharded = _is_sharded(state.renderer)
     last = time.perf_counter()
     while state.running:
         evs = state.take_inputs()
+        if sharded:
+            evs = [ev for ev in evs if ev.get("type") != "load" or _on_every_rank(state, ev)]
         _apply_inputs(state, evs)
         p = state.renderer.player
         animating = p.animation is not None and p.playing
         now = time.perf_counter()
         delta, last = (now - last), now
         if not animating and state.renderer.accumulated_frames >= max_spp and not evs:
+            if sharded:
+                broadcast_object({"stop": False, "draw": False})
             time.sleep(0.05)
             continue
-        img = state.renderer.draw_frame(delta=delta if animating else 0.0)
+        delta = delta if animating else 0.0
+        if sharded:
+            broadcast_object(frame_inputs(state, delta))
+        img = state.renderer.draw_frame(delta=delta)
         buf = io.BytesIO()
         Image.fromarray(np.asarray(img)).save(buf, format="PNG")
         state.publish(buf.getvalue(), state.renderer.accumulated_frames)
+    if sharded:
+        broadcast_object({"stop": True, "draw": False})
+
+
+def _on_every_rank(state: ViewerState, ev: dict) -> bool:
+    """Whether every rank holds the file of a load input (rank 0 asks the
+    followers with a probe packet); if one does not, the load is refused."""
+    from gltf_renderer_tpu_torch.parallel.distributed import broadcast_object, gather_object
+
+    path = str(ev.get("path", ""))
+    broadcast_object({"stop": False, "draw": False, "probe": path})
+    missing = [r for r, ok in enumerate(gather_object(os.path.isfile(path))) if not ok]
+    if missing:
+        state.load_error = f"load refused: {path} is missing on ranks {missing}"
+        logging.error(state.load_error)
+    return not missing
+
+
+def _is_sharded(renderer) -> bool:
+    return renderer.mesh is not None and renderer.mesh.world_size > 1
+
+
+def frame_inputs(state: ViewerState, delta: float) -> dict:
+    """What a follower rank needs to draw rank 0's next frame."""
+    r = state.renderer
+    anim = next((i for i, a in enumerate(r.scene.animations) if a is r.player.animation), None)
+    return {"stop": False, "draw": True, "scene": state.scene_path, "scene_id": r.scene_id,
+            "env": state.env_path, "settings": r.settings, "params": r.params,
+            "camera": r.camera, "track_camera": r._track_camera, "animation": anim,
+            "time": r.player.time, "playing": r.player.playing, "looping": r.player.looping,
+            "delta": delta}
+
+
+def apply_frame_inputs(state: ViewerState, packet: dict):
+    """Bring a follower's renderer to the state `frame_inputs` read on
+    rank 0."""
+    r = state.renderer
+    if packet["scene"] != state.scene_path:
+        r.load_scene(packet["scene"], scene_id=packet["scene_id"])
+        state.scene_path = packet["scene"]
+    elif packet["scene_id"] != r.scene_id:
+        r.select_scene(packet["scene_id"])
+    if packet["env"] != state.env_path:
+        r.load_environment(packet["env"])
+        state.env_path = packet["env"]
+    r.settings, r.params = packet["settings"], packet["params"]
+    if packet["track_camera"] != r._track_camera:
+        r.select_camera(packet["track_camera"], viewport_aspect=state.width / state.height)
+    r.camera = packet["camera"]
+    idx = packet["animation"]
+    r.player.animation = None if idx is None else r.scene.animations[idx]
+    r.player.time = packet["time"]
+    r.player.playing = packet["playing"]
+    r.player.looping = packet["looping"]
+
+
+def follow_loop(state: ViewerState):
+    """A follower rank's frame loop: receive rank 0's frame inputs, draw
+    the frame (joining its collectives), until rank 0 broadcasts the stop.
+    An exception is kept in state.error and raised again."""
+    from gltf_renderer_tpu_torch.parallel.distributed import broadcast_object, gather_object
+
+    try:
+        while True:
+            packet = broadcast_object(None)
+            if packet["stop"]:
+                break
+            if "probe" in packet:
+                gather_object(os.path.isfile(packet["probe"]))
+            elif packet["draw"]:
+                apply_frame_inputs(state, packet)
+                state.renderer.draw_frame(delta=packet["delta"])
+                state.spp = state.renderer.accumulated_frames
+    except BaseException as e:
+        state.error = f"{type(e).__name__}: {e}"
+        raise
+    finally:
+        state.running = False
 
 
 def _snapshot_history(history, last: int = 60):
@@ -576,6 +681,7 @@ def make_handler(state: ViewerState):
                               if k != "pass_ms"},
                     "running": bool(state.running),
                     "error": state.error,
+                    "load_error": state.load_error,
                 }).encode()
                 self._send(200, body, "application/json")
             else:
@@ -655,12 +761,19 @@ def serve(gltf_path, width=960, height=540, port=8008, backend="pathtracer",
     on (host, port); port 0 binds a free port (read it from
     server.server_address).
 
+    shard="auto" joins the process group (parallel.distributed.initialize)
+    and shards every frame over its ranks; a rank other than 0 starts no
+    server and runs `follow_loop` in the thread instead (server None).
+
     Returns (server, state, thread) when block=False (tests drive it)."""
     from gltf_renderer_tpu_torch.app.cli import scene_bounds
     from gltf_renderer_tpu_torch.camera import OrbitController
+    from gltf_renderer_tpu_torch.parallel import distributed
     from gltf_renderer_tpu_torch.render import settings as S
     from gltf_renderer_tpu_torch.render.renderer import Renderer
 
+    if shard == "auto":
+        distributed.initialize(device=device)
     settings = S.RenderSettings(backend=backend, width=width, height=height)
     renderer = Renderer(settings, mesh="auto" if shard == "auto" else None, device=device)
     scene = renderer.load_scene(gltf_path)
@@ -676,6 +789,14 @@ def serve(gltf_path, width=960, height=540, port=8008, backend="pathtracer",
 
     state = ViewerState(renderer, orbit, width, height)
     state.scene_path = str(gltf_path)
+    state.env_path = env_path
+    if _is_sharded(renderer) and renderer.mesh.rank != 0:
+        thread = threading.Thread(target=follow_loop, args=(state,), daemon=True)
+        thread.start()
+        if not block:
+            return None, state, thread
+        thread.join()
+        return None
     server = ThreadingHTTPServer((host, port), make_handler(state))
     thread = threading.Thread(target=render_loop, args=(state,), daemon=True)
     thread.start()
@@ -691,6 +812,8 @@ def serve(gltf_path, width=960, height=540, port=8008, backend="pathtracer",
         pass
     finally:
         state.running = False
+        if _is_sharded(renderer):
+            thread.join()  # its last act is the followers' stop
     return None
 
 
@@ -704,8 +827,8 @@ def main(argv=None, device="cuda"):
                         choices=["pathtracer", "rasterizer"])
     parser.add_argument("--environment-map", default=None)
     parser.add_argument("--shard", choices=["off", "auto"], default="off",
-                        help="auto: shard frames over every visible device (one device: "
-                             "unsharded; several: not ported yet)")
+                        help="auto: shard frames over the ranks of the process group "
+                             "(torchrun; rank 0 serves HTTP; one rank: unsharded)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     serve(args.gltf, args.width, args.height, args.port, args.backend,

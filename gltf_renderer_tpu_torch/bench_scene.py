@@ -179,15 +179,15 @@ def raster_camera(eye, width: int, height: int):
 
 
 def golden_renderer(path, width: int, height: int, backend: str, view, device="cuda",
-                    pt_kw=None, env=None):
+                    pt_kw=None, env=None, mesh=None):
     """A Renderer on `path` set up as tests/golden_configs.py::_renderer
     sets up the JAX one: `backend` at width x height, PathTracerSettings
     from pt_kw, the environment `env` (EnvMaps on `device`, or None), the
     default 60-degree lens with z_near 0.01, looking from view[0] at
-    view[1]."""
+    view[1]; `mesh` as Renderer takes it."""
     rs = S.RenderSettings(backend=backend, width=width, height=height,
                           pt=S.PathTracerSettings(**(pt_kw or {})))
-    r = Renderer(rs, device=device)
+    r = Renderer(rs, mesh=mesh, device=device)
     r.env = env
     r.load_scene(path)
     r.camera.aspect_ratio = width / height

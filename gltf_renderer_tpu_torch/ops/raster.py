@@ -1,7 +1,7 @@
 """Tile-binned rasterizer: the raster backend's `tiled` visibility.
 
-Port of the device path of gltf_renderer_tpu/ops/pallas_raster.py
-(`rasterize_device` and the stages it runs). Four stages, all on the
+Port of gltf_renderer_tpu/ops/pallas_raster.py. The device path
+(`rasterize_device`, which the renderer runs) has four stages, all on the
 tensors' device with no host sync:
 
 1. `_setup_device`: clip transform and (T, 24) setup rows for triangles
@@ -27,8 +27,12 @@ u0, v0, u1, v1, u2, v2, 0...]: screen coordinates, reversed-Z NDC depth,
 1/clip_w, and each setup vertex's barycentrics in the original triangle.
 Integer rows: [triangle id, flags (bit 0: double-sided), 0...].
 
-The host-binned `build_setup` / `bin_triangles` / `rasterize` of the JAX
-module are not ported: no path of the renderer uses them.
+The host-binned path (`rasterize`) is the JAX module's first pipeline,
+kept as a public function: `build_setup` runs `_setup_device` and copies
+one (T, 6) summary to the host, clips the near-plane crossers there
+(`_clip_near_host`, numpy, every crosser), and `bin_triangles` builds the
+CSR tile lists in numpy; then `rasterize_tiles` runs as above. It has no
+caps: every pair and every crosser is kept.
 """
 
 from __future__ import annotations
@@ -273,6 +277,154 @@ def rasterize_device(world_position, tri_vertex, world_to_clip, width: int, heig
                         double_sided=double_sided, pair_cap=pair_cap, clip_cap=clip_cap)
     z, tri, u, v = rasterize_tiles(ins.rows, ins.rows_i, ins.tri_list, ins.offsets,
                                    ins.tiles, cull_sign=cull_sign)
+    return z[:height, :width], tri[:height, :width], u[:height, :width], v[:height, :width]
+
+
+# ---------------------------------------------------------------------------
+# The host-binned path
+# ---------------------------------------------------------------------------
+
+class RasterSetup(NamedTuple):
+    rows: Any                # (T', 24) f32 setup rows on the device
+    rows_i: Any              # (T', 8) i32 [triangle id, flags, 0...] on the device
+    valid: np.ndarray        # (T',) bool host mask (wholly in front, or a clipped piece)
+    screen_aabb: np.ndarray  # (T', 4) f32 host [x0, y0, x1, y1]
+
+
+def _clip_near_host(clip, tri_vertex, keep_mask, cross_mask):
+    """Sutherland-Hodgman clip of the `cross_mask` triangles against
+    w = NEAR_EPS, in numpy. Returns (clip_verts (M, 3, 4), bary (M, 3, 3),
+    src (M,)): up to 2 triangles a crosser, each vertex carrying its
+    barycentrics in the SOURCE triangle."""
+    idx = np.nonzero(cross_mask)[0]
+    out_v, out_b, out_src = [], [], []
+    eye = np.eye(3, dtype=np.float32)
+    for t in idx:
+        vs = clip[tri_vertex[t]]                     # (3, 4)
+        polys_v = []
+        polys_b = []
+        for k in range(3):
+            a, b = vs[k], vs[(k + 1) % 3]
+            ba, bb = eye[k], eye[(k + 1) % 3]
+            ina, inb = a[3] > NEAR_EPS, b[3] > NEAR_EPS
+            if ina:
+                polys_v.append(a)
+                polys_b.append(ba)
+            if ina != inb:
+                s = (NEAR_EPS - a[3]) / (b[3] - a[3])
+                polys_v.append(a + s * (b - a))
+                polys_b.append(ba + s * (bb - ba))
+        if len(polys_v) < 3:
+            continue
+        for k in range(1, len(polys_v) - 1):
+            out_v.append([polys_v[0], polys_v[k], polys_v[k + 1]])
+            out_b.append([polys_b[0], polys_b[k], polys_b[k + 1]])
+            out_src.append(t)
+    if not out_v:
+        return (np.zeros((0, 3, 4), np.float32), np.zeros((0, 3, 3), np.float32),
+                np.zeros(0, np.int64))
+    return (np.asarray(out_v, np.float32), np.asarray(out_b, np.float32),
+            np.asarray(out_src, np.int64))
+
+
+def _host(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def build_setup(world_position, tri_vertex, world_to_clip, width: int, height: int,
+                double_sided=None) -> RasterSetup:
+    """Setup rows on the tensors' device for the triangles wholly in front
+    of the near plane, then one host copy of the (T, 6) summary (screen
+    box, keep, cross); the crossers are clipped on the host and their
+    pieces' rows appended. world_to_clip (4, 4) f32 host matrix."""
+    dev = world_position.device
+    tv = _host(tri_vertex)
+    t = tv.shape[0]
+    m = torch.as_tensor(np.asarray(world_to_clip, np.float32), device=dev)
+    rows_d, clip_d, keep_d, cross_d = _setup_device(world_position, tri_vertex, m, width, height)
+    sx, sy = rows_d[:, 0:6:2], rows_d[:, 1:6:2]
+    summary = _host(torch.stack([sx.amin(1), sy.amin(1), sx.amax(1), sy.amax(1),
+                                 keep_d.to(torch.float32), cross_d.to(torch.float32)], 1))
+    aabb = summary[:, 0:4]
+    keep = summary[:, 4] > 0.5
+    cross = summary[:, 5] > 0.5
+
+    ds = (_host(double_sided).astype(np.int32) if double_sided is not None
+          else np.zeros(t, np.int32))
+    rows_i = np.stack([np.arange(t, dtype=np.int32), ds] + [np.zeros(t, np.int32)] * 6,
+                      1).astype(np.int32)
+    rows = rows_d
+    valid = keep
+    if cross.any():
+        cv, cb, cs = _clip_near_host(_host(clip_d), tv, keep, cross)
+        w = cv[..., 3]
+        safe_w = np.where(np.abs(w) > 1e-9, w, 1e-9)
+        px = ((cv[..., 0] / safe_w) + 1.0) * 0.5 * width
+        py = (-(cv[..., 1] / safe_w) + 1.0) * 0.5 * height
+        pz = cv[..., 2] / safe_w
+        iw = 1.0 / safe_w
+        extra = np.concatenate(
+            [np.stack([px[:, 0], py[:, 0], px[:, 1], py[:, 1], px[:, 2], py[:, 2],
+                       pz[:, 0], pz[:, 1], pz[:, 2], iw[:, 0], iw[:, 1], iw[:, 2]], 1),
+             cb[:, 0, 1:3].reshape(-1, 2), cb[:, 1, 1:3].reshape(-1, 2),
+             cb[:, 2, 1:3].reshape(-1, 2),
+             np.zeros((len(cs), SETUP_WIDTH - 18), np.float32)], axis=1).astype(np.float32)
+        rows = torch.cat([rows_d, torch.as_tensor(extra, device=dev)])
+        zi = np.zeros(len(cs), np.int32)
+        rows_i = np.concatenate([rows_i, np.stack([cs.astype(np.int32), ds[cs]] + [zi] * 6, 1)])
+        aabb = np.concatenate([aabb, np.stack([px.min(1), py.min(1), px.max(1), py.max(1)],
+                                              1)]).astype(np.float32)
+        valid = np.concatenate([keep, np.ones(len(cs), bool)])
+    return RasterSetup(rows=rows, rows_i=torch.as_tensor(rows_i, device=dev), valid=valid,
+                       screen_aabb=aabb)
+
+
+def bin_triangles(setup: RasterSetup, width: int, height: int):
+    """The CSR tile lists, in numpy: (tri_list (pairs,) i32 setup-row ids
+    sorted stably by tile, offsets (n_tiles + 1,) i32, (tiles_x, tiles_y))."""
+    tiles_x, tiles_y = tile_grid(width, height)
+    aabb = setup.screen_aabb
+    valid = setup.valid.copy()
+    # Degenerate / off-screen rejection.
+    valid &= (aabb[:, 2] >= 0) & (aabb[:, 0] < width)
+    valid &= (aabb[:, 3] >= 0) & (aabb[:, 1] < height)
+
+    tx0 = np.clip((aabb[:, 0] // TILE_W).astype(np.int64), 0, tiles_x - 1)
+    tx1 = np.clip((aabb[:, 2] // TILE_W).astype(np.int64), 0, tiles_x - 1)
+    ty0 = np.clip((aabb[:, 1] // TILE_H).astype(np.int64), 0, tiles_y - 1)
+    ty1 = np.clip((aabb[:, 3] // TILE_H).astype(np.int64), 0, tiles_y - 1)
+    nx = np.where(valid, tx1 - tx0 + 1, 0)
+    ny = np.where(valid, ty1 - ty0 + 1, 0)
+    counts = nx * ny
+    total = int(counts.sum())
+    tri_rep = np.repeat(np.arange(len(counts)), counts)
+    # Each pair's tile within its triangle's box.
+    local = np.arange(total) - np.repeat(np.cumsum(counts) - counts, counts)
+    nx_rep = np.repeat(nx, counts)
+    lx = local % np.maximum(nx_rep, 1)
+    ly = local // np.maximum(nx_rep, 1)
+    tile_id = (np.repeat(ty0, counts) + ly) * tiles_x + np.repeat(tx0, counts) + lx
+
+    order = np.argsort(tile_id, kind="stable")
+    offsets = np.zeros(tiles_x * tiles_y + 1, np.int64)
+    np.add.at(offsets, tile_id[order] + 1, 1)
+    return (tri_rep[order].astype(np.int32), np.cumsum(offsets).astype(np.int32),
+            (tiles_x, tiles_y))
+
+
+def rasterize(world_position, tri_vertex, world_to_clip, width: int, height: int,
+              double_sided=None, cull_backfaces: bool = True):
+    """The host-binned pipeline: `build_setup`, `bin_triangles`, then
+    `rasterize_tiles` on the tensors' device. Returns (z, tri, u, v), each
+    (height, width)."""
+    setup = build_setup(world_position, tri_vertex, world_to_clip, width, height, double_sided)
+    flat, offsets, tiles = bin_triangles(setup, width, height)
+    if len(flat) == 0:
+        flat = np.zeros(1, np.int32)
+    dev = setup.rows.device
+    z, tri, u, v = rasterize_tiles(setup.rows, setup.rows_i, torch.as_tensor(flat, device=dev),
+                                   torch.as_tensor(offsets, device=dev), tiles,
+                                   cull_sign=1 if cull_backfaces else 0)
     return z[:height, :width], tri[:height, :width], u[:height, :width], v[:height, :width]
 
 

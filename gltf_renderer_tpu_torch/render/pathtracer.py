@@ -819,26 +819,39 @@ def _to_tile_order(img, tile: int = PACKET_TILE):
 
 def trace(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
           params: S.PathTracerParams, clip_to_world, resolution, seed,
-          with_stats: bool = False, chunk: int = RAY_CHUNK):
+          pixel_offset=(0, 0), full_resolution=None, with_stats: bool = False,
+          chunk: int = RAY_CHUNK):
     """One progressive sample per pixel. Returns (h, w, 3) radiance (and
-    the [ray_count, nan_count] stats with with_stats)."""
+    the [ray_count, nan_count] stats with with_stats). A tile of a larger
+    image: `resolution` is the tile's (w, h), `pixel_offset` the image
+    pixel of its (0, 0) and `full_resolution` the image's (w, h)."""
     return trace_chunked(scene, meta, settings, params, clip_to_world, resolution, seed,
+                         pixel_offset=pixel_offset, full_resolution=full_resolution,
                          with_stats=with_stats, chunk=chunk, spp=1)
 
 
 def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                   params: S.PathTracerParams, clip_to_world, resolution, seed,
-                  with_stats: bool = False, chunk: int = RAY_CHUNK, spp: int = 1):
+                  pixel_offset=(0, 0), full_resolution=None, with_stats: bool = False,
+                  chunk: int = RAY_CHUNK, spp: int = 1):
     """Trace `chunk` rays per _trace_rays call. spp > 1 traces that many
     samples per pixel in the same call (the pixel slice shrinks to
     chunk/spp) and returns their mean; sample k is keyed by
-    seed + k*0x9E3779B9 (uint32 wrap), the reference's sample schedule."""
+    seed + k*0x9E3779B9 (uint32 wrap), the reference's sample schedule.
+
+    pixel_offset and full_resolution place a tile in its image, as in
+    `trace`: camera rays and the RNG read absolute pixel coordinates, so a
+    tile's pixels are the image's. Tile rows past the image's bottom are
+    traced as extrapolated camera rays (the caller crops them)."""
     if chunk % spp:
         raise ValueError(f"chunk {chunk} is not a multiple of spp {spp}")
     dev = scene.wide_nodes.device
     w, h = resolution
+    full_resolution = resolution if full_resolution is None else full_resolution
     c2w = torch.as_tensor(np.asarray(clip_to_world, np.float32), device=dev)
     px_f, py_f, valid_f = _tile_order(w, h, dev)
+    px_f = px_f + int(pixel_offset[0])
+    py_f = py_f + int(pixel_offset[1])
     n = px_f.shape[0]
     chunk_pix = chunk // spp
     seeds = torch.as_tensor([(int(seed) + k * SEED_STRIDE) & rng.M32 for k in range(spp)],
@@ -851,7 +864,7 @@ def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         cva = valid_f[start:start + chunk_pix]
         m = cpx.shape[0]
         seed_vec = seeds.repeat_interleave(m) if spp > 1 else seeds[0]
-        col, st = _trace_rays(scene, meta, settings, params, c2w, (w, h), seed_vec,
+        col, st = _trace_rays(scene, meta, settings, params, c2w, full_resolution, seed_vec,
                               cpx.repeat(spp), cpy.repeat(spp), cva.repeat(spp))
         if spp > 1:
             col = col.reshape(spp, m, 3)

@@ -29,8 +29,12 @@ The masked retry stops when no lane is left to retry, read as one scalar
 on the host per hop, or at MAX_ALPHA_HOPS; RASTER_RETRY_HOPS counts the
 hops it runs, each one more traverse_wide launch.
 
-The JAX `render`'s sharded-tile arguments (pixel_offset, full_resolution,
-lit_gather) are not ported: they serve the multi-device path only.
+`render` also draws one tile of a larger image (pixel_offset,
+full_resolution), as the sharded frame of parallel.sharding does: pixel
+rays, the pixel footprint, screen uv and motion vectors read absolute
+pixels of the full image, and `lit_gather` assembles the full lit image
+from which the transmission backdrop is built. Tiles need the raycast
+visibility.
 """
 
 from __future__ import annotations
@@ -378,7 +382,8 @@ def _tiled_visibility(scene: PTScene, meta: PTMeta, clip_to_world_np, w: int, h:
 
 def render(scene: PTScene, meta: PTMeta, render_settings, params, clip_to_world, camera_pos,
            resolution, frame, prev_world_to_clip=None, prev_position=None,
-           with_motion: bool = False, visibility: str = "raycast"):
+           with_motion: bool = False, visibility: str = "raycast", pixel_offset=(0, 0),
+           full_resolution=None, lit_gather=None):
     """Rasterizer::DrawScene -> (h, w, 3) HDR linear image, and with
     with_motion the (h, w, 2) motion vectors too.
 
@@ -386,19 +391,30 @@ def render(scene: PTScene, meta: PTMeta, render_settings, params, clip_to_world,
     the previous frame (this frame's f32 inverse by default); prev_position
     (VW, 3) previous world positions on the scene's device. render_settings
     and frame are taken for the reference's signature (the draw reads
-    neither)."""
+    neither).
+
+    A tile of a larger image: `resolution` is the tile's (w, h),
+    `pixel_offset` the image pixel of its (0, 0), `full_resolution` the
+    image's (w, h), and `lit_gather` maps the tile's (h, w, 3) lit image
+    to the full image's, from which the transmission backdrop is built
+    (the blend pass samples it at absolute screen uv)."""
     if visibility not in VISIBILITIES:
         raise ValueError(f"visibility must be one of {VISIBILITIES}, got {visibility!r}")
+    if full_resolution is not None and visibility != "raycast":
+        raise ValueError("a tile of a larger image needs the raycast visibility")
     w, h = resolution
+    fw, fh = resolution if full_resolution is None else full_resolution
     dev = scene.world.position.device
     c2w_np = np.asarray(clip_to_world, np.float32)
     c2w = torch.as_tensor(c2w_np, device=dev)
     px, py, _ = _tile_order(w, h, dev)
+    px = px + int(pixel_offset[0])
+    py = py + int(pixel_offset[1])
     n = px.shape[0]
     env_intensity = params.environment_intensity
     use_env = meta.has_env
     has_mips = scene.textures.mip_flat is not None
-    s0 = _pixel_spread(c2w, (w, h)) if has_mips else None
+    s0 = _pixel_spread(c2w, (fw, fh)) if has_mips else None
     tiled = _tiled_visibility(scene, meta, c2w_np, w, h) if visibility == "tiled" else None
     keep_hits = meta.has_blend or with_motion
 
@@ -406,7 +422,7 @@ def render(scene: PTScene, meta: PTMeta, render_settings, params, clip_to_world,
     lit, opaque = [], []
     for start in range(0, n, RAY_CHUNK):
         sl = slice(start, start + RAY_CHUNK)
-        origin, direction, t_max = _pixel_rays(px[sl], py[sl], (w, h), c2w)
+        origin, direction, t_max = _pixel_rays(px[sl], py[sl], (fw, fh), c2w)
         if tiled is not None:
             ctri, cu, cv = (x[sl] for x in tiled)
             row = scene.world.tri_attr_rows[torch.clamp(ctri, min=0)]
@@ -440,11 +456,13 @@ def render(scene: PTScene, meta: PTMeta, render_settings, params, clip_to_world,
 
     # Transmission backdrop mips + blended / transmissive layers.
     if meta.has_blend:
-        trans_mips = build_transmission_mips(_from_tile_order(lit_f, w, h))
+        lit_img = _from_tile_order(lit_f, w, h)
+        trans_mips = build_transmission_mips(lit_img if lit_gather is None
+                                             else lit_gather(lit_img))
         blended = []
         for start in range(0, n, RAY_CHUNK):
             sl = slice(start, start + RAY_CHUNK)
-            origin, direction, t_max, screen_uv = _pixel_rays(px[sl], py[sl], (w, h), c2w,
+            origin, direction, t_max, screen_uv = _pixel_rays(px[sl], py[sl], (fw, fh), c2w,
                                                               with_screen_uv=True)
             t_far = torch.minimum(opaque.t[sl], t_max)
             layer_rgb, layer_a = [], []
@@ -476,6 +494,6 @@ def render(scene: PTScene, meta: PTMeta, render_settings, params, clip_to_world,
             prev_world_to_clip = camera.world_to_clip(c2w_np)
         mv = motion_vectors(scene.world, opaque, px, py,
                             torch.as_tensor(prev_world_to_clip, dtype=torch.float32, device=dev),
-                            prev_position, (w, h))
+                            prev_position, (fw, fh))
         return lit, _from_tile_order(mv, w, h)
     return lit

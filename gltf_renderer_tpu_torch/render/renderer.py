@@ -9,6 +9,10 @@ bloom (raster only), tone map and dither -> u8 copied to the host. The
 copy is the frame's one intended wait for the device; everything before it
 is queued on the device's stream.
 
+With a mesh (parallel.sharding) the path tracer's sample and the raster
+frame are drawn sharded over the mesh's cells, and every rank gets the
+whole image; accumulation, post and the u8 copy run on it on every rank.
+
 `raster_step` and `post_step` are the raster and post steps on their own.
 """
 
@@ -28,6 +32,7 @@ from gltf_renderer_tpu_torch.device import resolve, synchronize
 from gltf_renderer_tpu_torch.env.environment import EnvMaps, build_environment
 from gltf_renderer_tpu_torch.env.hdr_io import read_environment_image
 from gltf_renderer_tpu_torch.ops import rng
+from gltf_renderer_tpu_torch.parallel import sharding
 from gltf_renderer_tpu_torch.post.bloom import bloom as bloom_op
 from gltf_renderer_tpu_torch.post.tonemap import to_u8, tonemap
 from gltf_renderer_tpu_torch.render import pathtracer as pt
@@ -37,17 +42,20 @@ from gltf_renderer_tpu_torch.scene import flatten
 from gltf_renderer_tpu_torch.scene import types as T
 from gltf_renderer_tpu_torch.scene.gltf import load_gltf
 
-SHARDING_NOT_PORTED = ("sharded rendering over {n} devices is not ported yet "
-                       "(ROADMAP.md section A, item 6)")
-
 
 def raster_step(scene, meta, settings: S.RenderSettings, params, c2w, cam_pos, resolution,
-                frame, visibility: str = "raycast"):
+                frame, visibility: str = "raycast", mesh=None):
     """DrawScene -> (h, w, 3) HDR linear image on the scene's device: the
     opaque and alpha-tested pass, the background, and the blended and
-    transmissive layers over the backdrop pyramid."""
-    return rasterizer.render(scene, meta, settings, params, c2w, cam_pos, resolution, frame,
-                             visibility=visibility)
+    transmissive layers over the backdrop pyramid. With a mesh, sharded
+    over its tiles (raycast visibility only)."""
+    if mesh is None:
+        return rasterizer.render(scene, meta, settings, params, c2w, cam_pos, resolution, frame,
+                                 visibility=visibility)
+    if visibility != "raycast":
+        raise ValueError("a sharded raster frame needs the raycast visibility")
+    return sharding.render_raster_sharded(scene, meta, settings, params, c2w, cam_pos,
+                                          resolution, frame, mesh)
 
 
 def post_step(hdr, tonemap_settings: S.ToneMapSettings, bloom_settings, frame):
@@ -66,18 +74,22 @@ class Renderer:
     """Interactive / offline renderer state machine."""
 
     def __init__(self, settings: Optional[S.RenderSettings] = None, mesh=None, device="cuda"):
-        """mesh: None (one device) or "auto", which on one visible device
-        renders unsharded, as the JAX package does. Sharding over several
-        devices is not ported: "auto" with more than one visible CUDA
-        device, or an explicit mesh, raises NotImplementedError."""
+        """mesh: None (one device, unsharded), "auto" (one tile a rank of
+        the process group, parallel.distributed.initialize; unsharded in a
+        world of 1), or a parallel.sharding.Mesh on this renderer's device
+        type, used as given. Both backends draw through the sharded steps
+        when a mesh is set."""
         self.settings = settings or S.RenderSettings()
         self.params = S.PathTracerParams()
         self.device = resolve(device)
-        if mesh is not None:
-            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
-            if mesh != "auto" or n > 1:
-                raise NotImplementedError(SHARDING_NOT_PORTED.format(n=n))
-        self.mesh = None
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be None, 'auto' or a Mesh, got {mesh!r}")
+            mesh = sharding.make_mesh(1, device=self.device)
+            mesh = mesh if mesh.world_size > 1 else None
+        elif mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the renderer on {self.device}")
+        self.mesh = mesh
         self.scene: Optional[T.Scene] = None
         self.scene_id = 0
         self.env: Optional[EnvMaps] = None
@@ -236,7 +248,10 @@ class Renderer:
 
     def save_state(self, path: str):
         """Checkpoint the progressive accumulation (the JAX renderer's .npz
-        keys: accum, accumulated_frames, frame_index)."""
+        keys: accum, accumulated_frames, frame_index). Sharded, rank 0
+        writes the file (every rank holds the same state)."""
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         np.savez(path,
                  accum=self._accum.cpu().numpy() if self._accum is not None else np.zeros(0),
                  accumulated_frames=self.accumulated_frames,
@@ -244,7 +259,8 @@ class Renderer:
 
     def load_state(self, path: str):
         """Resume a checkpointed progressive render on the renderer's device
-        (camera, scene and settings must match, or the reset key clears it)."""
+        (camera, scene and settings must match, or the reset key clears it).
+        Sharded, every rank reads the file."""
         data = np.load(path)
         accum = data["accum"]
         self._accum = torch.as_tensor(accum, device=self.device) if accum.size else None
@@ -257,8 +273,13 @@ class Renderer:
         dev = self.device
         # A fill, not a copy from the host: no wait for the queued work.
         frames = torch.full((), self.accumulated_frames, dtype=torch.int64, device=dev)
-        radiance, stats = pt.trace(self._ptscene, self._meta, self.settings.pt, self.params,
-                                   c2w, resolution, seed, with_stats=True)
+        if self.mesh is None:
+            radiance, stats = pt.trace(self._ptscene, self._meta, self.settings.pt, self.params,
+                                       c2w, resolution, seed, with_stats=True)
+        else:
+            radiance, stats = sharding.render_sharded(
+                self._ptscene, self._meta, self.settings.pt, self.params, c2w, resolution, seed,
+                self.mesh, with_stats=True)
         self.ray_stats = self.ray_stats + stats
         return pt.accumulate(self._accum, radiance, frames, self.settings.pt)
 
@@ -270,6 +291,8 @@ class Renderer:
         t_frame = time.perf_counter()
         st = self.settings
         pass_ms = {}
+        if self.mesh is not None:
+            self.mesh.log.clear()
 
         def _timed(name, fn, *a, **kw):
             if not self.profile:
@@ -314,7 +337,7 @@ class Renderer:
         else:
             hdr = _timed("draw_scene", raster_step, self._ptscene, self._meta, st, self.params,
                          c2w, self.camera.position(), resolution, self.frame_index,
-                         visibility=self.raster_visibility)
+                         visibility=self.raster_visibility, mesh=self.mesh)
             self._accum = hdr
             bloom_settings = st.bloom
 
@@ -333,6 +356,8 @@ class Renderer:
         }
         if self.profile:
             self.stats["pass_ms"] = pass_ms
+        if self.mesh is not None:
+            self.stats["collective_ms"] = round(self.mesh.collective_ms(), 3)
         self.history.append({
             "frame": self.frame_index,
             "frame_ms": frame_ms,

@@ -23,6 +23,10 @@ them, and the same nodes.
   24x48 UV spheres (thin transmission with volume attenuation and ior,
   clearcoat, sheen, anisotropic metal) over an emissive floor quad.
 
+`write_alpha_stack_gltf` (no JAX counterpart) writes the hop-bound
+scene: stacks of N alpha quads in front of one opaque backstop, with
+`alpha_stack_rays` the rays through them.
+
 The writers `write_box_gltf`, `write_textured_sphere_glb`,
 `write_materials_gltf`, `write_courtyard_glb`, `write_skinned_gltf` and
 `write_morph_gltf` are copies of the JAX package's (:115, :174, :615, :895,
@@ -734,3 +738,69 @@ def write_courtyard_glb(path, density=1, tex_size=256):
     ]
     doc["scenes"] = [{"nodes": [0]}]
     return _write_glb(path, doc, bin_parts)
+
+
+ALPHA_STACK_LAYERS = (4, 8, 9, 16, 17, 24)
+ALPHA_STACK_BACKSTOP_X = 30.0
+_STACK_PITCH = 3.0
+# Ray offsets in a layer quad: no offset lies on the quad's diagonal
+# (dy == dz), so every ray meets exactly one triangle a layer.
+_STACK_DY = (-0.3, -0.1, 0.1, 0.3)
+_STACK_DZ = (-0.25, -0.05, 0.15, 0.35)
+
+
+def write_alpha_stack_gltf(path, mode: str = "MASK", alpha: float = 0.25,
+                           layers=ALPHA_STACK_LAYERS):
+    """Stacks of unit quads facing -X, stack k holding layers[k] quads at
+    x = 1, 2, ..., layers[k] (centre y = 3k, z = 0), all of one material
+    with base colour alpha `alpha` and alphaMode `mode` ("MASK", cutoff
+    0.5, or "BLEND"); behind them an opaque quad at x = 30 spanning every
+    stack. A root node undoes the loader's Y-up -> Z-up basis, so these
+    are world coordinates."""
+    doc = {"asset": {"version": "2.0"}, "scene": 0}
+    bin_parts = []
+
+    def quad(x, y, half_y, half_z):
+        return [[x, y - half_y, -half_z], [x, y + half_y, -half_z],
+                [x, y + half_y, half_z], [x, y - half_y, half_z]]
+
+    def prim(quads, material):
+        p = np.asarray(quads, np.float32).reshape(-1, 3)
+        n = np.tile(np.asarray([[-1.0, 0.0, 0.0]], np.float32), (len(p), 1))
+        idx = (np.arange(len(quads), dtype=np.uint32)[:, None] * 4
+               + np.asarray([0, 1, 2, 0, 2, 3], np.uint32)).reshape(-1)
+        return {"attributes": {"POSITION": _acc(doc, bin_parts, p, target=34962),
+                               "NORMAL": _acc(doc, bin_parts, n, target=34962)},
+                "indices": _acc(doc, bin_parts, idx, target=34963), "material": material}
+
+    stacks = [quad(float(x), _STACK_PITCH * k, 0.5, 0.5)
+              for k, n in enumerate(layers) for x in range(1, n + 1)]
+    span = _STACK_PITCH * (len(layers) - 1)
+    back = [quad(ALPHA_STACK_BACKSTOP_X, 0.5 * span, 0.5 * span + 1.0, 1.0)]
+    layer_mat = {"pbrMetallicRoughness": {"baseColorFactor": [1.0, 1.0, 1.0, alpha],
+                                          "metallicFactor": 0.0, "roughnessFactor": 1.0},
+                 "alphaMode": mode, "doubleSided": True}
+    if mode == "MASK":
+        layer_mat["alphaCutoff"] = 0.5
+    doc["materials"] = [layer_mat,
+                        {"pbrMetallicRoughness": {"baseColorFactor": [0.8, 0.8, 0.8, 1.0],
+                                                  "metallicFactor": 0.0,
+                                                  "roughnessFactor": 1.0},
+                         "doubleSided": True}]
+    doc["meshes"] = [{"primitives": [prim(stacks, 0), prim(back, 1)]}]
+    r2f = float(np.sqrt(0.5))
+    doc["nodes"] = [{"rotation": [-r2f, 0.0, 0.0, r2f], "children": [1], "name": "zup_root"},
+                    {"mesh": 0}]
+    doc["scenes"] = [{"nodes": [0]}]
+    return _write_json(path, doc, bin_parts)
+
+
+def alpha_stack_rays(layers=ALPHA_STACK_LAYERS):
+    """(origin (R, 3), direction (R, 3), stack (R,)) f32 rays of the alpha
+    stacks: 16 a stack from x = 0 along +X, through the quads' interiors."""
+    org = [(0.0, _STACK_PITCH * k + dy, dz)
+           for k in range(len(layers)) for dy in _STACK_DY for dz in _STACK_DZ]
+    origin = np.asarray(org, np.float32)
+    direction = np.tile(np.asarray([[1.0, 0.0, 0.0]], np.float32), (len(origin), 1))
+    stack = np.repeat(np.arange(len(layers)), len(_STACK_DY) * len(_STACK_DZ))
+    return origin, direction, stack

@@ -22,9 +22,13 @@ the JAX package's, on the same files written by the JAX writers
   within 1%, as tests/test_torch_pathtracer.py).
 - profile: pass_ms, stats and history carry the JAX renderer's keys, on
   both backends.
-- Refusals: mesh="auto" on one device renders unsharded; several devices
-  or an explicit mesh raise NotImplementedError; the default device is the
-  card, and without one the Renderer raises.
+- Meshes: mesh="auto" without a process group renders unsharded; an
+  explicit mesh (parallel.sharding.make_mesh) is used as given, and its
+  path-tracer and raster frames equal the unsharded renderer's bit for
+  bit (u8, HDR and ray_stats); a mesh on another device type, an unknown
+  mesh string and a sharded tiled-visibility frame raise ValueError; a
+  rank other than 0 writes no checkpoint. The default device is the card,
+  and without one the Renderer raises.
 """
 
 import dataclasses
@@ -311,17 +315,48 @@ def test_profile_and_stats_keys_match_jax(backend, files, monkeypatch):
     assert keys["jax"] == keys["port"]
 
 
-def test_sharding_requests(files, monkeypatch):
+def test_sharding_requests(files, tmp_path):
+    from gltf_renderer_tpu_torch.parallel import sharding
+
     r = prend.Renderer(PS.RenderSettings(width=W, height=H), mesh="auto", device="cpu")
     assert r.mesh is None
     r.load_scene(files["box"])
     assert r.draw_frame().shape == (H, W, 3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        prend.Renderer(mesh=object(), device="cpu")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="2 devices"):
-        prend.Renderer(mesh="auto")
+    mesh = sharding.make_mesh(1, 4, device="cpu")
+    assert prend.Renderer(mesh=mesh, device="cpu").mesh is mesh
+    with pytest.raises(ValueError, match="'everywhere'"):
+        prend.Renderer(mesh="everywhere", device="cpu")
+    on_card = sharding.Mesh(1, 1, 0, 1, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="the mesh is on cuda:0"):
+        prend.Renderer(mesh=on_card, device="cpu")
+    tiled = make("port", files["box"], backend="rasterizer")
+    tiled.mesh, tiled.raster_visibility = mesh, "tiled"
+    with pytest.raises(ValueError, match="raycast"):
+        tiled.draw_frame()
+    # Rank 1 of 2 writes no checkpoint; rank 0 does.
+    r.mesh = sharding.Mesh(1, 2, 1, 2, torch.device("cpu"))
+    r.save_state(str(tmp_path / "rank1.npz"))
+    assert not (tmp_path / "rank1.npz").exists()
+    r.mesh = sharding.Mesh(1, 2, 0, 2, torch.device("cpu"))
+    r.save_state(str(tmp_path / "rank0.npz"))
+    assert (tmp_path / "rank0.npz").exists()
+
+
+@pytest.mark.parametrize("backend", ["pathtracer", "rasterizer"])
+def test_sharded_frames_equal_unsharded(backend, files):
+    """Renderer(mesh=make_mesh(1, 4)): 4 row tiles of 8 drawn in turn and
+    gathered, two frames, equal to the unsharded renderer's bit for bit."""
+    from gltf_renderer_tpu_torch.parallel import sharding
+
+    single = make("port", files["box"], backend=backend)
+    sharded = make("port", files["box"], backend=backend)
+    sharded.mesh = sharding.make_mesh(1, 4, device="cpu")
+    for _ in range(2):
+        want, got = single.draw_frame(), sharded.draw_frame()
+        np.testing.assert_array_equal(got, want)
+        assert torch.equal(sharded._accum, single._accum)
+    assert torch.equal(sharded.ray_stats, single.ray_stats)
+    assert "collective_ms" in sharded.stats and "collective_ms" not in single.stats
 
 
 def test_default_device_is_the_card():
