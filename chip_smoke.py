@@ -147,6 +147,18 @@ Phases (any failure exits non-zero and prints no result line):
    card: the masked retries and alpha shadows through the traversal
    kernel equal to the same calls on the CPU, and the bounded results
    tests/test_torch_hop_bounds.py pins for every N;
+7h. BASELINE config 5's tool (`python -m
+   gltf_renderer_tpu_torch.tools.render_config5`: the courtyard GLB at
+   density 1, 2 bounces, alpha shadows, the bench's analytic sky, the K6
+   warm-up first) at 1920x1080 as a user runs it: two subprocess sessions
+   into one directory (--frames 3 --ckpt-every 3, then --frames 6
+   resuming from its checkpoint), against one uninterrupted 6-frame
+   session of the tool's main in this process with the launch counters
+   reset first: the checkpoint's accumulation bits, the u8 PNG, spp and
+   frame index identical; every traversal launch accounted for (3 a
+   chunk plus one a retry or alpha-shadow hop, in this process and as
+   each session's progress file counts them), one warm-up launch, no
+   plain version run; seconds a sample, K1 launches and hops a frame;
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -245,6 +257,9 @@ VIEWER_DEADLINE_S = 60
 SHARD_MESH = (1, 4)          # phase 7g (a): four row tiles drawn in turn by one process
 SHARD_FRAMES = 2             # frames a renderer draws in 7g (a) and (b)
 SHARD_RANK_DEADLINE_S = 120  # 7g (b): the two ranks are killed, and the run fails, past it
+CONFIG5_SESSIONS = (3, 6)  # phase 7h: the tool's two sessions' targets (spp), one directory
+CONFIG5_CKPT_EVERY = 3
+CONFIG5_TIMEOUT_S = 300
 SSIM_BAR = 0.995
 RASTER_SSIM_BAR = 0.99  # tests/test_ssim_baseline.py's golden bar
 REPLACES = "gltf_renderer_tpu/ops/pallas_trace.py:123"
@@ -2059,6 +2074,84 @@ def phase_hop_bounds(device, card, tmp):
     return k1
 
 
+def phase_config5(device, card, tmp):
+    """Phase 7h, BASELINE config 5's tool at 1920x1080: two subprocess
+    sessions (CONFIG5_SESSIONS, the second resuming from the first's
+    checkpoint) against one uninterrupted session of the tool's main in
+    this process, the launch counters reset just before it. Returns the
+    K1 launches of that session and the numbers logged."""
+    import subprocess
+
+    from PIL import Image
+
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.ops import warm
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.tools import render_config5 as tool
+
+    w, h = FULL_RES
+    chunks = -(-pt._tile_order(w, h, device)[0].shape[0] // pt.RAY_CHUNK)
+    per_frame = chunks * (1 + 2)  # 2 bounces: primary, bounce and shadow launches a chunk
+
+    def files(out):
+        with np.load(os.path.join(out, tool.CKPT)) as ck:
+            state = (ck["accum"], int(ck["accumulated_frames"]), int(ck["frame_index"]))
+        with open(os.path.join(out, tool.PROGRESS)) as f:
+            progress = json.load(f)
+        return state, np.asarray(Image.open(os.path.join(out, tool.PNG))), progress
+
+    def counted(prog):
+        return prog["k1_launches_this_session"] == (per_frame * prog["frames_this_session"]
+                                                    + prog["alpha_hops_this_session"])
+
+    size = ["--width", str(w), "--height", str(h), "--ckpt-every", str(CONFIG5_CKPT_EVERY)]
+    cut = os.path.join(tmp, "config5_cut")
+    for frames in CONFIG5_SESSIONS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gltf_renderer_tpu_torch.tools.render_config5",
+                               "--frames", str(frames), *size, "--out", cut], cwd=ROOT,
+                              capture_output=True, text=True, timeout=CONFIG5_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        prog = files(cut)[2] if proc.returncode == 0 else {}
+        log(f"[config5] session to {frames} spp: rc {proc.returncode}, {wall:.2f}s wall; "
+            f"progress {prog}; stdout {proc.stdout.strip().splitlines()}")
+        if proc.returncode != 0 or prog.get("spp") != frames or not counted(prog):
+            for line in proc.stderr.splitlines()[-20:]:
+                log(f"[config5:stderr] {line}")
+            raise AssertionError(f"the config 5 session to {frames} spp failed its checks")
+
+    whole = os.path.join(tmp, "config5_whole")
+    ref_calls = tr.REFERENCE_CALLS
+    tr.KERNEL_LAUNCHES = 0
+    warm.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    rc = tool.main(["--frames", str(CONFIG5_SESSIONS[-1]), *size, "--out", whole],
+                   device=str(device))
+    wall = time.perf_counter() - t0
+    k1, k6 = tr.KERNEL_LAUNCHES, warm.KERNEL_LAUNCHES
+    (acc_a, spp_a, fi_a), img_a, prog = files(whole)
+    (acc_b, spp_b, fi_b), img_b, prog_b = files(cut)
+    same_accum = acc_a.shape == (h, w, 3) and acc_a.tobytes() == acc_b.tobytes()
+    same_u8 = img_a.shape == img_b.shape == (h, w, 3) and bool((img_a == img_b).all())
+    frames = prog["frames_this_session"]
+    nonfinite = int((~np.isfinite(acc_a)).sum())
+    log(f"[config5] uninterrupted session in this process ({wall:.2f}s wall with the build): "
+        f"rc {rc}; against the two sessions: accumulation bits identical={same_accum}, u8 "
+        f"identical={same_u8}, (spp, frame index) {(spp_a, fi_a)} / {(spp_b, fi_b)}; "
+        f"{prog['s_per_sample_this_session']:.4f} s a sample (resumed session "
+        f"{prog_b['s_per_sample_this_session']:.4f}); K1 launches {k1} in {frames} frames "
+        f"({k1 / frames:.2f} a frame: {per_frame} + {prog['alpha_hops_this_session'] / frames:.2f}"
+        f" alpha hops), K6 {k6}; non-finite accumulated values {nonfinite}; u8 mean "
+        f"{float(img_a.mean()):.3f} std {float(img_a.std()):.3f} card={card}")
+    if not (rc == 0 and same_accum and same_u8 and spp_a == spp_b == CONFIG5_SESSIONS[-1]
+            and fi_a == fi_b and k1 == prog["k1_launches_this_session"] and counted(prog)
+            and k6 == 1 and tr.REFERENCE_CALLS == ref_calls and nonfinite == 0
+            and float(img_a.std()) > 0.0):
+        raise AssertionError("the config 5 sessions are not one uninterrupted session")
+    return dict(k1=k1, s_per_sample=prog["s_per_sample_this_session"], k1_per_frame=k1 / frames,
+                hops_per_frame=prog["alpha_hops_this_session"] / frames)
+
+
 def identical(a, b):
     """Bit-identical (same shape, same 32-bit words)."""
     import torch
@@ -2474,6 +2567,10 @@ def main() -> int:
         shard = phase_sharded(device, card, env, tmp, scene.world)
         log(f"[done] phase 7g in {time.perf_counter() - t0:.1f}s; K1 launches {shard['k1']} "
             f"(both ranks' included), K2 launches {shard['k2']}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        config5 = phase_config5(device, card, tmp)
+        log(f"[done] phase 7h in {time.perf_counter() - t0:.1f}s; K1 launches {config5['k1']}")
     log(f"[goldens] each drawn once through Renderer.load_scene(path) (bar {RASTER_SSIM_BAR}): "
         f"box_raster {blend['ssim']}, helmet_raster {helmet_ssim}, anim_pose "
         f"{anim['ssim']:.6f}, materials_pt {zoo['ssim']:.6f}, courtyard_pt {court['ssim']:.6f}")
@@ -2499,7 +2596,7 @@ def main() -> int:
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
         "launches": launches + court["launches"] + zoo["launches"]
         + sum(frames[v][0] for v in frames) + sum(f[0] for f in r_frames) + glb["launches"]
-        + anim["k1"] + app["k1"] + shard["k1"],
+        + anim["k1"] + app["k1"] + shard["k1"] + config5["k1"],
         "max_abs_err": max(worst_abs, anim["worst_abs"],
                            *(x["max_abs"] for x in court["k1"].values()),
                            *(x["max_abs"] for x in zoo["k1"].values()),

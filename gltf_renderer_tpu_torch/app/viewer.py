@@ -32,17 +32,26 @@ given another device); the HTTP threads read the published PNG and queue
 inputs. A frame that raises stops the loop, and /state reports the error.
 
 Sharded (`--shard auto` under torchrun, several ranks), rank 0 runs the
-HTTP server and the frame loop, and before each frame broadcasts that
-frame's inputs (scene and environment paths, settings, params, camera,
-animation state, delta, and a stop flag); the other ranks follow: they
-apply the inputs and draw the same frame, whose collectives every rank
-joins. While rank 0 idles it broadcasts an idle packet each poll, and when
-it stops it broadcasts the stop that ends every follower. Before rank 0
-applies a `load` input it asks every rank whether the file is there (a
-probe packet and one all_gather): if a rank lacks it, rank 0 refuses the
-load, keeps the scene and reports the refusal in /state's `load_error`,
-as it does a file that fails to load on rank 0. A drag-drop upload is
-written on rank 0's host only, so over several hosts it is refused.
+HTTP server and the frame loop, and before each frame sends that frame's
+inputs (scene and environment paths, settings, params, camera, animation
+state, delta, and a stop flag) in an exchange of every rank's status
+(parallel.distributed.exchange); the other ranks follow: they apply the
+inputs and draw the same frame, whose collectives every rank joins. While
+rank 0 idles it sends an idle packet each poll, and when it stops it sends
+the stop that ends every follower. Before rank 0 applies a `load` input
+it asks every rank whether the file is there (a probe packet and one more
+exchange): if a rank lacks it, rank 0 refuses the load, keeps the scene
+and reports the refusal in /state's `load_error`, as it does a file that
+fails to load on rank 0. A drag-drop upload is written on rank 0's host
+only, so over several hosts it is refused.
+
+A raise on any rank, in rank 0's input handling or frame or a follower's
+apply_frame_inputs or frame, reaches every rank within the frame: the
+rank passes it to the next exchange (parallel.distributed.fail; the frame
+gathers each come after one), every rank raises RankFailed there, keeps
+"RankFailed: rank r: <error>" in its state.error and leaves its loop, and
+rank 0's /state reports it. No collective is left waiting, so the process
+group can then be destroyed.
 """
 
 from __future__ import annotations
@@ -499,7 +508,8 @@ def render_loop(state: ViewerState, max_spp: int = 512):
     Progressive accumulation continues while the camera is still; input
     resets it (the Renderer's reset-on-change key does this automatically).
     An exception stops the loop: it is kept in state.error (shown by /state)
-    and raised again."""
+    and raised again. Sharded, a raise on any rank stops every rank's loop
+    within the frame, and state.error names the rank it came from."""
     try:
         _frames(state, max_spp)
     except BaseException as e:
@@ -509,45 +519,61 @@ def render_loop(state: ViewerState, max_spp: int = 512):
 
 
 def _frames(state: ViewerState, max_spp: int):
-    from PIL import Image
-
-    from gltf_renderer_tpu_torch.parallel.distributed import broadcast_object
+    from gltf_renderer_tpu_torch.parallel.distributed import RankFailed, exchange, fail
 
     sharded = _is_sharded(state.renderer)
     last = time.perf_counter()
     while state.running:
-        evs = state.take_inputs()
-        if sharded:
-            evs = [ev for ev in evs if ev.get("type") != "load" or _on_every_rank(state, ev)]
-        _apply_inputs(state, evs)
-        p = state.renderer.player
-        animating = p.animation is not None and p.playing
-        now = time.perf_counter()
-        delta, last = (now - last), now
-        if not animating and state.renderer.accumulated_frames >= max_spp and not evs:
-            if sharded:
-                broadcast_object({"stop": False, "draw": False})
-            time.sleep(0.05)
-            continue
-        delta = delta if animating else 0.0
-        if sharded:
-            broadcast_object(frame_inputs(state, delta))
-        img = state.renderer.draw_frame(delta=delta)
-        buf = io.BytesIO()
-        Image.fromarray(np.asarray(img)).save(buf, format="PNG")
-        state.publish(buf.getvalue(), state.renderer.accumulated_frames)
+        try:
+            last = _frame(state, max_spp, sharded, last)
+        except RankFailed:
+            raise
+        except Exception as e:
+            if not sharded:
+                raise
+            fail(e)
     if sharded:
-        broadcast_object({"stop": True, "draw": False})
+        exchange({"stop": True, "draw": False})
+
+
+def _frame(state: ViewerState, max_spp: int, sharded: bool, last: float) -> float:
+    """One pass of the frame loop: inputs, then a frame or an idle poll.
+    Returns the time the pass started, the next pass's `last`."""
+    from PIL import Image
+
+    from gltf_renderer_tpu_torch.parallel.distributed import exchange
+
+    evs = state.take_inputs()
+    if sharded:
+        evs = [ev for ev in evs if ev.get("type") != "load" or _on_every_rank(state, ev)]
+    _apply_inputs(state, evs)
+    p = state.renderer.player
+    animating = p.animation is not None and p.playing
+    now = time.perf_counter()
+    delta = now - last
+    if not animating and state.renderer.accumulated_frames >= max_spp and not evs:
+        if sharded:
+            exchange({"stop": False, "draw": False})
+        time.sleep(0.05)
+        return now
+    delta = delta if animating else 0.0
+    if sharded:
+        exchange(frame_inputs(state, delta))
+    img = state.renderer.draw_frame(delta=delta)
+    buf = io.BytesIO()
+    Image.fromarray(np.asarray(img)).save(buf, format="PNG")
+    state.publish(buf.getvalue(), state.renderer.accumulated_frames)
+    return now
 
 
 def _on_every_rank(state: ViewerState, ev: dict) -> bool:
     """Whether every rank holds the file of a load input (rank 0 asks the
     followers with a probe packet); if one does not, the load is refused."""
-    from gltf_renderer_tpu_torch.parallel.distributed import broadcast_object, gather_object
+    from gltf_renderer_tpu_torch.parallel.distributed import exchange
 
     path = str(ev.get("path", ""))
-    broadcast_object({"stop": False, "draw": False, "probe": path})
-    missing = [r for r, ok in enumerate(gather_object(os.path.isfile(path))) if not ok]
+    exchange({"stop": False, "draw": False, "probe": path})
+    missing = [r for r, ok in enumerate(exchange(os.path.isfile(path))) if not ok]
     if missing:
         state.load_error = f"load refused: {path} is missing on ranks {missing}"
         logging.error(state.load_error)
@@ -594,21 +620,27 @@ def apply_frame_inputs(state: ViewerState, packet: dict):
 
 def follow_loop(state: ViewerState):
     """A follower rank's frame loop: receive rank 0's frame inputs, draw
-    the frame (joining its collectives), until rank 0 broadcasts the stop.
-    An exception is kept in state.error and raised again."""
-    from gltf_renderer_tpu_torch.parallel.distributed import broadcast_object, gather_object
+    the frame (joining its collectives), until rank 0 sends the stop. An
+    exception is kept in state.error and raised again; one raised here is
+    passed to every rank first, as in render_loop."""
+    from gltf_renderer_tpu_torch.parallel.distributed import RankFailed, exchange, fail
 
     try:
         while True:
-            packet = broadcast_object(None)
-            if packet["stop"]:
-                break
-            if "probe" in packet:
-                gather_object(os.path.isfile(packet["probe"]))
-            elif packet["draw"]:
-                apply_frame_inputs(state, packet)
-                state.renderer.draw_frame(delta=packet["delta"])
-                state.spp = state.renderer.accumulated_frames
+            try:
+                packet = exchange(None)[0]
+                if packet["stop"]:
+                    break
+                if "probe" in packet:
+                    exchange(os.path.isfile(packet["probe"]))
+                elif packet["draw"]:
+                    apply_frame_inputs(state, packet)
+                    state.renderer.draw_frame(delta=packet["delta"])
+                    state.spp = state.renderer.accumulated_frames
+            except RankFailed:
+                raise
+            except Exception as e:
+                fail(e)
     except BaseException as e:
         state.error = f"{type(e).__name__}: {e}"
         raise

@@ -16,10 +16,18 @@ pixels of its cells. There is no asset broadcast.
 The backend is always chosen, never swapped: "nccl" for CUDA tensors with
 one card a rank, "gloo" on the CPU. Ranks that share one card pass
 backend="gloo" (NCCL refuses two ranks on one device).
+
+A raise on one rank must not leave the others waiting in a collective.
+Every collective of a sharded frame is an `exchange` (an all_gather of
+pickled objects) or comes right after one (sharding's frame gathers), so
+a rank whose frame raised calls `fail`: it joins the next exchange the
+other ranks reach with its error, and there every rank raises RankFailed
+naming that rank. No timeout is involved.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Optional, Tuple
 
@@ -78,19 +86,34 @@ def uses_host_staging() -> bool:
     return dist.get_backend() == "gloo"
 
 
-def broadcast_object(obj: Any, src: int = 0) -> Any:
-    """`obj` of rank `src`, on every rank (pickled; the other ranks pass
-    anything)."""
-    box = [obj]
-    dist.broadcast_object_list(box, src=src)
-    return box[0]
+class RankFailed(RuntimeError):
+    """A rank reported an error at an exchange; every rank raises this
+    there, so all of them leave the frame protocol together."""
 
 
-def gather_object(obj: Any) -> list:
-    """Every rank's `obj`, in rank order, on every rank (pickled)."""
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
-    return out
+@dataclasses.dataclass(frozen=True)
+class _Failure:
+    rank: int
+    error: str
+
+
+def exchange(obj: Any) -> list:
+    """Every rank's `obj` in rank order, on every rank (pickled; one
+    all_gather_object): the status point of the sharded frame protocol.
+    When a rank passed a failure (`fail`), every rank raises RankFailed,
+    naming each failed rank and its error, instead of returning."""
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, obj)
+    failed = [g for g in got if isinstance(g, _Failure)]
+    if failed:
+        raise RankFailed("; ".join(f"rank {f.rank}: {f.error}" for f in failed))
+    return got
+
+
+def fail(error: BaseException):
+    """Pass this rank's error to every rank at the next exchange they all
+    reach; raises RankFailed there, as every other rank does."""
+    exchange(_Failure(dist.get_rank(), f"{type(error).__name__}: {error}"))
 
 
 def replicate(tree: Any, mesh) -> Any:

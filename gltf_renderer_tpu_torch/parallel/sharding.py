@@ -32,13 +32,20 @@ before its one gather. The hop counters and kernel launch counters are
 per process; the stats a sharded path-tracer frame returns are the
 frame's, summed over every rank in the gather.
 
-Each collective is logged into `Mesh.log` as (name, gathered bytes,
-timing) and `Mesh.collective_ms()` sums the timings. Under nccl the
-timing is a pair of CUDA events on the stream, read after the frame's
-own wait, so the gather adds no host wait to the frame. Under gloo the
-gather waits on the host anyway (its CUDA tensors are staged through
-host memory), and the timing is the host's ms, the device synchronised
-on both sides.
+Each gather is logged into `Mesh.log` as (name, gathered bytes, timing)
+and `Mesh.collective_ms()` sums the timings. Under nccl the timing is a
+pair of CUDA events on the stream, read after the frame's own wait. Under
+gloo the gather waits on the host anyway (its CUDA tensors are staged
+through host memory), and the timing is the host's ms, the device
+synchronised on both sides.
+
+Before each gather every rank's status is exchanged
+(distributed.exchange, a small all_gather of pickled objects, not logged
+or timed): a rank whose frame raised before the gather joins it with its
+error (distributed.fail), and every rank raises RankFailed there instead
+of waiting in a gather that rank never reaches. Reading the status waits
+on the host for the rank's queued work, so under nccl the gather is
+issued once the rank's cells are drawn.
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ import torch.distributed as dist
 
 from gltf_renderer_tpu_torch.device import resolve, synchronize
 from gltf_renderer_tpu_torch.ops import rng
-from gltf_renderer_tpu_torch.parallel.distributed import uses_host_staging
+from gltf_renderer_tpu_torch.parallel.distributed import exchange, uses_host_staging
 from gltf_renderer_tpu_torch.render import pathtracer as pt
 from gltf_renderer_tpu_torch.render import rasterizer
 
@@ -113,10 +120,14 @@ def make_mesh(n_sample: int = 1, n_tile: Optional[int] = None, device="cuda") ->
 
 def _all_gather(mesh: Mesh, x, name: str):
     """(world_size, *x.shape): every rank's x in rank order. Without a
-    process group (a world of 1) it is x itself."""
+    process group (a world of 1) it is x itself. In a group, an exchange of
+    every rank's status comes first (distributed.exchange): it raises
+    RankFailed on every rank, before the gather, when a rank's frame
+    raised."""
     if not dist.is_initialized():
         return x[None]
     if x.is_cuda and not uses_host_staging():
+        exchange(None)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         parts = [torch.empty_like(x) for _ in range(mesh.world_size)]
@@ -128,6 +139,7 @@ def _all_gather(mesh: Mesh, x, name: str):
     # gloo: a CUDA tensor is copied to the host and back explicitly
     # (uses_host_staging), so the gather waits on the host in any case.
     synchronize(mesh.device)
+    exchange(None)
     t0 = time.perf_counter()
     parts = [torch.empty_like(x, device="cpu") for _ in range(mesh.world_size)]
     dist.all_gather(parts, x.cpu().contiguous())

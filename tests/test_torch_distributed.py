@@ -16,7 +16,13 @@ was; the ranks write their results to files the test reads.
   HTTP, rank 1 follows; a load of a file only rank 0 holds (a path
   relative to each rank's own working directory) is refused with a
   load_error and the next frame still comes, a load of a file both hold
-  reaches both ranks; rank 0 stops and both ranks exit.
+  reaches both ranks; rank 0 stops and both ranks exit. Then two more
+  viewer sessions in the same group, in which one rank's draw_frame
+  raises on its FAULT_FRAME-th call: rank 1's before drawing (rank 0
+  waits in the frame's status exchange), rank 0's after drawing (rank 1
+  waits for the next frame's inputs). In both every rank leaves its loop,
+  each state.error names the rank that raised, and the frames drawn
+  before are the unsharded viewer's.
 
 Tolerance 2e-5, as tests/test_sharding.py; the bits are expected equal
 and were (largest difference 0).
@@ -244,7 +250,60 @@ def _viewer(rank, world, out_dir, box, box2):
     thread.join(timeout=60)
     out.update(alive=thread.is_alive(), error=state.error, spp=state.spp,
                scene=state.scene_path)
+    out["faults"] = {raiser: _viewer_fault(rank, box, raiser) for raiser in (1, 0)}
     return out
+
+
+FAULT_FRAME = 3
+FAULT = "RuntimeError: injected fault"
+
+
+def _viewer_fault(rank, box, raiser):
+    """A sharded viewer session on `box` in which rank `raiser`'s
+    draw_frame raises on its FAULT_FRAME-th call (rank 1 before drawing,
+    rank 0 after); returns whether the loop thread still runs, state.error
+    and the frames this rank drew."""
+    from gltf_renderer_tpu_torch.app import viewer
+    from gltf_renderer_tpu_torch.render.renderer import Renderer
+
+    frames = []
+    draw = Renderer.draw_frame
+
+    def draw_or_raise(self, *a, **kw):
+        if rank == raiser == 1 and len(frames) == FAULT_FRAME - 1:
+            raise RuntimeError("injected fault")
+        frames.append(draw(self, *a, **kw))
+        if rank == raiser == 0 and len(frames) == FAULT_FRAME:
+            raise RuntimeError("injected fault")
+        return frames[-1]
+
+    Renderer.draw_frame = draw_or_raise
+    try:
+        server, state, thread = viewer.serve(box, width=32, height=24, port=0, block=False,
+                                             shard="auto", device="cpu", host="127.0.0.1")
+        thread.join(timeout=60)
+    finally:
+        Renderer.draw_frame = draw
+    if server is not None:
+        server.shutdown()
+        server.server_close()
+    return dict(alive=thread.is_alive(), error=state.error, running=state.running,
+                frames=frames)
+
+
+def _unsharded_viewer_frames(box, n):
+    """The first n frames of `box` at 32x24 from viewer.serve's camera,
+    unsharded."""
+    from gltf_renderer_tpu_torch.app.cli import scene_bounds
+    from gltf_renderer_tpu_torch.camera import OrbitController
+    from gltf_renderer_tpu_torch.render.renderer import Renderer
+
+    r = Renderer(PS.RenderSettings(width=32, height=24), device="cpu")
+    centre, radius = scene_bounds(r.load_scene(box))
+    r.camera.aspect_ratio = 32 / 24
+    r.camera.z_near = max(1e-3, 0.01 * radius)
+    r.camera.world_to_view = OrbitController(centre=centre, radius=2.5 * radius).world_to_view()
+    return [r.draw_frame() for _ in range(n)]
 
 
 def test_viewer_follows_over_two_ranks(tmp_path):
@@ -257,3 +316,14 @@ def test_viewer_follows_over_two_ranks(tmp_path):
     assert got[0]["load_error"] == "load refused: only_rank0.gltf is missing on ranks [1]"
     assert got[0]["after_refusal"]
     assert [g["scene"] for g in got] == [box2, box2]
+
+    want = _unsharded_viewer_frames(box, FAULT_FRAME)
+    for raiser in (1, 0):
+        faults = [g["faults"][raiser] for g in got]
+        assert [(f["alive"], f["running"]) for f in faults] == [(False, False)] * 2
+        assert [f["error"] for f in faults] == [f"RankFailed: rank {raiser}: {FAULT}"] * 2
+        drawn = FAULT_FRAME - 1 if raiser == 1 else FAULT_FRAME
+        for f in faults:
+            assert len(f["frames"]) == drawn
+            for a, b in zip(f["frames"], want):
+                np.testing.assert_array_equal(a, b)
