@@ -21,7 +21,7 @@ Phases (any failure exits non-zero and prints no result line):
    committed CPU golden tests/goldens/bench_fidelity.npy by SSIM (bar
    0.995), no NaN/Inf;
 4. the path tracer at full size: 1920x1080, trace_chunked(spp=4), one warm
-   step and three timed steps, with the kernel launch counters reset first;
+   step and two timed steps, with the kernel launch counters reset first;
 5. tile-rasterizer kernel vs its plain PyTorch version at 1920x1080 on the
    helmet's bench view and on a near-clipped view (and, in phase 7b, the
    courtyard's bench view): tri, z, u and v bit-identical; pair and crosser
@@ -37,7 +37,7 @@ Phases (any failure exits non-zero and prints no result line):
    visibilities, against the committed CPU golden
    tests/goldens/helmet_raster.png by SSIM (bar 0.99);
 7. the raster frame at full size: bench scene, 1920x1080, raycast
-   visibility + bloom + AgX -> u8, one warm and three timed frames, then the
+   visibility + bloom + AgX -> u8, one warm and two timed frames, then the
    same with tiled visibility; the traversal kernel launches once a chunk
    of a raycast frame, the tile kernel once a tiled frame, and no plain
    version runs;
@@ -108,10 +108,10 @@ Phases (any failure exits non-zero and prints no result line):
    SSIMs logged together after 7f): on phase 7e's courtyard GLB at
    1920x1080 under phase 7e's environment, the save / load round trip (two
    frames, save_state, the third; a fresh Renderer's first frame after
-   load_state identical to it, u8 and HDR), then one warm and four timed
+   load_state identical to it, u8 and HDR), then one warm and two timed
    path-tracer frames with profile on (frame_ms, pass_ms, every traversal
    launch accounted for: 3 a chunk plus one a retry or alpha-shadow hop;
-   rays per second beside phase 7b's step) and one warm and three timed
+   rays per second beside phase 7b's step) and one warm and two timed
    raster frames (one traversal launch a chunk plus one a retry hop, no
    tile launch); the CLI as four subprocesses at once (`python -m
    gltf_renderer_tpu_torch.app.cli`): the courtyard at 1920x1080 path
@@ -146,7 +146,10 @@ Phases (any failure exits non-zero and prints no result line):
    the hop-bound scene (scene.procedural.write_alpha_stack_gltf) on the
    card: the masked retries and alpha shadows through the traversal
    kernel equal to the same calls on the CPU, and the bounded results
-   tests/test_torch_hop_bounds.py pins for every N;
+   tests/test_torch_hop_bounds.py pins for every N. In (b) and (c) the
+   closing status exchange of a sharded Renderer frame is timed in turns
+   (frames without it, Renderer._frame, and with it, draw_frame) beside
+   20 lone exchanges;
 7h. BASELINE config 5's tool (`python -m
    gltf_renderer_tpu_torch.tools.render_config5`: the courtyard GLB at
    density 1, 2 bounces, alpha shadows, the bench's analytic sky, the K6
@@ -159,6 +162,27 @@ Phases (any failure exits non-zero and prints no result line):
    chunk plus one a retry or alpha-shadow hop, in this process and as
    each session's progress file counts them), one warm-up launch, no
    plain version run; seconds a sample, K1 launches and hops a frame;
+7i. courtyard2, the bench's 1,096,576-triangle courtyard (density 2),
+   inside 7f's temporary directory: its bench build at 1920x1080 (triangles,
+   stack bound, wide nodes, leaves, build seconds, max_memory_allocated);
+   the traversal kernel vs its plain version on its tables for primary and
+   lane-mixed rays at the main path's two launch sizes (t, u, v and word
+   identical), timed with its bound; the tile kernel vs its plain version
+   on its bench view (bit-identical, crossers beside CLIP_CAP), timed; the
+   1080p step as 7b's, one warm and two timed steps, every traversal
+   launch accounted for; the courtyard golden configuration's 128x72
+   window of courtyard2 (tex_size 64, 2 bounces, alpha shadows, seeds 0
+   and 1) on the card against the CPU at the CPU tests' bar; its GLB
+   written and drawn through Renderer.load_scene(path) under 7e's
+   environment, one 1080p frame path traced (spp 1, the tables built in
+   it), rasterized raycast and tiled, every traversal and tile launch
+   accounted for; then the port's bench with BENCH_SCENE=courtyard2 and
+   two steps;
+7j. the furnace check of tests/test_ssim_baseline.py at 1920x1080: the
+   diffuse box under a uniform environment rasterized and path traced to
+   FURNACE_SPP samples (4 bounces, through trace_chunked at the main
+   path's launch size), windowed SSIM >= 0.99 after a 4x4 downsample and
+   the means within 2%, with the spp and seconds logged;
 8. brute-force closest-hit kernel (csrc/brute.cu, tensor cores) vs its
    plain version under ops/brute.compare_winners on five sets: the study
    tool's correctness data, 16,384 rays x 49,152 triangles with clipped
@@ -198,7 +222,7 @@ Phases (any failure exits non-zero and prints no result line):
    line's `latency_floor_ms`; its `ms` is the tool's launch-bound 16-call
    time, `device_ms` the graph device time a call);
 10. the port's bench entry point, `python -m gltf_renderer_tpu_torch.bench`,
-   as a subprocess at 1920x1080 with BENCH_STEPS=3: one JSON line on
+   as a subprocess at 1920x1080 with BENCH_STEPS=2: one JSON line on
    stdout with the headline metric > 0, both gates true and raster FPS > 0;
    then again with BENCH_SCENE=courtyard BENCH_STEPS=2: the courtyard
    metric > 0 and no NaN/Inf pixel.
@@ -232,7 +256,7 @@ COURTYARD_GOLDEN = os.path.join(ROOT, "tests", "goldens", "courtyard_pt.png")
 MATERIALS_GOLDEN = os.path.join(ROOT, "tests", "goldens", "materials_pt.png")
 FULL_RES = (1920, 1080)
 SPP = 4
-TIMED_STEPS = 3
+TIMED_STEPS = 2
 COURTYARD_TIMED_STEPS = 2
 MATERIALS_TIMED_STEPS = 2
 MATERIALS_TRIS = 4 * 2208 + 2  # four 24x48 UV spheres and a floor quad
@@ -250,13 +274,16 @@ ANIM_FRAMES = 8
 ANIM_DELTA = 1.0 / 30.0
 ANIM_STRIPS = 64
 ANIM_GOLDEN = os.path.join(ROOT, "tests", "goldens", "anim_pose.png")
-APP_TIMED_PT = 4       # phase 7f: the Renderer's timed 1080p path-tracer frames
-APP_TIMED_RASTER = 3   # and raster frames, each after one warm frame
+APP_TIMED_PT = 2       # phase 7f: the Renderer's timed 1080p path-tracer frames
+APP_TIMED_RASTER = 2   # and raster frames, each after one warm frame
 CLI_TIMEOUT_S = 300
 VIEWER_DEADLINE_S = 60
 SHARD_MESH = (1, 4)          # phase 7g (a): four row tiles drawn in turn by one process
 SHARD_FRAMES = 2             # frames a renderer draws in 7g (a) and (b)
 SHARD_RANK_DEADLINE_S = 120  # 7g (b): the two ranks are killed, and the run fails, past it
+COURTYARD2_TRIS = 1096576  # the courtyard at density 2
+COURTYARD2_TIMED_STEPS = 2  # phase 7i's 1080p steps after one warm, and its bench's steps
+FURNACE_SPP = 64  # phase 7j's samples a pixel: the fewest that meet the furnace bar
 CONFIG5_SESSIONS = (3, 6)  # phase 7h: the tool's two sessions' targets (spp), one directory
 CONFIG5_CKPT_EVERY = 3
 CONFIG5_TIMEOUT_S = 300
@@ -1756,6 +1783,32 @@ def same_frames(a, b):
             and all(x.tobytes() == y.tobytes() for x, y in zip(a["hdr"], b["hdr"])))
 
 
+def closing_exchange_turns(renderer):
+    """What the closing status exchange of a sharded Renderer frame costs:
+    frames without it (Renderer._frame, the frame as drawn before the
+    exchange was added) and with it (draw_frame), host ms each from a
+    device sync to the u8 copy, in turns (without, with, with, without);
+    and the mean ms of 20 lone exchanges. Every rank of the group calls it."""
+    import torch
+
+    from gltf_renderer_tpu_torch.parallel.distributed import exchange
+
+    out = {"without": [], "with": []}
+    for name in ("without", "with", "with", "without"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "with":
+            renderer.draw_frame()
+        else:
+            renderer._frame(0.0, None)
+        out[name].append(round((time.perf_counter() - t0) * 1e3, 3))
+    t0 = time.perf_counter()
+    for _ in range(20):
+        exchange(None)
+    out["exchange_ms"] = round((time.perf_counter() - t0) * 1e3 / 20, 4)
+    return out
+
+
 def phase_sharded(device, card, env, tmp, helmet_world):
     """Phase 7g, multi-device rendering and the rest of queue A on the
     card. Returns the K1 and K2 launches of its main-path runs."""
@@ -1851,6 +1904,8 @@ def shard_rank(rank, world, store, tmp, paths, result, device):
         for kind, path in paths.items():
             r = shard_renderer(path, kind, device, env, mesh="auto")
             res = shard_frames(r)
+            if kind == "pathtracer":
+                res["turns"] = closing_exchange_turns(r)
             out[kind] = dict(res, cells=r.mesh.cells(), rank=r.mesh.rank,
                              world=r.mesh.world_size, backend=torch.distributed.get_backend(),
                              expected=[expected_k1(kind, r.mesh, h) for h in res["hops"]])
@@ -1902,6 +1957,11 @@ def shard_two_ranks(device, card, tmp, paths, one):
                 f"(gathers {res['gathers'][-1]}) card={card}")
             if not same or res["k1"] != res["expected"] or res["backend"] != "gloo":
                 raise AssertionError(f"rank {r}'s {kind} frames are wrong")
+            if "turns" in res:
+                log(f"[shard] (b) rank {res['rank']} closing exchange: {kind} frame ms without "
+                    f"it {res['turns']['without']}, with it {res['turns']['with']} (in turns: "
+                    f"without, with, with, without); a lone exchange "
+                    f"{res['turns']['exchange_ms']} ms (mean of 20) card={card}")
             k1 += sum(res["k1"])
     return k1
 
@@ -1925,7 +1985,9 @@ def shard_nccl(device, card, env, paths, one):
     try:
         backend = torch.distributed.get_backend()
         mesh = sharding.make_mesh(*SHARD_MESH, device=device)
-        got = shard_frames(shard_renderer(paths["pathtracer"], "pathtracer", device, env, mesh))
+        renderer = shard_renderer(paths["pathtracer"], "pathtracer", device, env, mesh)
+        got = shard_frames(renderer)
+        turns = closing_exchange_turns(renderer)
     finally:
         torch.distributed.destroy_process_group()
     same = same_frames(got, one["pathtracer"])
@@ -1933,6 +1995,9 @@ def shard_nccl(device, card, env, paths, one):
         f"pathtracer, {SHARD_FRAMES} frames: identical to (a) (u8, HDR)={same}; gathers "
         f"{got['gathers'][-1]}, collective ms {got['collective_ms']}; K1 launches {got['k1']}; "
         f"wall ms {[round(x, 3) for x in got['wall_ms']]} card={card}")
+    log(f"[shard] (c) closing exchange: pathtracer frame ms without it {turns['without']}, "
+        f"with it {turns['with']} (in turns: without, with, with, without); a lone exchange "
+        f"{turns['exchange_ms']} ms (mean of 20) card={card}")
     if not same or backend != "nccl" or not all(got["gathers"]):
         raise AssertionError("the nccl-group frame differs from the one-process frame")
     return sum(got["k1"])
@@ -2150,6 +2215,162 @@ def phase_config5(device, card, tmp):
         raise AssertionError("the config 5 sessions are not one uninterrupted session")
     return dict(k1=k1, s_per_sample=prog["s_per_sample_this_session"], k1_per_frame=k1 / frames,
                 hops_per_frame=prog["alpha_hops_this_session"] / frames)
+
+
+def phase_courtyard2(device, card, env, tmp):
+    """Phase 7i, the 1.1M-triangle courtyard2 (the courtyard at density 2)
+    through the port at 1920x1080: its bench build, K1 and K2 against their
+    plain versions on its tables and view, the 1080p step, the 128x72
+    window card against CPU, one Renderer frame of its GLB in each
+    backend and visibility, and the bench on it. Returns its K1 and K2
+    numbers, launches and the bench's detail."""
+    import dataclasses
+
+    import torch
+
+    from gltf_renderer_tpu_torch.bench_scene import (COURTYARD_GOLDEN_RES, COURTYARD_VIEW,
+                                                     build_bench_scene, build_courtyard_probe,
+                                                     golden_renderer)
+    from gltf_renderer_tpu_torch.ops import raster
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+    from gltf_renderer_tpu_torch.scene.procedural import write_courtyard_glb
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene, meta, settings, params, c2w, n_tris = build_bench_scene(
+        *FULL_RES, device=device, scene_kind="courtyard2")
+    log(f"[courtyard2] {n_tris} triangles, stack bound {meta.stack_bound} (K1 takes at most "
+        f"{tr.max_stack_bound()}), {scene.wide_nodes.shape[0]} wide nodes, "
+        f"{scene.leaf_records.shape[0]} leaves, has_masked={meta.has_masked}, built in "
+        f"{time.perf_counter() - t0:.2f}s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB card={card}")
+    if n_tris != COURTYARD2_TRIS or not meta.has_masked:
+        raise AssertionError("the courtyard2 scene is not the bench's")
+
+    # K1 against its plain version on its tables at the main path's two
+    # launch sizes, timed; K2 against its plain version on its tiled view.
+    sets = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
+    k1 = {rays[0]: k1_main_size(scene, meta, rays, "[courtyard2] kernel")
+          for rays in (sets[0], sets[2])}
+    del sets
+    k2 = raster_view("courtyard2", scene.world, c2w, timed=True)
+
+    run = scene_steps("courtyard2", scene, meta, settings, params, c2w, COURTYARD2_TIMED_STEPS,
+                      card)
+    log(f"[courtyard2] max_memory_allocated after the steps "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    del scene
+    torch.cuda.empty_cache()
+
+    # The golden configuration's 128x72 window, card against CPU, seeds 0-1.
+    built = {str(dev): build_courtyard_probe(2, dev) for dev in ("cpu", device)}
+    for seed in (0, 1):
+        imgs = {}
+        for dev, (p_scene, p_meta, p_set, p_par, p_c2w, _) in built.items():
+            img, st = pt.trace(p_scene, p_meta, p_set, p_par, p_c2w, COURTYARD_GOLDEN_RES, seed,
+                               with_stats=True)
+            imgs[dev] = img.cpu().numpy()
+            if not np.isfinite(imgs[dev]).all() or float(st[1]) != 0.0:
+                raise AssertionError(f"courtyard2's window on {dev} is not finite")
+        frac, rel, ok = images_match(imgs[str(device)], imgs["cpu"])
+        log(f"[courtyard2] {COURTYARD_GOLDEN_RES[0]}x{COURTYARD_GOLDEN_RES[1]} window seed "
+            f"{seed} card vs CPU: {frac:.5f} of pixels within atol 1e-4 + rtol 1e-3, means "
+            f"{rel:.2e} apart")
+        if not ok:
+            raise AssertionError("courtyard2's window on the card disagrees with the CPU")
+    del built
+
+    # One Renderer frame of its GLB in each backend and visibility.
+    w, h = FULL_RES
+    t0 = time.perf_counter()
+    path = write_courtyard_glb(os.path.join(tmp, "courtyard2.glb"), density=2)
+    written_s = time.perf_counter() - t0
+    r = golden_renderer(path, w, h, "pathtracer", COURTYARD_VIEW, device,
+                        pt_kw=dict(max_bounces=2, min_bounces=2, alpha_shadows=True), env=env)
+    loaded_s = time.perf_counter() - t0 - written_s
+    frames = {}
+    for backend, vis in (("pathtracer", None), ("rasterizer", "raycast"),
+                         ("rasterizer", "tiled")):
+        r.settings = dataclasses.replace(r.settings, backend=backend)
+        if vis:
+            r.raster_visibility = vis
+        k1_0, k2_0 = tr.KERNEL_LAUNCHES, raster.KERNEL_LAUNCHES
+        hops0 = pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS + rz.RASTER_RETRY_HOPS
+        ref0 = tr.REFERENCE_CALLS
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img = r.draw_frame()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = (tr.KERNEL_LAUNCHES - k1_0, raster.KERNEL_LAUNCHES - k2_0,
+               pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS + rz.RASTER_RETRY_HOPS - hops0)
+        chunks = raster_chunks(w, h)
+        want = {"pathtracer": (3 * chunks + got[2], 0), "raycast": (chunks + got[2], 0),
+                "tiled": (got[2], 1)}[vis or backend]
+        name = vis or backend
+        frames[name] = got
+        log(f"[courtyard2] Renderer frame {w}x{h} {name} (GLB through Renderer.load_scene(path)"
+            f"{', spp 1, with the tables built' if not vis else ''}): {ms:.1f} ms, K1 launches "
+            f"{got[0]} (expected {want[0]}: hops {got[2]}), K2 {got[1]} (expected {want[1]}); "
+            f"u8 mean {float(img.mean()):.3f} card={card}")
+        if (got[:2] != want or img.shape != (h, w, 3) or float(img.std()) == 0.0
+                or tr.REFERENCE_CALLS != ref0):
+            raise AssertionError(f"courtyard2's Renderer {name} frame is wrong")
+    log(f"[courtyard2] GLB {os.path.getsize(path)} bytes written in {written_s:.2f}s, loaded "
+        f"in {loaded_s:.2f}s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    del r
+    torch.cuda.empty_cache()
+
+    bench = phase_bench("courtyard2", steps=COURTYARD2_TIMED_STEPS)
+    log(f"[courtyard2] bench alpha hops {bench['alpha_hops']}, traversal launches "
+        f"{bench['kernel_launches']['traverse_wide']}, step_s {bench['step_s']}")
+    return dict(k1=k1, k2=k2, launches=run["launches"] + sum(f[0] for f in frames.values()),
+                k2_launches=sum(f[1] for f in frames.values()), bench=bench)
+
+
+def phase_furnace(device, card):
+    """Phase 7j, the furnace check of tests/test_ssim_baseline.py at
+    1920x1080: the diffuse box under a uniform environment rasterized, and
+    path traced to FURNACE_SPP samples (trace_chunked at SPP a dispatch,
+    4 bounces); the two at that test's bar (windowed SSIM >= 0.99 after a
+    4x4 box downsample, means within 2%). Returns the K1 launches."""
+    import torch
+
+    from gltf_renderer_tpu_torch.bench_scene import build_furnace_scene, furnace_scores
+    from gltf_renderer_tpu_torch.ops import traverse as tr
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+    from gltf_renderer_tpu_torch.render import rasterizer as rz
+    from gltf_renderer_tpu_torch.render import settings as S
+
+    w, h = FULL_RES
+    scene, meta, settings, params, c2w, cam_pos = build_furnace_scene(w, h, device)
+    k1_0 = tr.KERNEL_LAUNCHES
+    raster_img = rz.render(scene, meta, S.RenderSettings(), params, c2w, cam_pos, (w, h), 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = torch.zeros((h, w, 3), dtype=torch.float64, device=device)
+    nan = torch.zeros((), device=device)
+    dispatches = FURNACE_SPP // SPP
+    for i in range(dispatches):
+        img, st = pt.trace_chunked(scene, meta, settings, params, c2w, (w, h), i,
+                                   with_stats=True, spp=SPP)
+        acc += img
+        nan = nan + st[1]
+    traced = (acc / dispatches).float().cpu().numpy()
+    pt_s = time.perf_counter() - t0
+    launches = tr.KERNEL_LAUNCHES - k1_0
+    score, rel = furnace_scores(raster_img.cpu().numpy(), traced)
+    log(f"[furnace] {w}x{h} diffuse box under a uniform environment: path tracer "
+        f"{FURNACE_SPP} spp ({dispatches} dispatches of {SPP}, chunks of {pt.RAY_CHUNK} rays, "
+        f"{settings.max_bounces} bounces) "
+        f"in {pt_s:.2f}s, raster frame raycast; windowed SSIM (4x4 downsampled) {score:.6f} "
+        f"(bar 0.99), means {rel:.5f} apart (bar 0.02), nan_inf={float(nan):.0f}; K1 "
+        f"launches {launches} card={card}")
+    if score < 0.99 or rel >= 0.02 or float(nan) != 0.0 or not np.isfinite(traced).all():
+        raise AssertionError("the furnace's converged path tracer and raster frame disagree")
+    return launches
 
 
 def identical(a, b):
@@ -2440,7 +2661,7 @@ def phase_perlane(device):
                  launches=launches["shuffle_fetch"], **out["shuffle"])]
 
 
-def phase_bench(scene_kind="helmet", steps=3):
+def phase_bench(scene_kind="helmet", steps=2):
     """The port's bench entry point as a user runs it. Returns its detail."""
     import subprocess
 
@@ -2571,6 +2792,15 @@ def main() -> int:
         t0 = time.perf_counter()
         config5 = phase_config5(device, card, tmp)
         log(f"[done] phase 7h in {time.perf_counter() - t0:.1f}s; K1 launches {config5['k1']}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        court2 = phase_courtyard2(device, card, env, tmp)
+        log(f"[done] phase 7i in {time.perf_counter() - t0:.1f}s; K1 launches "
+            f"{court2['launches']}, K2 launches {court2['k2_launches']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    furnace_k1 = phase_furnace(device, card)
+    log(f"[done] phase 7j in {time.perf_counter() - t0:.1f}s; K1 launches {furnace_k1}")
     log(f"[goldens] each drawn once through Renderer.load_scene(path) (bar {RASTER_SSIM_BAR}): "
         f"box_raster {blend['ssim']}, helmet_raster {helmet_ssim}, anim_pose "
         f"{anim['ssim']:.6f}, materials_pt {zoo['ssim']:.6f}, courtyard_pt {court['ssim']:.6f}")
@@ -2589,6 +2819,7 @@ def main() -> int:
     c_lane = court["k1"]["lane_mixed"]
     z_lane = zoo["k1"]["lane_mixed"]
     c_k2 = court["k2"]
+    c2_lane, c2_prim, c2_k2 = court2["k1"]["lane_mixed"], court2["k1"]["primary"], court2["k2"]
     r_op, r_bl = blend["k1"]["raster_opaque"], blend["k1"]["raster_blend"]
     r_frames = [f for scene_frames in blend["frames"].values() for f in scene_frames.values()]
     print(json.dumps({"kernels": [{
@@ -2596,11 +2827,13 @@ def main() -> int:
         "source": "gltf_renderer_tpu_torch/csrc/traverse.cu", "replaces": REPLACES,
         "launches": launches + court["launches"] + zoo["launches"]
         + sum(frames[v][0] for v in frames) + sum(f[0] for f in r_frames) + glb["launches"]
-        + anim["k1"] + app["k1"] + shard["k1"] + config5["k1"],
+        + anim["k1"] + app["k1"] + shard["k1"] + config5["k1"] + court2["launches"]
+        + furnace_k1,
         "max_abs_err": max(worst_abs, anim["worst_abs"],
                            *(x["max_abs"] for x in court["k1"].values()),
                            *(x["max_abs"] for x in zoo["k1"].values()),
-                           *(x["max_abs"] for x in blend["k1"].values())),
+                           *(x["max_abs"] for x in blend["k1"].values()),
+                           *(x["max_abs"] for x in court2["k1"].values())),
         "ms": lane["ms"], "plain_ms": lane["plain_ms"], "bound_ms": lane["bound_ms"],
         "bound_by": lane["bound_by"], "library_ms": None, "launcher_ms": lane["launcher_ms"],
         "courtyard_ms": c_lane["ms"], "courtyard_plain_ms": c_lane["plain_ms"],
@@ -2611,11 +2844,17 @@ def main() -> int:
         "raster_opaque_bound_ms": r_op["bound_ms"], "raster_opaque_bound_by": r_op["bound_by"],
         "raster_blend_ms": r_bl["ms"], "raster_blend_plain_ms": r_bl["plain_ms"],
         "raster_blend_bound_ms": r_bl["bound_ms"], "raster_blend_bound_by": r_bl["bound_by"],
+        "courtyard2_ms": c2_lane["ms"], "courtyard2_plain_ms": c2_lane["plain_ms"],
+        "courtyard2_bound_ms": c2_lane["bound_ms"], "courtyard2_bound_by": c2_lane["bound_by"],
+        "courtyard2_primary_ms": c2_prim["ms"], "courtyard2_primary_plain_ms": c2_prim["plain_ms"],
+        "courtyard2_primary_bound_ms": c2_prim["bound_ms"],
+        "courtyard2_launches": court2["launches"],
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,
-        "launches": frames["tiled"][1] + sum(f[1] for f in r_frames) + anim["k2"] + shard["k2"],
-        "max_abs_err": max(k2["err"], c_k2["err"]),
+        "launches": frames["tiled"][1] + sum(f[1] for f in r_frames) + anim["k2"] + shard["k2"]
+        + court2["k2_launches"],
+        "max_abs_err": max(k2["err"], c_k2["err"], c2_k2["err"]),
         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"], "library_ms": None, "bound_all_px_ms": k2["bound_all_px_ms"],
         "launcher_ms": k2["launcher_ms"], "parent_launcher_ms": k2["parent_ms"],
@@ -2624,8 +2863,12 @@ def main() -> int:
         "courtyard_bound_all_px_ms": c_k2["bound_all_px_ms"],
         "courtyard_launcher_ms": c_k2["launcher_ms"],
         "courtyard_parent_launcher_ms": c_k2["parent_ms"],
+        "courtyard2_ms": c2_k2["ms"], "courtyard2_plain_ms": c2_k2["plain_ms"],
+        "courtyard2_bound_ms": c2_k2["bound_ms"], "courtyard2_bound_by": c2_k2["bound_by"],
+        "courtyard2_crossers": c2_k2["crossers"], "courtyard2_launches": court2["k2_launches"],
     }, brute_row, *perlane_rows,
-        dict(warm_row, launches=bench_detail["kernel_launches"]["add_one"])]}))
+        dict(warm_row, launches=bench_detail["kernel_launches"]["add_one"]
+             + court2["bench"]["kernel_launches"]["add_one"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -89,58 +89,10 @@ def scene_bounds(scene):
     return centre, float(np.linalg.norm(wp - centre, axis=-1).max())
 
 
-def main(argv=None, device="cuda") -> int:
-    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
-    args = build_parser().parse_args(argv)
-
+def _set_up_view(args, renderer, scene):
+    """The animation and the camera `args` ask for: a glTF camera, or an
+    orbit camera around the scene's bounds."""
     from gltf_renderer_tpu_torch.camera import OrbitController
-    from gltf_renderer_tpu_torch.parallel import distributed
-    from gltf_renderer_tpu_torch.render import settings as S
-    from gltf_renderer_tpu_torch.render.renderer import Renderer
-
-    settings = S.RenderSettings(
-        backend=args.backend,
-        width=args.width,
-        height=args.height,
-        pt=S.PathTracerSettings(
-            max_bounces=min(args.max_bounces, S.MAX_BOUNCES_HARD_CAP),
-            min_bounces=min(args.min_bounces, S.MAX_BOUNCES_HARD_CAP),
-            debug_output=args.debug_output,
-        ),
-        tonemap=S.ToneMapSettings(
-            tonemapper=S.TONEMAPPER_AGX if args.tonemapper == "agx" else S.TONEMAPPER_NONE,
-            exposure=args.exposure,
-        ),
-    )
-    rank = 0
-    if args.shard == "auto":
-        rank, _ = distributed.initialize(device=device)
-    renderer = Renderer(settings, mesh="auto" if args.shard == "auto" else None, device=device)
-    renderer.params = renderer.params._replace(
-        environment_intensity=args.environment_intensity,
-        luminance_clamp=args.luminance_clamp,
-    )
-
-    if not args.gltf:
-        print("error: --gltf is required in headless mode", file=sys.stderr)
-        return 2
-    try:
-        scene = renderer.load_scene(args.gltf, scene_id=args.scene_index)
-    except (OSError, ValueError) as e:
-        print(f"error: failed to load {args.gltf}: {e}", file=sys.stderr)
-        return 1
-    logging.info(
-        "loaded %s: %d nodes, %d prims, %d tris, %d materials, %d animations",
-        scene.name, len(scene.nodes), len(scene.primitives.material),
-        len(scene.pools.tri_vertex), len(scene.materials.flags) - 1,
-        len(scene.animations),
-    )
-    if args.environment_map:
-        try:
-            renderer.load_environment(args.environment_map)
-        except (OSError, ValueError) as e:
-            print(f"error: failed to load {args.environment_map}: {e}", file=sys.stderr)
-            return 1
 
     if args.animation is not None and scene.animations:
         renderer.select_animation(args.animation)
@@ -148,7 +100,6 @@ def main(argv=None, device="cuda") -> int:
     else:
         renderer.player.animation = None
 
-    # Frame the scene with an orbit camera around its bounds.
     centre, radius = scene_bounds(scene)
     if args.camera is not None and scene.cameras:
         # A glTF camera: the renderer re-derives world_to_view from the
@@ -171,6 +122,86 @@ def main(argv=None, device="cuda") -> int:
         renderer.camera.z_near = max(1e-3, 0.01 * radius)
         renderer.camera.world_to_view = orbit.world_to_view()
 
+
+def main(argv=None, device="cuda") -> int:
+    """Render the frames `argv` asks for; returns the exit code. Sharded
+    (--shard auto in a process group), every rank runs the same steps in
+    step (parallel.distributed.together): a raise on one rank, in the set-up,
+    a load, a frame or between frames, ends every rank there. That rank
+    fails as it would alone; the others print "error: rank r: <error>" and
+    return 1."""
+    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
+    args = build_parser().parse_args(argv)
+
+    import torch.distributed as dist
+
+    from gltf_renderer_tpu_torch.parallel import distributed
+    from gltf_renderer_tpu_torch.render import settings as S
+
+    if not args.gltf:
+        print("error: --gltf is required in headless mode", file=sys.stderr)
+        return 2
+    settings = S.RenderSettings(
+        backend=args.backend,
+        width=args.width,
+        height=args.height,
+        pt=S.PathTracerSettings(
+            max_bounces=min(args.max_bounces, S.MAX_BOUNCES_HARD_CAP),
+            min_bounces=min(args.min_bounces, S.MAX_BOUNCES_HARD_CAP),
+            debug_output=args.debug_output,
+        ),
+        tonemap=S.ToneMapSettings(
+            tonemapper=S.TONEMAPPER_AGX if args.tonemapper == "agx" else S.TONEMAPPER_NONE,
+            exposure=args.exposure,
+        ),
+    )
+    rank = 0
+    if args.shard == "auto":
+        rank, _ = distributed.initialize(device=device)
+    sharded = args.shard == "auto" and dist.is_initialized()
+    try:
+        return _render(args, settings, device, rank, sharded)
+    except distributed.RankFailed as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+def _render(args, settings, device, rank: int, sharded: bool) -> int:
+    from gltf_renderer_tpu_torch.parallel.distributed import together
+    from gltf_renderer_tpu_torch.render.renderer import Renderer
+
+    loading = None  # the input a raise of OSError or ValueError is about
+    try:
+        # Before the load: every rank has its renderer and its input files.
+        with together(sharded):
+            renderer = Renderer(settings, mesh="auto" if sharded else None, device=device)
+            renderer.params = renderer.params._replace(
+                environment_intensity=args.environment_intensity,
+                luminance_clamp=args.luminance_clamp,
+            )
+            for loading in filter(None, (args.gltf, args.environment_map)):
+                if not os.path.isfile(loading):
+                    raise FileNotFoundError("no such file")
+        # The loads end on every rank together of themselves.
+        loading = args.gltf
+        scene = renderer.load_scene(args.gltf, scene_id=args.scene_index)
+        loading = args.environment_map
+        if loading:
+            renderer.load_environment(loading)
+    except (OSError, ValueError) as e:
+        if loading is None:
+            raise
+        print(f"error: failed to load {loading}: {e}", file=sys.stderr)
+        return 1
+    with together(sharded):
+        logging.info(
+            "loaded %s: %d nodes, %d prims, %d tris, %d materials, %d animations",
+            scene.name, len(scene.nodes), len(scene.primitives.material),
+            len(scene.pools.tri_vertex), len(scene.materials.flags) - 1,
+            len(scene.animations),
+        )
+        _set_up_view(args, renderer, scene)
+
     renderer.profile = bool(args.profile)
     trace_cm = (renderer.capture_trace(args.trace_dir) if args.trace_dir
                 else contextlib.nullcontext())
@@ -178,18 +209,23 @@ def main(argv=None, device="cuda") -> int:
     t0 = time.time()
     with trace_cm:
         for frame in range(args.frames):
+            # Each draw ends on every rank together of itself.
             if args.backend == "pathtracer":
                 img = None
                 for _ in range(args.spp):
                     img = renderer.draw_frame(delta=0.0)
             else:
                 img = renderer.draw_frame(delta=1.0 / args.fps if frame else 0.0)
-            if args.profile and "pass_ms" in renderer.stats:
-                parts = "  ".join(f"{k}={v:.1f}ms" for k, v in renderer.stats["pass_ms"].items())
-                logging.info("frame %d passes: %s", frame, parts)
-            out_path = args.output if args.frames == 1 else f"{base}_{frame:04d}{ext}"
-            if rank == 0:
-                save_png(out_path, img)
+            # Rank 0's file and the log line end together too: a raise
+            # after the frame's last gather still meets the other ranks.
+            with together(sharded):
+                if args.profile and "pass_ms" in renderer.stats:
+                    parts = "  ".join(f"{k}={v:.1f}ms"
+                                      for k, v in renderer.stats["pass_ms"].items())
+                    logging.info("frame %d passes: %s", frame, parts)
+                out_path = args.output if args.frames == 1 else f"{base}_{frame:04d}{ext}"
+                if rank == 0:
+                    save_png(out_path, img)
             if args.frames > 1 and args.backend == "pathtracer":
                 renderer.draw_frame(delta=1.0 / args.fps)  # advance the animation
     logging.info("rendered %d frame(s) in %.2fs -> %s", args.frames, time.time() - t0,

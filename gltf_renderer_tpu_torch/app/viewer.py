@@ -51,7 +51,10 @@ rank passes it to the next exchange (parallel.distributed.fail; the frame
 gathers each come after one), every rank raises RankFailed there, keeps
 "RankFailed: rank r: <error>" in its state.error and leaves its loop, and
 rank 0's /state reports it. No collective is left waiting, so the process
-group can then be destroyed.
+group can then be destroyed. The first load (in `serve`) ends on every
+rank together (parallel.distributed.together): a rank whose load raises
+raises there, and the others raise RankFailed. The viewer's Renderer
+runs no exchanges of its own, as its loops load on rank 0 first.
 """
 
 from __future__ import annotations
@@ -807,10 +810,12 @@ def serve(gltf_path, width=960, height=540, port=8008, backend="pathtracer",
     if shard == "auto":
         distributed.initialize(device=device)
     settings = S.RenderSettings(backend=backend, width=width, height=height)
-    renderer = Renderer(settings, mesh="auto" if shard == "auto" else None, device=device)
-    scene = renderer.load_scene(gltf_path)
-    if env_path:
-        renderer.load_environment(env_path)
+    renderer = Renderer(settings, mesh="auto" if shard == "auto" else None, device=device,
+                        _together=False)
+    with distributed.together(_is_sharded(renderer)):
+        scene = renderer.load_scene(gltf_path)
+        if env_path:
+            renderer.load_environment(env_path)
 
     # Frame the scene like the CLI does (bounds of the flattened world).
     center, radius = scene_bounds(scene)

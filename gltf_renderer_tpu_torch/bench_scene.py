@@ -24,6 +24,12 @@ at delta 0.5, three more at delta 0, side by side), `render_materials_golden`
 frames, alpha shadows). The raster ones draw with the Renderer's
 `raster_visibility`: raycast as the JAX renderer draws, or tiled.
 
+`build_courtyard_probe` is the courtyard golden configuration's scene at
+any density (courtyard2's 128x72 window, card against CPU), and
+`build_furnace_scene` / `furnace_scores` the furnace check of
+tests/test_ssim_baseline.py: a diffuse box under a uniform environment,
+where the raster frame and the converged path tracer have one answer.
+
 `build_materials_scene` is the material zoo (`materials_scene`) under the
 golden configurations' 32x64 analytic environment, seen from (0, -6, 3),
 with env NEE + MIS and 2 bounces; `render_debug_channels` renders its 28
@@ -95,6 +101,10 @@ RASTER_SCENE_KINDS = ("materials", "courtyard")
 # (eye, target) of the views the bench and golden configurations share
 COURTYARD_VIEW = ([-9.0, 0.0, 1.7], [1.0, 0.0, 1.6])  # down the colonnade
 MATERIALS_VIEW = ([0.0, -6.0, 3.0], [0.0, 0.0, 0.5])  # the zoo's golden view
+FURNACE_EYE = [2.0, -2.0, 1.5]  # the furnace check's view, at the origin
+FURNACE_RADIANCE = 0.8
+FURNACE_PT = dict(max_bounces=4, min_bounces=4, point_lights=False,
+                  luminance_clamp_enabled=False)
 
 
 def analytic_sky(h: int = 256, w: int = 512) -> np.ndarray:
@@ -266,6 +276,66 @@ def render_courtyard_golden(device="cuda"):
                             env=build_environment_pt(analytic_equirect(), device=device,
                                                      prefilters=False))
     return draw_frames(r, COURTYARD_GOLDEN_FRAMES)
+
+
+def build_courtyard_probe(density: int = 2, device="cuda"):
+    """The courtyard golden configuration's scene at `density`, built in
+    memory (`courtyard_scene(density, tex_size=64)`) under the analytic
+    environment, with its settings (2 bounces, alpha shadows) and its
+    128x72 view down the colonnade: a window to hold the card's render
+    of the 1.1M-triangle courtyard2 (density 2) against the CPU's. Returns
+    (ptscene, meta, settings, params, clip_to_world, n_tris), as
+    build_bench_scene does."""
+    scene = courtyard_scene(density=density, tex_size=64)
+    world, lights = world_from_scene(scene)
+    env = build_environment_pt(analytic_equirect(), device=device, prefilters=False)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    return (ptscene, meta, S.PathTracerSettings(max_bounces=2, min_bounces=2, alpha_shadows=True),
+            S.PathTracerParams(), bench_camera(*COURTYARD_GOLDEN_RES, "courtyard"),
+            int(world.tri_vertex.shape[0]))
+
+
+def build_furnace_scene(width: int, height: int, device="cuda"):
+    """tests/test_ssim_baseline.py::test_furnace_raster_vs_converged_pt's
+    scene: the unit box, diffuse (base colour 0.65, roughness 1, no light),
+    under a uniform environment of radiance FURNACE_RADIANCE (16x32, cube
+    16, with the raster prefilters), seen from (2, -2, 1.5). The raster's
+    split-sum IBL is exact for a constant environment, so its frame and the
+    converged path tracer's (4 bounces, no clamp) have one answer. Returns
+    (ptscene, meta, path-tracer settings, params, clip_to_world, camera
+    position)."""
+    with tempfile.TemporaryDirectory() as d:
+        scene = load_gltf(write_box_gltf(os.path.join(d, "box.gltf"),
+                                         base_color=(0.65, 0.65, 0.65, 1.0), roughness=1.0,
+                                         with_light=False))
+    world, lights = world_from_scene(scene)
+    env = build_environment_pt(np.full((16, 32, 3), FURNACE_RADIANCE, np.float32), cube_size=16,
+                               device=device)
+    ptscene, meta = pt.make_pt_scene(world, scene.materials, scene.textures, lights, env=env,
+                                     device=device)
+    c2w, cam_pos = raster_camera(FURNACE_EYE, width, height)
+    return ptscene, meta, S.PathTracerSettings(**FURNACE_PT), S.PathTracerParams(), c2w, cam_pos
+
+
+def furnace_scores(raster, traced):
+    """(windowed SSIM, relative difference of the means) of a raster frame
+    and a converged path-traced image of the furnace scene, as
+    test_furnace_raster_vs_converged_pt scores them: both (h, w, 3) HDR
+    box-downsampled 4x4 first (the path tracer's residual noise and the
+    raster's aliased silhouette both average out), SSIM over the larger
+    maximum as the data range. Its bar: SSIM >= 0.99, means within 2%."""
+    from gltf_renderer_tpu_torch.utils.ssim import ssim
+
+    def down4(x):
+        h, w, c = x.shape
+        return x[:h // 4 * 4, :w // 4 * 4].reshape(h // 4, 4, w // 4, 4, c).mean((1, 3))
+
+    ra = down4(np.asarray(raster, np.float32))
+    tr = down4(np.asarray(traced, np.float32))
+    score = ssim(ra, tr, data_range=float(max(ra.max(), tr.max())))
+    rel = abs(float(np.mean(raster)) - float(np.mean(traced))) / float(np.mean(traced))
+    return float(score), rel
 
 
 def materials_camera(width: int, height: int) -> np.ndarray:

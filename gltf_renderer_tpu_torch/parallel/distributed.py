@@ -23,10 +23,17 @@ pickled objects) or comes right after one (sharding's frame gathers), so
 a rank whose frame raised calls `fail`: it joins the next exchange the
 other ranks reach with its error, and there every rank raises RankFailed
 naming that rank. No timeout is involved.
+
+`together` applies that protocol to any block every rank runs in step (a
+scene load, a Renderer frame, a CLI frame): a raise in the block is passed
+to the others, and the block ends with a status exchange, so a raise after
+its last collective still meets them. The raising rank raises its own
+error, the others RankFailed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Any, Optional, Tuple
@@ -114,6 +121,26 @@ def fail(error: BaseException):
     """Pass this rank's error to every rank at the next exchange they all
     reach; raises RankFailed there, as every other rank does."""
     exchange(_Failure(dist.get_rank(), f"{type(error).__name__}: {error}"))
+
+
+@contextlib.contextmanager
+def together(active: bool = True):
+    """Run the block on every rank in step. A raise in it is passed to the
+    other ranks (`fail`) and raised again here; the block ends with a
+    status exchange, where every other rank raises RankFailed naming this
+    one. Inactive (a single process), the block runs as it is."""
+    if not active:
+        yield
+        return
+    try:
+        yield
+    except RankFailed:
+        raise
+    except Exception as e:
+        with contextlib.suppress(RankFailed):
+            fail(e)
+        raise
+    exchange(None)
 
 
 def replicate(tree: Any, mesh) -> Any:

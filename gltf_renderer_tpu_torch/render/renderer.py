@@ -12,6 +12,11 @@ is queued on the device's stream.
 With a mesh (parallel.sharding) the path tracer's sample and the raster
 frame are drawn sharded over the mesh's cells, and every rank gets the
 whole image; accumulation, post and the u8 copy run on it on every rank.
+Over a process group every rank calls load_scene, load_environment and
+draw_frame in the same order, and each call ends on every rank together
+(parallel.distributed.together): a raise on one rank, in a load, in its
+cells or after the frame's last gather, raises RankFailed on the others
+within the call, and no rank is left waiting in a collective.
 
 `raster_step` and `post_step` are the raster and post steps on their own.
 """
@@ -24,6 +29,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gltf_renderer_tpu_torch.anim.animation import AnimationPlayer, LocalPose, rest_pose
 from gltf_renderer_tpu_torch.anim.skinning import DynamicMeshState
@@ -32,7 +38,7 @@ from gltf_renderer_tpu_torch.device import resolve, synchronize
 from gltf_renderer_tpu_torch.env.environment import EnvMaps, build_environment
 from gltf_renderer_tpu_torch.env.hdr_io import read_environment_image
 from gltf_renderer_tpu_torch.ops import rng
-from gltf_renderer_tpu_torch.parallel import sharding
+from gltf_renderer_tpu_torch.parallel import distributed, sharding
 from gltf_renderer_tpu_torch.post.bloom import bloom as bloom_op
 from gltf_renderer_tpu_torch.post.tonemap import to_u8, tonemap
 from gltf_renderer_tpu_torch.render import pathtracer as pt
@@ -73,12 +79,16 @@ def _host_bytes(*tables) -> int:
 class Renderer:
     """Interactive / offline renderer state machine."""
 
-    def __init__(self, settings: Optional[S.RenderSettings] = None, mesh=None, device="cuda"):
+    def __init__(self, settings: Optional[S.RenderSettings] = None, mesh=None, device="cuda",
+                 *, _together=True):
         """mesh: None (one device, unsharded), "auto" (one tile a rank of
         the process group, parallel.distributed.initialize; unsharded in a
         world of 1), or a parallel.sharding.Mesh on this renderer's device
         type, used as given. Both backends draw through the sharded steps
-        when a mesh is set."""
+        when a mesh is set. Sharded over a process group, loads and frames
+        end on every rank together (distributed.together) unless
+        `_together` is False: the viewer's loops, which load on rank 0
+        before the other ranks, run their own exchanges."""
         self.settings = settings or S.RenderSettings()
         self.params = S.PathTracerParams()
         self.device = resolve(device)
@@ -90,6 +100,7 @@ class Renderer:
         elif mesh is not None and mesh.device.type != self.device.type:
             raise ValueError(f"the mesh is on {mesh.device}, the renderer on {self.device}")
         self.mesh = mesh
+        self._fail_together = _together
         self.scene: Optional[T.Scene] = None
         self.scene_id = 0
         self.env: Optional[EnvMaps] = None
@@ -125,9 +136,17 @@ class Renderer:
 
     # -- loading -----------------------------------------------------------
 
+    def _together(self):
+        return distributed.together(self._fail_together and self.mesh is not None
+                                    and dist.is_initialized())
+
     def load_scene(self, path_or_scene, scene_id=None):
         """LoadGltf (Main.cpp:43-54) of a path or a loaded T.Scene; scene_id
         selects a glTF scene (the document's default by default)."""
+        with self._together():
+            return self._load_scene(path_or_scene, scene_id)
+
+    def _load_scene(self, path_or_scene, scene_id):
         scene = path_or_scene if isinstance(path_or_scene, T.Scene) else load_gltf(path_or_scene)
         sid = scene.default_scene if scene_id is None else scene_id
         if scene.scenes and not (0 <= sid < len(scene.scenes)):
@@ -192,6 +211,10 @@ class Renderer:
         """An .hdr / .exr file or an (h, w, 3) equirect array as the
         environment (env.environment.build_environment on the renderer's
         device, with the two prefiltered cubes the raster backend samples)."""
+        with self._together():
+            self._load_environment(path_or_array)
+
+    def _load_environment(self, path_or_array):
         if isinstance(path_or_array, str):
             equirect = read_environment_image(path_or_array)
         else:
@@ -288,6 +311,10 @@ class Renderer:
         persists across calls until the camera, settings or animation change
         (Pathtracer.cpp:259-272)."""
         assert self.scene is not None, "no scene loaded"
+        with self._together():
+            return self._frame(delta, seed)
+
+    def _frame(self, delta: float, seed: Optional[int]) -> np.ndarray:
         t_frame = time.perf_counter()
         st = self.settings
         pass_ms = {}

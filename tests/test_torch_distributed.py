@@ -11,7 +11,17 @@ was; the ranks write their results to files the test reads.
 - 2 ranks: Renderer(mesh="auto") draw_frame on both backends against the
   unsharded renderer, save_state written by rank 0 only, and the CLI with
   --shard auto (rank 0's PNG equal to the single-process CLI's; rank 1
-  writes none);
+  writes none); then, in the same group, sharded sessions in which one
+  rank raises (FAULT_SESSIONS): the CLI with a scene file missing on rank
+  1 (the status exchange before the load), one that fails to parse on
+  rank 1 (the load's), rank 1's path-traced or raster cells raising, rank
+  1's post raising after the frame's last gather, rank 0's save_png
+  raising between two frames; and a user's loop of Renderer(mesh="auto")
+  calls whose load, cells or post raise on rank 1. In each the raising
+  rank fails with its own error (the CLI: rc 1 and "error: failed to load
+  ..." for a load), every other rank's CLI returns 1 with "error: rank r:
+  <error>" on stderr or its Renderer raises RankFailed naming rank r, and
+  the group goes on to the next session: no rank waits in a collective;
 - 2 ranks: the viewer with shard="auto": rank 0 serves a frame over
   HTTP, rank 1 follows; a load of a file only rank 0 holds (a path
   relative to each rank's own working directory) is refused with a
@@ -147,7 +157,7 @@ def test_mesh_2x2_over_four_ranks(tmp_path):
 
 def _renderer_and_cli(rank, world, out_dir, box, single_png):
     """Renderer(mesh="auto") frames and checkpoint, then the CLI with
-    --shard auto, on this rank."""
+    --shard auto, then the fault sessions, on this rank."""
     from gltf_renderer_tpu_torch.app import cli
     from gltf_renderer_tpu_torch.render.renderer import Renderer
 
@@ -164,7 +174,99 @@ def _renderer_and_cli(rank, world, out_dir, box, single_png):
     r.save_state(os.path.join(out_dir, f"state_{rank}.npz"))
     rc = cli.main(_cli_argv(box, os.path.join(out_dir, f"cli_{rank}.png")) + ["--shard", "auto"],
                   device="cpu")
-    return dict(frames=frames, mesh=(r.mesh.rank, r.mesh.world_size, r.mesh.cells()), rc=rc)
+    return dict(frames=frames, mesh=(r.mesh.rank, r.mesh.world_size, r.mesh.cells()), rc=rc,
+                faults=_fault_sessions(rank, out_dir, box))
+
+
+FAULT = "RuntimeError: injected fault"
+# session: (raising rank, what raises); "cli_*" sessions run the CLI with
+# --shard auto, "loop_*" a user's loop of sharded Renderer calls.
+FAULT_SESSIONS = {
+    "cli_load_missing": (1, "the scene file is missing on rank 1"),
+    "cli_load_parse": (1, "the scene file does not parse on rank 1"),
+    "cli_cells_pt": (1, "pathtracer.trace"),
+    "cli_cells_raster": (1, "rasterizer.render"),
+    "cli_post": (1, "renderer.post_step"),
+    "cli_save_png": (0, "cli.save_png"),
+    "loop_load": (1, "the scene file does not parse on rank 1"),
+    "loop_cells": (1, "pathtracer.trace"),
+    "loop_post": (1, "renderer.post_step"),
+}
+LOOP_FRAMES = 3
+
+
+def _injected(module, name, rank, raiser, at_call):
+    """Patch module.name to raise RuntimeError("injected fault") on rank
+    `raiser`'s `at_call`-th call; returns the undo."""
+    real = getattr(module, name)
+    calls = [0]
+
+    def call(*a, **kw):
+        calls[0] += 1
+        if rank == raiser and calls[0] == at_call:
+            raise RuntimeError("injected fault")
+        return real(*a, **kw)
+
+    setattr(module, name, call)
+    return lambda: setattr(module, name, real)
+
+
+def _fault_sessions(rank, out_dir, box):
+    """Each FAULT_SESSIONS session on this rank, in this process group.
+    Returns {session: (rc or the raised error, stderr, frames drawn)}."""
+    import contextlib
+    import io
+
+    from gltf_renderer_tpu_torch.app import cli
+    from gltf_renderer_tpu_torch.parallel.distributed import RankFailed
+    from gltf_renderer_tpu_torch.render import pathtracer, rasterizer
+    from gltf_renderer_tpu_torch.render import renderer as renderer_mod
+    from gltf_renderer_tpu_torch.render.renderer import Renderer
+
+    cwd = os.path.join(out_dir, f"faults{rank}")
+    os.makedirs(cwd)
+    os.chdir(cwd)  # relative paths name each rank's own files
+    if rank == 0:
+        write_box_gltf("only_rank0.gltf")
+        write_box_gltf("bad.gltf")
+    else:
+        with open("bad.gltf", "w") as f:
+            f.write("not a glTF document")
+    targets = {"pathtracer.trace": (pathtracer, "trace"),
+               "rasterizer.render": (rasterizer, "render"),
+               "renderer.post_step": (renderer_mod, "post_step"),
+               "cli.save_png": (cli, "save_png")}
+    out = {}
+    for session, (raiser, what) in FAULT_SESSIONS.items():
+        scene = {"cli_load_missing": "only_rank0.gltf", "cli_load_parse": "bad.gltf",
+                 "loop_load": "bad.gltf"}.get(session, box)
+        # The loop's cells raise in its second frame, its post in its last.
+        at_call = LOOP_FRAMES if session == "loop_post" else 2 if session == "loop_cells" else 1
+        undo = (_injected(*targets[what], rank, raiser, at_call) if what in targets
+                else lambda: None)
+        err, frames = io.StringIO(), []
+        try:
+            with contextlib.redirect_stderr(err):
+                if session.startswith("cli_"):
+                    argv = _cli_argv(scene, f"{session}.png") + ["--shard", "auto"]
+                    if session == "cli_cells_raster":
+                        argv += ["--backend", "rasterizer"]
+                    if session == "cli_save_png":
+                        argv += ["--frames", "2"]
+                    result = cli.main(argv, device="cpu")
+                else:
+                    r = Renderer(PS.RenderSettings(width=32, height=24, pt=PS.PathTracerSettings(
+                        max_bounces=1, min_bounces=1)), mesh="auto", device="cpu")
+                    r.load_scene(scene)
+                    for _ in range(LOOP_FRAMES):
+                        frames.append(r.draw_frame())
+                    result = 0
+        except (RankFailed, RuntimeError, ValueError) as e:
+            result = f"{type(e).__name__}: {e}"
+        finally:
+            undo()
+        out[session] = (result, err.getvalue(), len(frames))
+    return out
 
 
 def _cli_argv(box, out):
@@ -201,6 +303,26 @@ def test_renderer_and_cli_over_two_ranks(tmp_path):
     assert not (tmp_path / "cli_1.png").exists()
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "cli_0.png")),
                                   np.asarray(Image.open(single_png)))
+
+    for session, (raiser, what) in FAULT_SESSIONS.items():
+        own, other = got[raiser]["faults"][session], got[1 - raiser]["faults"][session]
+        cause = {"cli_load_missing": "FileNotFoundError: no such file",
+                 "cli_load_parse": "JSONDecodeError: ",
+                 "loop_load": "JSONDecodeError: "}.get(session, FAULT)
+        if session.startswith("cli_load"):
+            assert own[0] == 1 and own[1].startswith("error: failed to load "), (session, own)
+        else:
+            assert own[0].startswith(cause), (session, what, own)
+        if session.startswith("cli_"):
+            assert other[0] == 1, (session, other)
+            assert other[1].startswith(f"error: rank {raiser}: {cause}"), (session, other)
+        else:
+            assert other[0] == f"RankFailed: rank {raiser}: {own[0]}", (session, other)
+    # The loop's frames before the fault: none after a failed load, one
+    # before its second frame's cells, two before its last frame's post.
+    assert [[g["faults"][s][2] for g in got] for s in ("loop_load", "loop_cells", "loop_post")] \
+        == [[0, 0], [1, 1], [LOOP_FRAMES - 1, LOOP_FRAMES - 1]]
+    assert not (tmp_path / "faults1" / "cli_save_png_0000.png").exists()
 
 
 def _viewer(rank, world, out_dir, box, box2):

@@ -65,14 +65,15 @@ def jax_knobs(mp: pytest.MonkeyPatch) -> None:
     mp.setattr(jax_bvh, "_NATIVE_TRIED", True)
 
 
-def jax_env(sky):
-    """JAX EnvMaps holding what the path tracer reads."""
+def jax_env(sky, cube=CUBE_SIZE):
+    """JAX EnvMaps holding what the path tracer reads (the cube pyramid at
+    `cube`, the importance map and the alias rows)."""
     import jax.numpy as jnp
 
     from gltf_renderer_tpu.env import environment as E
     from gltf_renderer_tpu.ops import sampling as Sm
 
-    cube_mips = E.build_cube_mips(E.build_cubemap(jnp.asarray(sky), CUBE_SIZE))
+    cube_mips = E.build_cube_mips(E.build_cubemap(jnp.asarray(sky), cube))
     importance = E.build_importance_map(cube_mips[0], cube_mips[1:])
     alias = Sm.build_alias_rows(np.asarray(importance[0]))
     return E.EnvMaps(cube=cube_mips, ggx=[], diffuse=None, importance=importance,
