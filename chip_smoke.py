@@ -1552,9 +1552,16 @@ def app_courtyard(device, card, env, path, tmp, court, blend):
         f"rays {rays:.0f} -> {mrays:.4f} Mrays/s of the Renderer's frame against phase 7b's "
         f"spp=4 step {court['mrays']:.4f} (the difference: per-frame reset key, u8 copy to "
         f"the host, post and profile syncs); nan_inf={nan:.0f} card={card}")
+    # The passes and the spans (render/renderer.py's docstring); the alpha
+    # reads only where the scene has a masked material, or an alpha layer
+    # that alpha shadows read.
+    want = {"skin_and_refit", "path_trace_scene", "post(bloom+tonemap)", "u8_copy",
+            "pt.chunk", "pt.k1", "pt.shade", "pt.nee"}
+    meta = r1._meta
+    if meta.has_masked or (r1.settings.pt.alpha_shadows and meta.has_alpha_layer):
+        want.add("pt.alpha_read")
     if (launches != expected or nan != 0.0 or img.shape != (h, w, 3)
-            or set(passes[-1]) != {"skin_and_refit", "path_trace_scene",
-                                   "post(bloom+tonemap)"}):
+            or any(set(p) != want for p in passes)):
         raise AssertionError("the Renderer's 1080p path-tracer frames are wrong")
 
     # The raster backend through the same Renderer.

@@ -61,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "process group (torchrun; one rank: unsharded; "
                         "parallel/sharding.py)")
     p.add_argument("--profile", action="store_true",
-                   help="print a per-pass ms table each frame")
+                   help="log each frame's span ms (Renderer.stats pass_ms) and counts")
     p.add_argument("--trace-dir", type=str, default=None,
                    help="capture a torch.profiler trace of the render to this dir")
     return p
@@ -220,8 +220,9 @@ def _render(args, settings, device, rank: int, sharded: bool) -> int:
             # after the frame's last gather still meets the other ranks.
             with together(sharded):
                 if args.profile and "pass_ms" in renderer.stats:
-                    parts = "  ".join(f"{k}={v:.1f}ms"
-                                      for k, v in renderer.stats["pass_ms"].items())
+                    parts = "  ".join(
+                        [f"{k}={v:.1f}ms" for k, v in renderer.stats["pass_ms"].items()]
+                        + [f"{k}={v}" for k, v in renderer.stats["counts"].items()])
                     logging.info("frame %d passes: %s", frame, parts)
                 out_path = args.output if args.frames == 1 else f"{base}_{frame:04d}{ext}"
                 if rank == 0:

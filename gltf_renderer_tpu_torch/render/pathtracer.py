@@ -23,6 +23,13 @@ The two hop loops stop when no lane is left to retry, read as one scalar
 on the host per hop, or at their bound. ALPHA_RETRY_HOPS and
 ALPHA_SHADOW_HOPS count the hops they run: each hop is one more
 traverse_wide launch.
+
+Spans (utils.spans) name the host's phases of a sample: `pt.chunk` each
+_trace_rays call, `pt.k1` each traverse_wide call with its argument
+preparation and hit decode, `pt.alpha_read` each hop loop's blocking read,
+`pt.shade` each bounce's hit attributes and surface properties, `pt.nee`
+each bounce's environment and punctual-light sampling, BSDF evaluation
+and MIS (the light's unmerged shadow rays outside it).
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ from gltf_renderer_tpu_torch.scene.flatten import (
     TRI_HAS_UV1,
     WorldGeometry,
 )
-from gltf_renderer_tpu_torch.utils import scene_cache
+from gltf_renderer_tpu_torch.utils import scene_cache, spans
 from gltf_renderer_tpu_torch.utils.math import (
     PI,
     create_basis,
@@ -432,14 +439,16 @@ def fetch_hit_attributes(world: WorldGeometry, tri, u, v, ray_dir, with_footprin
 
 def _traverse(scene: PTScene, meta: PTMeta, origin, direction, t_min, t_max, any_hit=False,
               cull_sign=0, blend_mode=0, mode=None) -> Hit:
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
-                                               device=origin.device), t_min.shape)
-    t, word, u, v = traverse_wide(
-        scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
-        origin, direction, t_min, t_max, meta.wide_root, any_hit, cull_sign, blend_mode,
-        mode, stack_bound=meta.stack_bound)
-    tri = torch.where(word >= 0, (word & bvh_ops.ID_MASK).to(torch.int64),
-                      torch.full_like(word, -1, dtype=torch.int64))
+    with spans.span("pt.k1"):
+        t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32,
+                                                   device=origin.device), t_min.shape)
+        # A module-global lookup: the benchmark's K1 recorder replaces it.
+        t, word, u, v = traverse_wide(
+            scene.wide_nodes, scene.wide_maps.meta, scene.leaf_records, scene.leaf_words,
+            origin, direction, t_min, t_max, meta.wide_root, any_hit, cull_sign, blend_mode,
+            mode, stack_bound=meta.stack_bound)
+        tri = torch.where(word >= 0, (word & bvh_ops.ID_MASK).to(torch.int64),
+                          torch.full_like(word, -1, dtype=torch.int64))
     return Hit(t=t, tri=tri, u=u, v=v)
 
 
@@ -495,7 +504,7 @@ def _alpha_retry(scene: PTScene, meta: PTMeta, hit: Hit, origin, direction, t_mi
                                                   device=origin.device), hit.t.shape)
     need = _needs_alpha_retry(scene, meta, hit)
     for _ in range(MAX_ALPHA_HOPS):
-        if not bool(need.any()):
+        if not spans.host_read(need):
             break
         ALPHA_RETRY_HOPS += 1
         tmin_cur = torch.where(need, hit.t * (1.0 + 1e-5) + 1e-6, tmin_cur)
@@ -534,7 +543,7 @@ def trace_shadow(scene, meta, origin, direction, t_max, alpha_shadow: bool = Fal
     trans = torch.ones_like(t_min)
     tmin_cur = t_min
     for _ in range(MAX_SHADOW_HOPS):
-        if not bool(alive.any()):
+        if not spans.host_read(alive):
             break
         ALPHA_SHADOW_HOPS += 1
         eff_tmin = torch.where(alive, tmin_cur, t_max + 1.0)
@@ -864,8 +873,9 @@ def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         cva = valid_f[start:start + chunk_pix]
         m = cpx.shape[0]
         seed_vec = seeds.repeat_interleave(m) if spp > 1 else seeds[0]
-        col, st = _trace_rays(scene, meta, settings, params, c2w, full_resolution, seed_vec,
-                              cpx.repeat(spp), cpy.repeat(spp), cva.repeat(spp))
+        with spans.span("pt.chunk"):
+            col, st = _trace_rays(scene, meta, settings, params, c2w, full_resolution,
+                                  seed_vec, cpx.repeat(spp), cpy.repeat(spp), cva.repeat(spp))
         if spp > 1:
             col = col.reshape(spp, m, 3)
             acc = col[0]
@@ -943,17 +953,18 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         radiance = radiance + torch.where(miss.unsqueeze(-1), prefix * env_col, zero3)
         alive = alive & (~miss)
 
-        attrs = fetch_hit_attributes(scene.world, hit.tri, hit.u, hit.v, direction)
-        view = -direction
-        sp, extras = get_surface_properties(
-            scene.materials, scene.textures, attrs.material, attrs.uv0, attrs.uv1,
-            attrs.color, attrs.normal, attrs.tangent, attrs.bitangent,
-            attrs.geometric_normal, view,
-            use_geometric_normals=settings.material_use_geometric_normals,
-            shading_normal_adaptation=settings.shading_normal_adaptation,
-            used_slots=meta.used_slots, identity_uv=meta.identity_uv,
-            wrap_modes=meta.wrap_modes, any_nearest=meta.any_nearest,
-        )
+        with spans.span("pt.shade"):
+            attrs = fetch_hit_attributes(scene.world, hit.tri, hit.u, hit.v, direction)
+            view = -direction
+            sp, extras = get_surface_properties(
+                scene.materials, scene.textures, attrs.material, attrs.uv0, attrs.uv1,
+                attrs.color, attrs.normal, attrs.tangent, attrs.bitangent,
+                attrs.geometric_normal, view,
+                use_geometric_normals=settings.material_use_geometric_normals,
+                shading_normal_adaptation=settings.shading_normal_adaptation,
+                used_slots=meta.used_slots, identity_uv=meta.identity_uv,
+                wrap_modes=meta.wrap_modes, any_nearest=meta.any_nearest,
+            )
         if bounce == 0 and settings.debug_output != S.DEBUG_NONE:
             debug_value = _debug_channel(settings.debug_output, attrs, sp, view, alive)
             if debug_value is not None:
@@ -969,20 +980,21 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         # traced in the merged launch with the next bounce's rays below.
         nee_pending = None
         if bounce < settings.max_bounces and nee_env and meta.has_env:
-            u_env = rand4()
-            l_dir, l_col, l_pdf = _env_sample(scene, meta, u_env, params)
-            f, f_pdf = evaluate_bsdf(sp, attrs.geometric_normal, view, l_dir, settings, meta,
-                                     scene.sheen_table)
-            mis = _balance_heuristic(l_pdf, f_pdf)
-            contrib = (mis.unsqueeze(-1) * f * l_col) / torch.clamp(l_pdf.unsqueeze(-1),
-                                                                    min=1e-20)
-            ok = alive & torch.any(l_col > 0.0, -1)
-            # Zero-BSDF lanes trace dead; the ok-mask selects OUTSIDE the
-            # prefix product so an inf prefix on a dead lane cannot mint a
-            # NaN (the reference's fix at pathtracer.py:1791-1802).
-            s_active = ok & torch.any(f > 0.0, -1)
-            nee_pending = (ray_origin, l_dir,
-                           torch.where(ok.unsqueeze(-1), prefix * contrib, zero3), s_active)
+            with spans.span("pt.nee"):
+                u_env = rand4()
+                l_dir, l_col, l_pdf = _env_sample(scene, meta, u_env, params)
+                f, f_pdf = evaluate_bsdf(sp, attrs.geometric_normal, view, l_dir, settings,
+                                         meta, scene.sheen_table)
+                mis = _balance_heuristic(l_pdf, f_pdf)
+                contrib = (mis.unsqueeze(-1) * f * l_col) / torch.clamp(l_pdf.unsqueeze(-1),
+                                                                        min=1e-20)
+                ok = alive & torch.any(l_col > 0.0, -1)
+                # Zero-BSDF lanes trace dead; the ok-mask selects OUTSIDE the
+                # prefix product so an inf prefix on a dead lane cannot mint a
+                # NaN (the reference's fix at pathtracer.py:1791-1802).
+                s_active = ok & torch.any(f > 0.0, -1)
+                nee_pending = (ray_origin, l_dir,
+                               torch.where(ok.unsqueeze(-1), prefix * contrib, zero3), s_active)
 
         # Punctual-light NEE (ClosestHit:944-956). With binary shadows and a
         # bounce launch to follow, the light's shadow rays ride that merged
@@ -990,9 +1002,10 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         # order of the unmerged path.
         light_pending = None
         if nee_lights:
-            u_l = rand4()[..., 0]
-            light_ray, l_pdf = sample_point_light(scene.lights, meta.num_lights,
-                                                  origin + direction * hit.t.unsqueeze(-1), u_l)
+            with spans.span("pt.nee"):
+                u_l = rand4()[..., 0]
+                light_ray, l_pdf = sample_point_light(
+                    scene.lights, meta.num_lights, origin + direction * hit.t.unsqueeze(-1), u_l)
             l_col = light_ray.color
             merged = merge_light_shadow and bounce < settings.max_bounces
             if settings.shadow_rays and not merged:
@@ -1001,10 +1014,11 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                                       alpha_shadow=settings.alpha_shadows, active=alive)
                 ray_count = ray_count + torch.sum(alive.to(torch.float32))
                 l_col = l_col * shadow.unsqueeze(-1)
-            f, _ = evaluate_bsdf(sp, attrs.geometric_normal, view, light_ray.direction,
-                                 settings, meta, scene.sheen_table)
-            ok = alive & torch.any(l_col > 0.0, -1)
-            l_contrib = torch.where(ok.unsqueeze(-1), prefix * (l_col * f) / l_pdf, zero3)
+            with spans.span("pt.nee"):
+                f, _ = evaluate_bsdf(sp, attrs.geometric_normal, view, light_ray.direction,
+                                     settings, meta, scene.sheen_table)
+                ok = alive & torch.any(l_col > 0.0, -1)
+                l_contrib = torch.where(ok.unsqueeze(-1), prefix * (l_col * f) / l_pdf, zero3)
             if merged:
                 # Zero-contribution lanes trace dead, as the env lanes do.
                 light_pending = (ray_origin, light_ray.direction, l_contrib,

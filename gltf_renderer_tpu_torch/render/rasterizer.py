@@ -68,6 +68,7 @@ from gltf_renderer_tpu_torch.render.pathtracer import (
     generate_camera_rays,
 )
 from gltf_renderer_tpu_torch.scene import types as T
+from gltf_renderer_tpu_torch.utils import spans
 from gltf_renderer_tpu_torch.utils.math import (
     cross,
     dot,
@@ -349,7 +350,7 @@ def _alpha_retry_raster(scene: PTScene, meta: PTMeta, hit: Hit, origin, directio
     global RASTER_RETRY_HOPS
     need = _needs_alpha_retry(scene, meta, hit)
     for _ in range(MAX_ALPHA_HOPS):
-        if not bool(need.any()):
+        if not spans.host_read(need):
             break
         RASTER_RETRY_HOPS += 1
         tmin = torch.where(need, hit.t * (1.0 + 1e-5) + 1e-6, t_max + 1.0)

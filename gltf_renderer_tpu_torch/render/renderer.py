@@ -18,6 +18,18 @@ draw_frame in the same order, and each call ends on every rank together
 cells or after the frame's last gather, raises RankFailed on the others
 within the call, and no rank is left waiting in a collective.
 
+With `profile` on, a frame's `stats["pass_ms"]` holds the host ms of its
+spans (utils.spans), each summed over the frame: the passes
+`skin_and_refit`, `path_trace_scene` (or `draw_scene`) and
+`post(bloom+tonemap)`, each ended by a synchronize while `profile` is on;
+`u8_copy`; and the path tracer's `pt.chunk`, `pt.k1`, `pt.alpha_read`,
+`pt.shade` and `pt.nee` (render/pathtracer.py), those that ran.
+`stats["counts"]` holds the frame's `k1_launches`, `alpha_hops` (retry and
+alpha-shadow) and `alpha_reads` (the alpha hop loops' blocking reads of a
+device mask, one a `pt.alpha_read` span; not the frame's other syncs).
+Under a torch profiler the same spans, inside a `draw_frame` range, name
+the frame's phases on the profiler's clock, with `profile` on or off.
+
 `raster_step` and `post_step` are the raster and post steps on their own.
 """
 
@@ -37,7 +49,7 @@ from gltf_renderer_tpu_torch.camera import Camera
 from gltf_renderer_tpu_torch.device import resolve, synchronize
 from gltf_renderer_tpu_torch.env.environment import EnvMaps, build_environment
 from gltf_renderer_tpu_torch.env.hdr_io import read_environment_image
-from gltf_renderer_tpu_torch.ops import rng
+from gltf_renderer_tpu_torch.ops import rng, traverse
 from gltf_renderer_tpu_torch.parallel import distributed, sharding
 from gltf_renderer_tpu_torch.post.bloom import bloom as bloom_op
 from gltf_renderer_tpu_torch.post.tonemap import to_u8, tonemap
@@ -47,6 +59,7 @@ from gltf_renderer_tpu_torch.render import settings as S
 from gltf_renderer_tpu_torch.scene import flatten
 from gltf_renderer_tpu_torch.scene import types as T
 from gltf_renderer_tpu_torch.scene.gltf import load_gltf
+from gltf_renderer_tpu_torch.utils import spans
 
 
 def raster_step(scene, meta, settings: S.RenderSettings, params, c2w, cam_pos, resolution,
@@ -70,6 +83,11 @@ def post_step(hdr, tonemap_settings: S.ToneMapSettings, bloom_settings, frame):
     if bloom_settings is not None and bloom_settings.enabled:
         img = bloom_op(hdr, bloom_settings.max_mips, bloom_settings.strength)
     return to_u8(tonemap(img, tonemap_settings.tonemapper, tonemap_settings.exposure, frame))
+
+
+def _counts():
+    """(K1 launches, alpha-loop hops) so far, from the module counters."""
+    return traverse.KERNEL_LAUNCHES, pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS
 
 
 def _host_bytes(*tables) -> int:
@@ -126,7 +144,7 @@ class Renderer:
         # the scene was loaded, on the device (read it after the frames).
         self.ray_stats = None
         self.stats: Dict[str, float] = {}
-        self.profile = False  # per-pass ms in stats["pass_ms"]
+        self.profile = False  # span ms in stats["pass_ms"], stats["counts"]
         self.history = collections.deque(maxlen=240)  # per-frame counter ring
         self._scene_bytes = 0
         # glTF camera tracking: the view follows the camera node's global
@@ -316,18 +334,45 @@ class Renderer:
 
     def _frame(self, delta: float, seed: Optional[int]) -> np.ndarray:
         t_frame = time.perf_counter()
+        counts_0 = _counts() if self.profile else None
+        with spans.frame("draw_frame", record=self.profile) as record:
+            img_np = self._draw(delta, seed)
+        self.frame_index += 1
+        frame_ms = round((time.perf_counter() - t_frame) * 1e3, 3)
         st = self.settings
-        pass_ms = {}
+        self.stats = {
+            "frame": self.frame_index,
+            "frame_ms": frame_ms,
+            "accumulated_frames": self.accumulated_frames,
+            "backend": st.backend,
+            "triangles": self._n_tris,
+            "scene_bytes": self._scene_bytes,
+        }
+        if record is not None:
+            self.stats["pass_ms"] = {k: round(v, 3) for k, v in record.ms.items()}
+            k1, hops = (b - a for a, b in zip(counts_0, _counts()))
+            self.stats["counts"] = {"k1_launches": k1, "alpha_hops": hops,
+                                    "alpha_reads": record.alpha_reads}
+        if self.mesh is not None:
+            self.stats["collective_ms"] = round(self.mesh.collective_ms(), 3)
+        self.history.append({
+            "frame": self.frame_index,
+            "frame_ms": frame_ms,
+            "spp": self.accumulated_frames,
+            "backend": st.backend,
+        })
+        return img_np
+
+    def _draw(self, delta: float, seed: Optional[int]) -> np.ndarray:
+        st = self.settings
         if self.mesh is not None:
             self.mesh.log.clear()
 
         def _timed(name, fn, *a, **kw):
-            if not self.profile:
-                return fn(*a, **kw)
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            synchronize(self.device)
-            pass_ms[name] = round((time.perf_counter() - t0) * 1e3, 3)
+            with spans.span(name):
+                out = fn(*a, **kw)
+                if self.profile:
+                    synchronize(self.device)
             return out
 
         pose = self.player.tick(self.scene, delta) if self.player.animation else None
@@ -370,28 +415,8 @@ class Renderer:
 
         img = _timed("post(bloom+tonemap)", post_step, hdr, st.tonemap, bloom_settings,
                      self.frame_index)
-        img_np = img.cpu().numpy()  # waits for the frame: frame_ms is wall time
-        self.frame_index += 1
-        frame_ms = round((time.perf_counter() - t_frame) * 1e3, 3)
-        self.stats = {
-            "frame": self.frame_index,
-            "frame_ms": frame_ms,
-            "accumulated_frames": self.accumulated_frames,
-            "backend": st.backend,
-            "triangles": self._n_tris,
-            "scene_bytes": self._scene_bytes,
-        }
-        if self.profile:
-            self.stats["pass_ms"] = pass_ms
-        if self.mesh is not None:
-            self.stats["collective_ms"] = round(self.mesh.collective_ms(), 3)
-        self.history.append({
-            "frame": self.frame_index,
-            "frame_ms": frame_ms,
-            "spp": self.accumulated_frames,
-            "backend": st.backend,
-        })
-        return img_np
+        with spans.span("u8_copy"):
+            return img.cpu().numpy()  # waits for the frame: frame_ms is wall time
 
     def capture_trace(self, log_dir: str):
         """A torch.profiler trace of the frames drawn inside the context,

@@ -21,7 +21,8 @@ the JAX package's, on the same files written by the JAX writers
   tracer's CPU bar (98% of pixels within atol 1e-4 + rtol 1e-3, means
   within 1%, as tests/test_torch_pathtracer.py).
 - profile: pass_ms, stats and history carry the JAX renderer's keys, on
-  both backends.
+  both backends, and exactly these beside them: the port's span names in
+  pass_ms and `counts` in stats.
 - Meshes: mesh="auto" without a process group renders unsharded; an
   explicit mesh (parallel.sharding.make_mesh) is used as given, and its
   path-tracer and raster frames equal the unsharded renderer's bit for
@@ -301,6 +302,10 @@ def test_checkpoint_crosses_packages(direction, files, tmp_path):
 
 @pytest.mark.parametrize("backend", ["pathtracer", "rasterizer"])
 def test_profile_and_stats_keys_match_jax(backend, files, monkeypatch):
+    """The port's keys are the JAX renderer's plus its own spans in pass_ms
+    (render/renderer.py's docstring: the u8 copy and the path tracer's
+    spans that ran: the opaque box has no alpha loop, so no
+    `pt.alpha_read`) and its `counts` in stats."""
     keys = {}
     for pkg in ("jax", "port"):
         r = make(pkg, files["box"], backend=backend)
@@ -312,7 +317,10 @@ def test_profile_and_stats_keys_match_jax(backend, files, monkeypatch):
                      r.stats["triangles"], r.stats["backend"], len(r.history))
         assert all(v >= 0 for v in r.stats["pass_ms"].values())
         assert r.stats["scene_bytes"] > 0 and r.stats["frame_ms"] > 0
-    assert keys["jax"] == keys["port"]
+    spans = {"u8_copy", "pt.k1"} | ({"pt.chunk", "pt.shade", "pt.nee"}
+                                    if backend == "pathtracer" else set())
+    stats, pass_ms, *rest = keys["jax"]
+    assert keys["port"] == (stats | {"counts"}, pass_ms | spans, *rest)
 
 
 def test_sharding_requests(files, tmp_path):
