@@ -10,9 +10,12 @@ Phases (any failure exits non-zero and prints no result line):
    frame, spills and shared memory;
 2. BVH traversal kernel vs its plain PyTorch version on the bench scene's
    tables, for primary, bounce-like and lane-mixed ray sets under every
-   cull/blend mode at 256x144 and at the main path's two launch sizes
-   (t, u, v and word identical on every lane), and both timed at those
-   sizes: the wrapper the path tracer calls (the kernel table's `ms`), and
+   cull/blend mode at 256x144, at the kernel table's two launch sizes
+   (262,144 primary and 524,288 lane-mixed rays) and, untimed, at the path
+   tracer's own (pathtracer.RAY_CHUNK primary and 2 x RAY_CHUNK lane-mixed
+   rays, a spp-4 1080p chunk's launches) (t, u, v and word identical on
+   every lane), and both timed at the table's sizes: the wrapper the path
+   tracer calls (the kernel table's `ms`), and
    the kernel's C launcher on ready tensors in turns (`launcher_ms`); where
    build/parent/traverse.cu holds an older kernel source (copied there by
    hand; build/ is not committed), its launcher is built too and timed in
@@ -43,9 +46,9 @@ Phases (any failure exits non-zero and prints no result line):
    version runs;
 7b. the courtyard (alpha MASK, alpha shadows, punctual lights): the
    courtyard bench scene built at 1920x1080; the traversal kernel vs its
-   plain version on its tables for primary and lane-mixed rays at the main
-   path's two launch sizes (t, u, v and word identical), timed through its
-   wrapper; phase 5's tile-kernel check on its bench view; the courtyard
+   plain version on its tables for primary and lane-mixed rays at the
+   kernel table's two launch sizes, timed through its wrapper, and at the
+   path tracer's own, untimed (t, u, v and word identical); phase 5's tile-kernel check on its bench view; the courtyard
    golden configuration (128x72, two accumulated frames, tone mapped)
    against tests/goldens/courtyard_pt.png by SSIM (bar 0.99); the foliage
    scene (masked leaf, point light) at 48x48 with alpha shadows on and off,
@@ -56,8 +59,8 @@ Phases (any failure exits non-zero and prints no result line):
 7c. the material zoo (sheen, clearcoat, thin transmission on a
    BLEND-flagged sphere, anisotropic metal, an emissive floor) built at
    1920x1080: the traversal kernel vs its plain version on its tables for
-   primary and lane-mixed rays at the main path's two launch sizes (t, u,
-   v and word identical), timed through its wrapper; the materials golden
+   primary and lane-mixed rays at the kernel table's two launch sizes (t,
+   u, v and word identical), timed through its wrapper; the materials golden
    configuration (160x120, eight accumulated frames, tone mapped) against
    tests/goldens/materials_pt.png by SSIM (bar 0.99); the zoo at 64x48,
    card against CPU at the CPU tests' bar, in the MIS, diffuse-white and
@@ -166,7 +169,7 @@ Phases (any failure exits non-zero and prints no result line):
    inside 7f's temporary directory: its bench build at 1920x1080 (triangles,
    stack bound, wide nodes, leaves, build seconds, max_memory_allocated);
    the traversal kernel vs its plain version on its tables for primary and
-   lane-mixed rays at the main path's two launch sizes (t, u, v and word
+   lane-mixed rays at the kernel table's two launch sizes (t, u, v and word
    identical), timed with its bound; the tile kernel vs its plain version
    on its bench view (bit-identical, crossers beside CLIP_CAP), timed; the
    1080p step as 7b's, one warm and two timed steps, every traversal
@@ -392,8 +395,8 @@ def phase_kernel_vs_plain(scene, meta, params, c2w, device):
                                          f"cull={cull} blend={blend}")
                 worst_abs = max(worst_abs, max_abs)
 
-    # Times at the main path's launch sizes: 1080p spp=4 chunks are 262144
-    # primary rays and 2 x 262144 merged bounce + shadow rays.
+    # Times at the kernel table's launch sizes: 262144 primary rays and
+    # 2 x 262144 merged bounce + shadow rays.
     big = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
     times = {}
     for rays in (big[0], big[2]):
@@ -401,7 +404,36 @@ def phase_kernel_vs_plain(scene, meta, params, c2w, device):
         worst_abs = max(worst_abs, row["max_abs"])
         row["launcher_ms"] = launcher_turns(scene, meta, rays)
         times[rays[0]] = row
-    return worst_abs, times
+    del big
+    return worst_abs, times, k1_chunk_size(scene, meta, params, c2w, device, "[kernel]")
+
+
+def k1_chunk_size(scene, meta, params, c2w, device, tag):
+    """K1 against its plain version at the path tracer's own launch sizes:
+    pathtracer.RAY_CHUNK primary rays and 2 x RAY_CHUNK lane-mixed rays, as
+    one chunk of a spp-4 1080p step launches them (t, u, v and word
+    identical, or raise). The plain version runs once, untimed. Returns the
+    ray counts checked."""
+    import torch
+
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
+
+    sets = bench_traverse.ray_sets(scene, meta, params, c2w, (2048, pt.RAY_CHUNK // 2048),
+                                   device)
+    checked = []
+    for rays in (sets[0], sets[2]):
+        frac, _, max_rel, same = compare(scene, meta, rays, 0, 0)
+        log(f"{tag} chunk size {rays[0]:10s} rays={rays[1].shape[0]} word_agree={frac:.6f} "
+            f"max_rel_tuv={max_rel:.3e} identical={same}")
+        if not same:
+            raise AssertionError(f"kernel disagrees with plain version on {rays[0]} at the "
+                                 "path tracer's chunk size")
+        checked.append(rays[1].shape[0])
+    if checked != [pt.RAY_CHUNK, 2 * pt.RAY_CHUNK]:
+        raise AssertionError(f"chunk-size ray sets hold {checked} rays")
+    del sets
+    torch.cuda.empty_cache()
+    return checked
 
 
 def k1_main_size(scene, meta, rays, tag, blend=0):
@@ -512,7 +544,7 @@ def phase_main_path(scene, meta, settings, params, c2w, card):
     launches = tr.KERNEL_LAUNCHES
     # Per step and chunk: one primary launch and one merged bounce + shadow
     # launch per bounce.
-    chunks = -(-pt._tile_order(w, h, img.device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
+    chunks = stream_chunks(w, h, pt.RAY_CHUNK // SPP)
     per_step = chunks * (1 + settings.max_bounces)
     elapsed = sum(step_s)
     mrays = rays / elapsed / 1e6
@@ -786,17 +818,19 @@ def phase_raster_frame(scene, meta, params, c2w, card):
     return out
 
 
-def raster_chunks(w, h):
-    """RAY_CHUNK-sized chunks of a w x h raster frame's tile-order stream."""
+def stream_chunks(w, h, chunk):
+    """`chunk`-pixel chunks of a w x h frame's tile-order stream: the raster
+    frame's slices (rasterizer.RASTER_CHUNK) or the path tracer's
+    _trace_rays calls (pathtracer.RAY_CHUNK // spp pixels each)."""
     from gltf_renderer_tpu_torch.render import pathtracer as pt
 
     n = -(-h // pt.PACKET_TILE) * -(-w // pt.PACKET_TILE) * pt.PACKET_TILE ** 2
-    return -(-n // pt.RAY_CHUNK)
+    return -(-n // chunk)
 
 
 def centre_chunk_rays(c2w, dev):
-    """(origin, direction, ray length) of one RAY_CHUNK of 1080p pixel-centre
-    rays in tile order, the chunk holding the image centre."""
+    """(origin, direction, ray length) of one RASTER_CHUNK of 1080p
+    pixel-centre rays in tile order, the chunk holding the image centre."""
     import torch
 
     from gltf_renderer_tpu_torch.render import pathtracer as pt
@@ -805,7 +839,8 @@ def centre_chunk_rays(c2w, dev):
     w, h = FULL_RES
     px, py, _ = pt._tile_order(w, h, dev)
     centre = int(torch.nonzero((px == w // 2) & (py == h // 2))[0, 0])
-    sl = slice(centre // pt.RAY_CHUNK * pt.RAY_CHUNK, (centre // pt.RAY_CHUNK + 1) * pt.RAY_CHUNK)
+    k = centre // rz.RASTER_CHUNK
+    sl = slice(k * rz.RASTER_CHUNK, (k + 1) * rz.RASTER_CHUNK)
     return rz._pixel_rays(px[sl], py[sl], (w, h), torch.as_tensor(c2w, device=dev))
 
 
@@ -843,7 +878,7 @@ def raster_frames(tag, built, card, timed):
     from gltf_renderer_tpu_torch.render import renderer
 
     scene, meta, rs, params, c2w, cam_pos, (w, h) = built
-    chunks = raster_chunks(w, h)
+    chunks = stream_chunks(w, h, rz.RASTER_CHUNK)
     out = {}
     for vis in ("raycast", "tiled"):
         tr.KERNEL_LAUNCHES = raster.KERNEL_LAUNCHES = rz.RASTER_RETRY_HOPS = 0
@@ -1006,11 +1041,14 @@ def phase_courtyard(device, card):
     if not meta.has_masked or n_tris != 273856:
         raise AssertionError("the courtyard scene is not the bench's")
 
-    # K1 against its plain version on the courtyard's tables, at the main
-    # path's two launch sizes; timed through its wrapper.
+    # K1 against its plain version on the courtyard's tables, at the kernel
+    # table's two launch sizes, timed through its wrapper; then at the path
+    # tracer's own, untimed.
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
     k1 = {rays[0]: k1_main_size(scene, meta, rays, "[courtyard] kernel")
           for rays in (sets[0], sets[2])}
+    del sets
+    chunk_rays = k1_chunk_size(scene, meta, params, c2w, device, "[courtyard] kernel")
     # Phase 5's tile-kernel check and timing on the courtyard's bench view.
     k2 = raster_view("courtyard", scene.world, c2w, timed=True)
 
@@ -1030,7 +1068,7 @@ def phase_courtyard(device, card):
                       card)
     if sum(a for a, _ in run["hops"]) == 0:
         raise AssertionError("the courtyard step ran no masked retry")
-    return dict(k1=k1, k2=k2, ssim=score, **run)
+    return dict(k1=k1, k2=k2, ssim=score, chunk_rays=chunk_rays, **run)
 
 
 def scene_steps(tag, scene, meta, settings, params, c2w, timed, card):
@@ -1064,7 +1102,7 @@ def scene_steps(tag, scene, meta, settings, params, c2w, timed, card):
             rays += float(st[0])
         nan += float(st[1])
     launches = tr.KERNEL_LAUNCHES
-    chunks = -(-pt._tile_order(w, h, img.device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
+    chunks = stream_chunks(w, h, pt.RAY_CHUNK // SPP)
     steps = timed + 1
     expected = steps * chunks * (1 + settings.max_bounces) + sum(a + b for a, b in hops)
     mrays = rays / sum(step_s) / 1e6 if step_s else float("nan")
@@ -1104,8 +1142,8 @@ def phase_materials(device, card):
             and meta.has_blend) or n_tris != MATERIALS_TRIS:
         raise AssertionError("the materials scene is not the zoo")
 
-    # K1 against its plain version on the zoo's tables, at the main path's
-    # two launch sizes; timed through its wrapper.
+    # K1 against its plain version on the zoo's tables, at the kernel
+    # table's two launch sizes; timed through its wrapper.
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
     k1 = {rays[0]: k1_main_size(scene, meta, rays, "[materials] kernel")
           for rays in (sets[0], sets[2])}
@@ -1384,7 +1422,7 @@ def phase_animation(device, card, env):
         o, d, t_max = centre_chunk_rays(c2w, device)
         rays = ("anim_primary", o, d, torch.zeros_like(t_max), t_max, None)
         skin_ms, trace_ms = [], []
-        chunks = -(-pt._tile_order(w, h, device)[0].shape[0] // (pt.RAY_CHUNK // SPP))
+        chunks = stream_chunks(w, h, pt.RAY_CHUNK // SPP)
         for frame in range(ANIM_FRAMES):
             start, mid = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                 enable_timing=True)
@@ -1440,7 +1478,8 @@ def phase_animation(device, card, env):
         if kind == "skinned":
             rs = S.RenderSettings(backend="rasterizer", width=w, height=h)
             cam_pos = camera.position(camera.look_at(*ANIM_VIEWS[kind]))
-            for vis, want in (("raycast", (raster_chunks(w, h), 0)), ("tiled", (0, 1))):
+            raycast = stream_chunks(w, h, rz.RASTER_CHUNK)
+            for vis, want in (("raycast", (raycast, 0)), ("tiled", (0, 1))):
                 tr.KERNEL_LAUNCHES = raster.KERNEL_LAUNCHES = 0
                 hdr = renderer.raster_step(anim.ptscene, anim.meta, rs, params, c2w, cam_pos,
                                            (w, h), 0, visibility=vis)
@@ -1532,7 +1571,7 @@ def app_courtyard(device, card, env, path, tmp, court, blend):
 
     # The Renderer's path-tracer frame: one warm, then timed, profile on.
     r1.profile = True
-    chunks = -(-pt._tile_order(w, h, r1.device)[0].shape[0] // pt.RAY_CHUNK)
+    chunks = stream_chunks(w, h, pt.RAY_CHUNK)
     r1.draw_frame()
     launches0, rays0 = tr.KERNEL_LAUNCHES, r1.ray_stats.clone()
     hops0 = pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS
@@ -1575,7 +1614,7 @@ def app_courtyard(device, card, env, path, tmp, court, blend):
         r_passes.append(r1.stats["pass_ms"])
     k1 = tr.KERNEL_LAUNCHES - k1_0
     r_hops = rz.RASTER_RETRY_HOPS - rh0
-    r_chunks = raster_chunks(w, h)
+    r_chunks = stream_chunks(w, h, rz.RASTER_CHUNK)
     d7 = blend["frames"]["courtyard"]["raycast"]
     log(f"[app] Renderer raster frame {w}x{h} raycast (courtyard GLB): frame_ms {r_ms} "
         f"pass_ms {r_passes}; K1 launches {k1} ({APP_TIMED_RASTER * r_chunks} + {r_hops} "
@@ -1773,14 +1812,15 @@ def expected_k1(kind, mesh, hops):
     chunk of each cell (2 bounces), the raster frame one a chunk of its
     region and MAX_BLEND_LAYERS more in the blend pass; one a hop."""
     from gltf_renderer_tpu_torch.parallel import sharding
+    from gltf_renderer_tpu_torch.render import pathtracer as pt
     from gltf_renderer_tpu_torch.render import rasterizer as rz
 
     w, h = FULL_RES
     tile_h = -(-h // mesh.n_tile)
     if kind == "pathtracer":
-        return 3 * raster_chunks(w, tile_h) * len(mesh.cells()) + hops
+        return 3 * stream_chunks(w, tile_h, pt.RAY_CHUNK) * len(mesh.cells()) + hops
     rows = sharding._regions(mesh)[mesh.rank][1] * tile_h
-    return (1 + rz.MAX_BLEND_LAYERS) * raster_chunks(w, rows) + hops
+    return (1 + rz.MAX_BLEND_LAYERS) * stream_chunks(w, rows, rz.RASTER_CHUNK) + hops
 
 
 def same_frames(a, b):
@@ -2162,7 +2202,7 @@ def phase_config5(device, card, tmp):
     from gltf_renderer_tpu_torch.tools import render_config5 as tool
 
     w, h = FULL_RES
-    chunks = -(-pt._tile_order(w, h, device)[0].shape[0] // pt.RAY_CHUNK)
+    chunks = stream_chunks(w, h, pt.RAY_CHUNK)
     per_frame = chunks * (1 + 2)  # 2 bounces: primary, bounce and shadow launches a chunk
 
     def files(out):
@@ -2256,7 +2296,7 @@ def phase_courtyard2(device, card, env, tmp):
     if n_tris != COURTYARD2_TRIS or not meta.has_masked:
         raise AssertionError("the courtyard2 scene is not the bench's")
 
-    # K1 against its plain version on its tables at the main path's two
+    # K1 against its plain version on its tables at the kernel table's two
     # launch sizes, timed; K2 against its plain version on its tiled view.
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, bench_traverse.RAYS_RES, device)
     k1 = {rays[0]: k1_main_size(scene, meta, rays, "[courtyard2] kernel")
@@ -2312,8 +2352,9 @@ def phase_courtyard2(device, card, env, tmp):
         ms = (time.perf_counter() - t1) * 1e3
         got = (tr.KERNEL_LAUNCHES - k1_0, raster.KERNEL_LAUNCHES - k2_0,
                pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS + rz.RASTER_RETRY_HOPS - hops0)
-        chunks = raster_chunks(w, h)
-        want = {"pathtracer": (3 * chunks + got[2], 0), "raycast": (chunks + got[2], 0),
+        chunks = stream_chunks(w, h, rz.RASTER_CHUNK)
+        want = {"pathtracer": (3 * stream_chunks(w, h, pt.RAY_CHUNK) + got[2], 0),
+                "raycast": (chunks + got[2], 0),
                 "tiled": (got[2], 1)}[vis or backend]
         name = vis or backend
         frames[name] = got
@@ -2766,7 +2807,7 @@ def main() -> int:
         f"{scene.wide_nodes.shape[0]} wide nodes, {scene.leaf_records.shape[0]} leaves, "
         f"built in {time.perf_counter() - t0:.2f}s")
 
-    worst_abs, times = phase_kernel_vs_plain(scene, meta, params, c2w, device)
+    worst_abs, times, chunk_rays = phase_kernel_vs_plain(scene, meta, params, c2w, device)
     phase_fidelity(scene, meta, settings, params)
     launches, mrays, _ = phase_main_path(scene, meta, settings, params, c2w, card)
     k2 = phase_raster_kernel(scene)
@@ -2856,6 +2897,7 @@ def main() -> int:
         "courtyard2_primary_ms": c2_prim["ms"], "courtyard2_primary_plain_ms": c2_prim["plain_ms"],
         "courtyard2_primary_bound_ms": c2_prim["bound_ms"],
         "courtyard2_launches": court2["launches"],
+        "chunk_rays_identical": {"helmet": chunk_rays, "courtyard": court["chunk_rays"]},
     }, {
         "name": "raster_tiles", "route": "cuda",
         "source": "gltf_renderer_tpu_torch/csrc/raster.cu", "replaces": RASTER_REPLACES,

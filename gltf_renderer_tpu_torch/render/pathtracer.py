@@ -22,7 +22,11 @@ which gives the same image with fewer ops.
 The two hop loops stop when no lane is left to retry, read as one scalar
 on the host per hop, or at their bound. ALPHA_RETRY_HOPS and
 ALPHA_SHADOW_HOPS count the hops they run: each hop is one more
-traverse_wide launch.
+traverse_wide launch, over the whole chunk.
+
+trace_chunked cuts a call into _trace_rays calls of at most RAY_CHUNK rays
+(a 1080p frame at 1 spp is one), and the host issues the whole op chain
+once for each; RAY_CHUNKS counts them.
 
 Spans (utils.spans) name the host's phases of a sample: `pt.chunk` each
 _trace_rays call, `pt.k1` each traverse_wide call with its argument
@@ -85,9 +89,11 @@ from gltf_renderer_tpu_torch.utils.math import (
     to_world,
 )
 
-# Rays per _trace_rays call: a memory bound only (the working set of one
-# call is a few hundred bytes per ray).
-RAY_CHUNK = 262144
+# Rays per _trace_rays call: a memory bound only. A call's working set on
+# an H100 is 2.3-3.3 KB a ray (two 1080p scenes' memory peak at this chunk
+# less their peak at 262,144 rays, over the rays added), so 2^21 rays, a
+# whole 1080p frame at 1 spp, take 5-7 GB of the card's 80.
+RAY_CHUNK = 1 << 21
 PACKET_TILE = 32  # pixels per tile side of the primary-ray emission order
 SEED_STRIDE = 0x9E3779B9  # per-sample seed step of trace_chunked(spp > 1)
 MAX_ALPHA_HOPS = 8    # re-traversals past rejected alpha-masked hits
@@ -95,6 +101,7 @@ MAX_SHADOW_HOPS = 16  # closest hits an alpha shadow ray passes through
 
 ALPHA_RETRY_HOPS = 0   # hops run by the masked-retry loops
 ALPHA_SHADOW_HOPS = 0  # hops run by the alpha-shadow loops
+RAY_CHUNKS = 0         # _trace_rays calls made by trace_chunked
 
 
 class PTScene(NamedTuple):
@@ -852,6 +859,7 @@ def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
     `trace`: camera rays and the RNG read absolute pixel coordinates, so a
     tile's pixels are the image's. Tile rows past the image's bottom are
     traced as extrapolated camera rays (the caller crops them)."""
+    global RAY_CHUNKS
     if chunk % spp:
         raise ValueError(f"chunk {chunk} is not a multiple of spp {spp}")
     dev = scene.wide_nodes.device
@@ -873,6 +881,7 @@ def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         cva = valid_f[start:start + chunk_pix]
         m = cpx.shape[0]
         seed_vec = seeds.repeat_interleave(m) if spp > 1 else seeds[0]
+        RAY_CHUNKS += 1
         with spans.span("pt.chunk"):
             col, st = _trace_rays(scene, meta, settings, params, c2w, full_resolution,
                                   seed_vec, cpx.repeat(spp), cpy.repeat(spp), cva.repeat(spp))

@@ -22,7 +22,7 @@ clearcoat IBL, and the punctual lights through the full layered BSDF (no
 shadows, as the reference rasterizer); textures are sampled trilinearly
 from the scene's mip pyramid at the ray-differential footprint; missed
 pixels show the environment (Background.ps.hlsl). Motion vectors come from
-the previous frame's world-to-clip. Pixels stream through RAY_CHUNK-sized
+the previous frame's world-to-clip. Pixels stream through RASTER_CHUNK-sized
 slices in the path tracer's 32x32 tile order.
 
 The masked retry stops when no lane is left to retry, read as one scalar
@@ -55,7 +55,6 @@ from gltf_renderer_tpu_torch.ops.material import get_surface_properties
 from gltf_renderer_tpu_torch.post.bloom import downsample
 from gltf_renderer_tpu_torch.render.pathtracer import (
     MAX_ALPHA_HOPS,
-    RAY_CHUNK,
     Hit,
     PTMeta,
     PTScene,
@@ -81,6 +80,10 @@ from gltf_renderer_tpu_torch.utils.math import (
 
 VISIBILITIES = ("raycast", "tiled")
 MAX_BLEND_LAYERS = 4  # depth-sorted transparent layers composited per pixel
+# Pixel rays per slice of the opaque and blend passes: a memory bound on the
+# hit lists the passes keep for blending and motion, set apart from the path
+# tracer's RAY_CHUNK.
+RASTER_CHUNK = 262144
 
 RASTER_RETRY_HOPS = 0  # hops run by the raster masked retry
 
@@ -421,8 +424,8 @@ def render(scene: PTScene, meta: PTMeta, render_settings, params, clip_to_world,
 
     # Opaque + alpha-test + background pass.
     lit, opaque = [], []
-    for start in range(0, n, RAY_CHUNK):
-        sl = slice(start, start + RAY_CHUNK)
+    for start in range(0, n, RASTER_CHUNK):
+        sl = slice(start, start + RASTER_CHUNK)
         origin, direction, t_max = _pixel_rays(px[sl], py[sl], (fw, fh), c2w)
         if tiled is not None:
             ctri, cu, cv = (x[sl] for x in tiled)
@@ -461,8 +464,8 @@ def render(scene: PTScene, meta: PTMeta, render_settings, params, clip_to_world,
         trans_mips = build_transmission_mips(lit_img if lit_gather is None
                                              else lit_gather(lit_img))
         blended = []
-        for start in range(0, n, RAY_CHUNK):
-            sl = slice(start, start + RAY_CHUNK)
+        for start in range(0, n, RASTER_CHUNK):
+            sl = slice(start, start + RASTER_CHUNK)
             origin, direction, t_max, screen_uv = _pixel_rays(px[sl], py[sl], (fw, fh), c2w,
                                                               with_screen_uv=True)
             t_far = torch.minimum(opaque.t[sl], t_max)

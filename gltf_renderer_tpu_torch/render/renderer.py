@@ -25,8 +25,9 @@ spans (utils.spans), each summed over the frame: the passes
 `u8_copy`; and the path tracer's `pt.chunk`, `pt.k1`, `pt.alpha_read`,
 `pt.shade` and `pt.nee` (render/pathtracer.py), those that ran.
 `stats["counts"]` holds the frame's `k1_launches`, `alpha_hops` (retry and
-alpha-shadow) and `alpha_reads` (the alpha hop loops' blocking reads of a
-device mask, one a `pt.alpha_read` span; not the frame's other syncs).
+alpha-shadow), `alpha_reads` (the alpha hop loops' blocking reads of a
+device mask, one a `pt.alpha_read` span; not the frame's other syncs) and
+`chunks` (the path tracer's `_trace_rays` calls).
 Under a torch profiler the same spans, inside a `draw_frame` range, name
 the frame's phases on the profiler's clock, with `profile` on or off.
 
@@ -86,8 +87,9 @@ def post_step(hdr, tonemap_settings: S.ToneMapSettings, bloom_settings, frame):
 
 
 def _counts():
-    """(K1 launches, alpha-loop hops) so far, from the module counters."""
-    return traverse.KERNEL_LAUNCHES, pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS
+    """(K1 launches, alpha-loop hops, path-tracer chunks) so far, from the
+    module counters."""
+    return traverse.KERNEL_LAUNCHES, pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS, pt.RAY_CHUNKS
 
 
 def _host_bytes(*tables) -> int:
@@ -350,9 +352,9 @@ class Renderer:
         }
         if record is not None:
             self.stats["pass_ms"] = {k: round(v, 3) for k, v in record.ms.items()}
-            k1, hops = (b - a for a, b in zip(counts_0, _counts()))
+            k1, hops, chunks = (b - a for a, b in zip(counts_0, _counts()))
             self.stats["counts"] = {"k1_launches": k1, "alpha_hops": hops,
-                                    "alpha_reads": record.alpha_reads}
+                                    "alpha_reads": record.alpha_reads, "chunks": chunks}
         if self.mesh is not None:
             self.stats["collective_ms"] = round(self.mesh.collective_ms(), 3)
         self.history.append({

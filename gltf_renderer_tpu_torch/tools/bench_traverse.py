@@ -1,4 +1,4 @@
-"""The BVH traversal kernel (csrc/traverse.cu) timed at the path tracer's two launch sizes, on one CUDA card.
+"""The BVH traversal kernel (csrc/traverse.cu) timed at the kernel table's two launch sizes, on one CUDA card.
 
     python gltf_renderer_tpu_torch/tools/bench_traverse.py [--root DIR] [--parent SRC] [--rounds N]
 
@@ -36,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-RAYS_RES = (512, 512)  # 262,144 pixels: one 1080p spp=4 chunk's primary launch
+RAYS_RES = (512, 512)  # 262,144 pixels: the kernel table's primary-ray row
 # Integer arguments of traverse_wide_launch by the version its library
 # reports (traverse_wide_abi; a library without it is version 1): version 2
 # added the tree's stack bound.

@@ -9,7 +9,8 @@ the material zoo at 32x18 (one chunk), on the CPU. A traversal counts as
 one op a call, as its kernel launch does on the card: the ops of its plain
 version are left out. To count another checkout's package, run this file
 by its path with PYTHONPATH set to that checkout. The last line is one JSON
-object {scene: {"ops": n, "traversals": k, "chunks": c}}.
+object {scene: {"ops": n, "traversals": k, "chunks": c}}, c the call's
+`_trace_rays` calls (pathtracer.RAY_CHUNKS; null for a checkout without it).
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def count(scene, meta, settings, params, c2w) -> dict:
         with torch.utils._python_dispatch._disable_current_modes():
             return plain(*args, **kwargs)
 
+    chunks_0 = getattr(pt, "RAY_CHUNKS", None)  # checkouts before the counter lack it
     tr.traverse_wide_ref = one_op
     try:
         with _Count() as mode:
@@ -57,7 +59,7 @@ def count(scene, meta, settings, params, c2w) -> dict:
                              spp=SPP)
     finally:
         tr.traverse_wide_ref = plain
-    chunks = -(-pt._tile_order(*RES, torch.device("cpu"))[0].shape[0] // (pt.RAY_CHUNK // SPP))
+    chunks = None if chunks_0 is None else pt.RAY_CHUNKS - chunks_0
     return {"ops": sum(mode.ops.values()) + calls, "traversals": calls, "chunks": chunks}
 
 

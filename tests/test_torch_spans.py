@@ -155,6 +155,7 @@ def test_cli_profile_log_and_trace(tmp_path, caplog):
     line = next(m for m in caplog.messages if "passes:" in m)
     assert "pt.chunk=" in line and "ms" in line.split("pt.chunk=")[1].split()[0]
     assert "alpha_reads=0" in line.split() and "k1_launches=0" in line.split()
+    assert "chunks=1" in line.split()
     traces = glob.glob(str(tmp_path / "traces" / "*.json"))
     assert len(traces) == 1
     with open(traces[0]) as f:
