@@ -5,11 +5,12 @@
 
 Lower readings: n whole runs of the cell (set-up, measured window, check)
 on seeds base, base + 1, ...; each run's compared numbers. Upper readings:
-the control on k more seeds: the reference put in the program's place with
-its hit-attribute rows (normals, tangents, UVs) rounded to bfloat16, the
-nearest precision below the configuration's float32, over as many frames
-as the program's runs drew, against the float32 reference. Not part of a
-benchmark run.
+the control on k more seeds: the configuration's reference put in the
+program's place as its `build_scene(..., control=True)` builds it (the
+default reference: its hit-attribute rows, normals, tangents and UVs,
+rounded to bfloat16, the nearest precision below the configuration's
+float32), over as many frames as the program's runs drew, against the same
+reference in full precision. Not part of a benchmark run.
 """
 
 from __future__ import annotations

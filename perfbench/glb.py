@@ -6,6 +6,14 @@ indices), pbrMetallicRoughness materials with the maps the scene gives
 and doubleSided where the scene asks), PNG textures in the binary chunk
 (encoded here with zlib, lossless), one sampler per wrap pair, and the
 node tree.
+
+glTF extensions pass through as the scene gives them, written verbatim:
+a material's or a node's "extensions" (e.g. KHR_materials_clearcoat, or
+{"KHR_lights_punctual": {"light": 0}} on a node), the top level's
+"extensions" (e.g. the KHR_lights_punctual light list) and
+"extensions_used" (as extensionsUsed). A texture index inside them is a
+position in scene["textures"], as the other slots' are. A scene without
+them writes no extension key.
 """
 
 from __future__ import annotations
@@ -101,6 +109,8 @@ def write_glb(path: str, scene: dict) -> str:
             mat["alphaCutoff"] = float(m["mask_cutoff"])
         if m.get("double_sided", False):
             mat["doubleSided"] = True
+        if "extensions" in m:
+            mat["extensions"] = m["extensions"]
         materials.append(mat)
     nodes = []
     for nd in scene["nodes"]:
@@ -110,12 +120,18 @@ def write_glb(path: str, scene: dict) -> str:
             node["mesh"] = int(nd["mesh"])
         if nd["children"]:
             node["children"] = [int(c) for c in nd["children"]]
+        if "extensions" in nd:
+            node["extensions"] = nd["extensions"]
         nodes.append(node)
     doc = {"asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": list(scene["roots"])}],
            "nodes": nodes, "meshes": [{"primitives": prims}], "materials": materials,
            "accessors": accessors, "bufferViews": blob.views}
     if textures:
         doc.update(textures=textures, samplers=samplers, images=images)
+    if "extensions_used" in scene:
+        doc["extensionsUsed"] = list(scene["extensions_used"])
+    if "extensions" in scene:
+        doc["extensions"] = scene["extensions"]
     data = b"".join(blob.parts)
     data += b"\x00" * ((-len(data)) % 4)
     doc["buffers"] = [{"byteLength": len(data)}]

@@ -7,8 +7,13 @@ path-tracer settings, `load_scene(<the GLB the benchmark wrote>)`,
 `load_environment(<the sky array>)`, the camera's world_to_view, y_fov and
 z_near, and `draw_frame(seed=...)`. After the window the harness reads
 the accumulated image (`Renderer._accum`), the last u8 frame, the frame
-counters and, traced, `Renderer.stats["pass_ms"]`, the K1 launch counter
-and the two alpha-hop counters.
+counters and, traced, each window frame's `Renderer.stats["pass_ms"]` and
+`["counts"]`, the K1 launch counter and the two alpha-hop counters.
+
+The check calls the reference package the configuration names
+(perfbench/spec.py `reference`); the camera matrices both sides get are
+the benchmark's own (perfbench/reference/pathtracer.py `look_at`,
+`clip_to_world`) in every cell.
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ import torch
 from perfbench import check, frames, spec
 from perfbench.glb import write_glb
 from perfbench.reference import pathtracer as ref_pt
-from perfbench.reference import render as ref_render
 from perfbench.roofline import k1_bytes
 
 PROFILED_FRAMES = 2  # frames under torch.profiler in a traced run
@@ -68,6 +72,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     width, height = cfg["width"], cfg["height"]
     traffic = frames.Traffic(cell.traffic, seed)
     scene, sky = make_inputs(cell)
+    spec.reference(cell.reference, cell.here)  # imported here, outside set-up and the window
     view = ref_pt.look_at(cfg["camera"]["eye"], cfg["camera"]["target"])
     tmp = tempfile.mkdtemp(prefix="perfbench-")
     cuda = torch.device(device).type == "cuda"
@@ -92,7 +97,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
         # -- the measured window --
         recorder = None
         profile_info = None
-        pass_ms, frame_ms = [], []
+        pass_ms, frame_ms, counts = [], [], []
         if trace:
             r.profile = True
             from perfbench.trace import K1Recorder
@@ -107,6 +112,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
             if trace:
                 frame_ms.append(r.stats["frame_ms"])
                 pass_ms.append(dict(r.stats.get("pass_ms", {})))
+                counts.append(dict(r.stats.get("counts", {})))
             if time.perf_counter() - t_start >= seconds:
                 break
         window_s = time.perf_counter() - t_start
@@ -159,7 +165,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
                        "memory_peak_bytes": peak_bytes}
         result = {"correct": bool(correct), "attempted": n, "failed": 0}
         if trace:
-            ctx = {"frames": n, "frame_ms": frame_ms, "pass_ms": pass_ms,
+            ctx = {"frames": n, "frame_ms": frame_ms, "pass_ms": pass_ms, "counts": counts,
                    "k1_launches": k1_1 - k1_0, "alpha_hops": hops_1 - hops_0,
                    "frame_s": window_s / n, "k1_calls": len(launches),
                    "k1_bytes": sum(k1_bytes(*c) for c in launches),
@@ -216,16 +222,16 @@ def _profiled(more_frames, traverse_mod, recorder, cuda):
 def reference_numbers(cell, scene, sky, w2v, seeds, frame_index, px, py, prog_acc, prog_u8,
                       device, control: bool = False):
     """The compared numbers of the program's outputs against the reference
-    (or, with control, of the reference in the control's precision)."""
+    the configuration names (or, with control, of that reference in the
+    control's precision)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cell.config
     res = (cfg["width"], cfg["height"])
     c2w = ref_pt.clip_to_world(w2v, math.radians(cfg["camera"]["y_fov_deg"]),
                                res[0] / res[1], cfg["camera"]["z_near"])
-    settings = ref_pt.Settings(max_bounces=cfg["pt"]["max_bounces"],
-                               min_bounces=cfg["pt"]["min_bounces"],
-                               luminance_clamp=cfg["pt"].get("luminance_clamp_enabled", True))
+    ref_render = spec.reference(cell.reference, cell.here)
+    settings = ref_render.settings(cfg["pt"])
     ref = ref_render.build_scene(scene, sky, device)
     acc = ref_render.accumulate(ref, settings, c2w, res, px, py, seeds)
     ref_acc = acc.cpu().numpy()

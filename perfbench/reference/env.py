@@ -11,7 +11,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from perfbench.reference.common import (
+from .common import (
     PI,
     cubemap_to_direction,
     direction_to_cubemap,

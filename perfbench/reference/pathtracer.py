@@ -29,9 +29,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from perfbench.reference import bvh
-from perfbench.reference import env as env_ops
-from perfbench.reference.common import (
+from . import bvh
+from . import env as env_ops
+from .common import (
     PI,
     TAU,
     cross,
@@ -49,7 +49,7 @@ from perfbench.reference.common import (
     trunc_i32,
     uv_to_unit_square,
 )
-from perfbench.reference.world import MASK, Materials, Textures, World
+from .world import MASK, Materials, Textures, World
 
 MAX_ALPHA_HOPS = 8
 MINIMUM_ROUGHNESS = 0.001

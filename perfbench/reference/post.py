@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from perfbench.reference.common import M32, random_float3
+from .common import M32, random_float3
 
 _INSET = ((0.856627153315983, 0.137318972929847, 0.11189821299995),
           (0.0951212405381588, 0.761241990602591, 0.0767994186031903),

@@ -2,14 +2,25 @@
 sky built again from the benchmark's inputs, every frame's sample traced
 for the sampled pixels (frames batched into wavefronts of at most
 `block` lanes), the running mean taken frame by frame in the renderer's
-arithmetic, and the u8 frame of the last one."""
+arithmetic, and the u8 frame of the last one.
+
+The harness calls a reference package only through this module's
+`settings`, `build_scene`, `accumulate` and `frame_u8` (perfbench/spec.py
+`reference`)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from perfbench.reference import bvh, env, pathtracer, post, world
+from . import bvh, env, pathtracer, post, world
+
+
+def settings(pt: dict) -> pathtracer.Settings:
+    """The reference's settings from the configuration's whole `pt` dict:
+    the bounces and the luminance clamp. It reads no other key."""
+    return pathtracer.Settings(max_bounces=pt["max_bounces"], min_bounces=pt["min_bounces"],
+                               luminance_clamp=pt.get("luminance_clamp_enabled", True))
 
 
 def build_scene(scene: dict, sky: np.ndarray, device, control: bool = False):
