@@ -1595,7 +1595,7 @@ def app_courtyard(device, card, env, path, tmp, court, blend):
     # reads only where the scene has a masked material, or an alpha layer
     # that alpha shadows read.
     want = {"skin_and_refit", "path_trace_scene", "post(bloom+tonemap)", "u8_copy",
-            "pt.chunk", "pt.k1", "pt.shade", "pt.nee"}
+            "pt.chunk", "pt.k1", "pt.shade", "pt.nee", "pt.bsdf_sample"}
     meta = r1._meta
     if meta.has_masked or (r1.settings.pt.alpha_shadows and meta.has_alpha_layer):
         want.add("pt.alpha_read")

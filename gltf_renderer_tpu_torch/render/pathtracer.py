@@ -33,7 +33,10 @@ _trace_rays call, `pt.k1` each traverse_wide call with its argument
 preparation and hit decode, `pt.alpha_read` each hop loop's blocking read,
 `pt.shade` each bounce's hit attributes and surface properties, `pt.nee`
 each bounce's environment and punctual-light sampling, BSDF evaluation
-and MIS (the light's unmerged shadow rays outside it).
+and MIS (the light's unmerged shadow rays outside it), `pt.bsdf_sample`
+each bounce's BSDF sample, its weight and Russian roulette. While a frame
+record is open, `spans.count_lanes` counts each bounce's lanes alive when
+its shading starts against the chunk's rows it shades.
 """
 
 from __future__ import annotations
@@ -961,6 +964,7 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
             env_col = env_col * mis_w.unsqueeze(-1)
         radiance = radiance + torch.where(miss.unsqueeze(-1), prefix * env_col, zero3)
         alive = alive & (~miss)
+        spans.count_lanes(alive)
 
         with spans.span("pt.shade"):
             attrs = fetch_hit_attributes(scene.world, hit.tri, hit.u, hit.v, direction)
@@ -1038,35 +1042,37 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
 
         # Bounce (ClosestHit:958-1006).
         if bounce < settings.max_bounces:
-            u3 = rand4()[..., 0:3]
-            f, l_dir, pdf, is_t, use_mis = sample_bsdf(sp, u3, view, settings, meta,
-                                                       scene.sheen_table)
-            weight = torch.where(pdf.unsqueeze(-1) != 0.0, f / pdf.unsqueeze(-1), zero3)
-            throughput = rr_state * weight
-            if bounce == 0 and settings.debug_output in _BOUNCE_CHANNELS:
-                dv = {
-                    S.DEBUG_BOUNCE_DIRECTION: lambda: 0.5 * (l_dir + 1.0),
-                    S.DEBUG_BOUNCE_BSDF: lambda: f,
-                    S.DEBUG_BOUNCE_PDF: lambda: torch.broadcast_to(pdf.unsqueeze(-1), f.shape),
-                    S.DEBUG_BOUNCE_WEIGHT: lambda: weight,
-                    S.DEBUG_BOUNCE_IS_TRANSMISSION: lambda: torch.where(
-                        is_t.unsqueeze(-1), _const(dev, 0.0, 1.0, 0.0), _const(dev, 1.0, 0.0, 0.0)),
-                }[settings.debug_output]()
-                return (torch.where(alive.unsqueeze(-1), dv, zero3),
-                        torch.stack([ray_count, torch.zeros_like(ray_count)]))
-            u_rr = rand4()[..., 0]
-            continue_prob = torch.clamp(max_value(throughput)[..., 0],
-                                        params.min_russian_roulette_continue_prob,
-                                        params.max_russian_roulette_continue_prob)
-            if bounce >= settings.min_bounces:
-                cont = u_rr < continue_prob
-                weight = weight / torch.where(cont, continue_prob,
-                                              torch.ones_like(continue_prob)).unsqueeze(-1)
-            else:
-                cont = torch.ones(n_rays, dtype=torch.bool, device=dev)
-            alive = alive & cont & torch.any(throughput > 0.0, -1)
-            prefix = prefix * weight
-            rr_state = throughput * weight  # quirk kept: affects only RR (:995-1003)
+            with spans.span("pt.bsdf_sample"):
+                u3 = rand4()[..., 0:3]
+                f, l_dir, pdf, is_t, use_mis = sample_bsdf(sp, u3, view, settings, meta,
+                                                           scene.sheen_table)
+                weight = torch.where(pdf.unsqueeze(-1) != 0.0, f / pdf.unsqueeze(-1), zero3)
+                throughput = rr_state * weight
+                if bounce == 0 and settings.debug_output in _BOUNCE_CHANNELS:
+                    dv = {
+                        S.DEBUG_BOUNCE_DIRECTION: lambda: 0.5 * (l_dir + 1.0),
+                        S.DEBUG_BOUNCE_BSDF: lambda: f,
+                        S.DEBUG_BOUNCE_PDF: lambda: torch.broadcast_to(pdf.unsqueeze(-1), f.shape),
+                        S.DEBUG_BOUNCE_WEIGHT: lambda: weight,
+                        S.DEBUG_BOUNCE_IS_TRANSMISSION: lambda: torch.where(
+                            is_t.unsqueeze(-1), _const(dev, 0.0, 1.0, 0.0),
+                            _const(dev, 1.0, 0.0, 0.0)),
+                    }[settings.debug_output]()
+                    return (torch.where(alive.unsqueeze(-1), dv, zero3),
+                            torch.stack([ray_count, torch.zeros_like(ray_count)]))
+                u_rr = rand4()[..., 0]
+                continue_prob = torch.clamp(max_value(throughput)[..., 0],
+                                            params.min_russian_roulette_continue_prob,
+                                            params.max_russian_roulette_continue_prob)
+                if bounce >= settings.min_bounces:
+                    cont = u_rr < continue_prob
+                    weight = weight / torch.where(cont, continue_prob,
+                                                  torch.ones_like(continue_prob)).unsqueeze(-1)
+                else:
+                    cont = torch.ones(n_rays, dtype=torch.bool, device=dev)
+                alive = alive & cont & torch.any(throughput > 0.0, -1)
+                prefix = prefix * weight
+                rr_state = throughput * weight  # quirk kept: affects only RR (:995-1003)
             origin = torch.where(is_t.unsqueeze(-1), ray_origin_below, ray_origin)
             direction = l_dir
             t_max = full(params.max_ray_length)

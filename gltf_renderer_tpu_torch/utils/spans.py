@@ -25,6 +25,12 @@ host (`bool(mask.any())`, a wait for the device's queue), inside a
 `pt.alpha_read` span and counted in the open record (`alpha_reads`). It is
 not every blocking call of a frame: uploads and other syncs are not spans.
 
+`count_lanes(alive)` counts the path tracer's lanes in the open record:
+the lanes alive when a bounce's shading starts, summed into one device
+scalar (`live_lanes`, read by the caller once the frame has been waited
+for), and the lanes shaded, a host integer (`lanes_shaded`). With no
+record open it issues nothing.
+
 Records are thread-local: the viewer draws on its own render thread.
 """
 
@@ -42,13 +48,17 @@ _Range = torch._C._profiler._RecordFunctionFast
 
 
 class Record:
-    """One frame's spans: summed host ms by name, and the alpha reads."""
+    """One frame's spans: summed host ms by name, the alpha reads, and the
+    path tracer's live lanes (a device scalar, None until counted) against
+    the lanes it shaded."""
 
-    __slots__ = ("ms", "alpha_reads")
+    __slots__ = ("ms", "alpha_reads", "live_lanes", "lanes_shaded")
 
     def __init__(self):
         self.ms = {}
         self.alpha_reads = 0
+        self.live_lanes = None
+        self.lanes_shaded = 0
 
 
 class _Local(threading.local):
@@ -114,3 +124,15 @@ def host_read(mask) -> bool:
     if record is not None:
         record.alpha_reads += 1
     return out
+
+
+def count_lanes(alive) -> None:
+    """Adds the lanes set in the bool mask `alive` to the open record's
+    device sum and its length to the lanes shaded; nothing without a
+    record."""
+    record = _local.record
+    if record is None:
+        return
+    n = alive.sum()
+    record.live_lanes = n if record.live_lanes is None else record.live_lanes + n
+    record.lanes_shaded += alive.numel()

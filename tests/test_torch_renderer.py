@@ -317,7 +317,7 @@ def test_profile_and_stats_keys_match_jax(backend, files, monkeypatch):
                      r.stats["triangles"], r.stats["backend"], len(r.history))
         assert all(v >= 0 for v in r.stats["pass_ms"].values())
         assert r.stats["scene_bytes"] > 0 and r.stats["frame_ms"] > 0
-    spans = {"u8_copy", "pt.k1"} | ({"pt.chunk", "pt.shade", "pt.nee"}
+    spans = {"u8_copy", "pt.k1"} | ({"pt.chunk", "pt.shade", "pt.nee", "pt.bsdf_sample"}
                                     if backend == "pathtracer" else set())
     stats, pass_ms, *rest = keys["jax"]
     assert keys["port"] == (stats | {"counts"}, pass_ms | spans, *rest)

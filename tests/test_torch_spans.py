@@ -46,7 +46,8 @@ from perfbench import spec
 torch.set_num_threads(2)
 W, H = 48, 32
 USER_SCOPE = int(torch._C._profiler.RecordScope.USER_SCOPE)  # record_function's ranges
-PT_SPANS = {"pt.chunk", "pt.k1", "pt.alpha_read", "pt.shade", "pt.nee", "u8_copy"}
+PT_SPANS = {"pt.chunk", "pt.k1", "pt.alpha_read", "pt.shade", "pt.nee", "pt.bsdf_sample",
+            "u8_copy"}
 
 
 def _renderer(scene):
