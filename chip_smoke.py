@@ -13,8 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
    cull/blend mode at 256x144, at the kernel table's two launch sizes
    (262,144 primary and 524,288 lane-mixed rays) and, untimed, at the path
    tracer's own (pathtracer.RAY_CHUNK primary and 2 x RAY_CHUNK lane-mixed
-   rays, a spp-4 1080p chunk's launches) (t, u, v and word identical on
-   every lane), and both timed at the table's sizes: the wrapper the path
+   rays, a whole chunk's launches, and every launch of one 1080p spp-1
+   frame, whose bounces carry only their live rows) (t, u, v and word
+   identical on every lane), and both timed at the table's sizes: the wrapper the path
    tracer calls (the kernel table's `ms`), and
    the kernel's C launcher on ready tensors in turns (`launcher_ms`); where
    build/parent/traverse.cu holds an older kernel source (copied there by
@@ -380,7 +381,7 @@ def compare(scene, meta, rays, cull, blend):
     return float((kw == pw).float().mean()), max_abs, max_rel, same
 
 
-def phase_kernel_vs_plain(scene, meta, params, c2w, device):
+def phase_kernel_vs_plain(scene, meta, settings, params, c2w, device):
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, (256, 144), device)
     worst_abs = 0.0
     for rays in sets:
@@ -405,17 +406,23 @@ def phase_kernel_vs_plain(scene, meta, params, c2w, device):
         row["launcher_ms"] = launcher_turns(scene, meta, rays)
         times[rays[0]] = row
     del big
-    return worst_abs, times, k1_chunk_size(scene, meta, params, c2w, device, "[kernel]")
+    return worst_abs, times, k1_chunk_size(scene, meta, settings, params, c2w, device,
+                                           "[kernel]")
 
 
-def k1_chunk_size(scene, meta, params, c2w, device, tag):
-    """K1 against its plain version at the path tracer's own launch sizes:
-    pathtracer.RAY_CHUNK primary rays and 2 x RAY_CHUNK lane-mixed rays, as
-    one chunk of a spp-4 1080p step launches them (t, u, v and word
-    identical, or raise). The plain version runs once, untimed. Returns the
-    ray counts checked."""
+def k1_chunk_size(scene, meta, settings, params, c2w, device, tag):
+    """K1 against its plain version at the path tracer's own launch sizes
+    (t, u, v and word identical, or raise; the plain version runs untimed):
+    pathtracer.RAY_CHUNK primary rays and 2 x RAY_CHUNK lane-mixed rays, a
+    whole chunk's launches when no lane has died, then every launch of one
+    1080p spp-1 frame of the scene as the path tracer makes it. That frame
+    compacts its rows to the live lanes before a bounce's shading, so its
+    bounce launches carry 2 x the live rows, sizes no synthetic set has.
+    Returns the ray counts checked: the two synthetic sets', then the
+    frame's launches in order."""
     import torch
 
+    from gltf_renderer_tpu_torch.ops import traverse as tr
     from gltf_renderer_tpu_torch.render import pathtracer as pt
 
     sets = bench_traverse.ray_sets(scene, meta, params, c2w, (2048, pt.RAY_CHUNK // 2048),
@@ -432,8 +439,33 @@ def k1_chunk_size(scene, meta, params, c2w, device, tag):
     if checked != [pt.RAY_CHUNK, 2 * pt.RAY_CHUNK]:
         raise AssertionError(f"chunk-size ray sets hold {checked} rays")
     del sets
+
+    kernel = pt.traverse_wide
+    frame = []
+
+    def held(*args, stack_bound):
+        out = kernel(*args, stack_bound=stack_bound)
+        plain = tr.traverse_wide_ref(*args, stack_bound=stack_bound)
+        frame.append((args[4].shape[0], args[9], all(identical(a, b) for a, b in zip(out, plain))))
+        return out
+
+    w, h = FULL_RES
+    compactions = pt.COMPACTIONS
+    pt.traverse_wide = held
+    try:
+        pt.trace_chunked(scene, meta, settings, params, c2w, (w, h), 1)
+    finally:
+        pt.traverse_wide = kernel
+    compactions = pt.COMPACTIONS - compactions
+    log(f"{tag} frame {w}x{h} spp=1, {compactions} compacted bounces, launches "
+        f"(rays, any_hit, identical): {frame}")
+    if not all(same for _, _, same in frame):
+        raise AssertionError("kernel disagrees with plain version on a launch of the path "
+                             "tracer's frame")
+    if compactions == 0:
+        raise AssertionError("the frame compacted no bounce, so no launch had live rows only")
     torch.cuda.empty_cache()
-    return checked
+    return checked + [n for n, _, _ in frame]
 
 
 def k1_main_size(scene, meta, rays, tag, blend=0):
@@ -1048,7 +1080,8 @@ def phase_courtyard(device, card):
     k1 = {rays[0]: k1_main_size(scene, meta, rays, "[courtyard] kernel")
           for rays in (sets[0], sets[2])}
     del sets
-    chunk_rays = k1_chunk_size(scene, meta, params, c2w, device, "[courtyard] kernel")
+    chunk_rays = k1_chunk_size(scene, meta, settings, params, c2w, device,
+                               "[courtyard] kernel")
     # Phase 5's tile-kernel check and timing on the courtyard's bench view.
     k2 = raster_view("courtyard", scene.world, c2w, timed=True)
 
@@ -2807,7 +2840,8 @@ def main() -> int:
         f"{scene.wide_nodes.shape[0]} wide nodes, {scene.leaf_records.shape[0]} leaves, "
         f"built in {time.perf_counter() - t0:.2f}s")
 
-    worst_abs, times, chunk_rays = phase_kernel_vs_plain(scene, meta, params, c2w, device)
+    worst_abs, times, chunk_rays = phase_kernel_vs_plain(scene, meta, settings, params, c2w,
+                                                         device)
     phase_fidelity(scene, meta, settings, params)
     launches, mrays, _ = phase_main_path(scene, meta, settings, params, c2w, card)
     k2 = phase_raster_kernel(scene)

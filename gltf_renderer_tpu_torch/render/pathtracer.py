@@ -28,6 +28,18 @@ trace_chunked cuts a call into _trace_rays calls of at most RAY_CHUNK rays
 (a 1080p frame at 1 spp is one), and the host issues the whole op chain
 once for each; RAY_CHUNKS counts them.
 
+Each bounce shades only the rows it carries. After a bounce's miss step
+the host reads its live lanes (one blocking read, `torch.nonzero`); when
+some lane has died and some is left, the ray state is gathered to the
+live lanes, and the bounce's shading, sampling and launches, and the
+bounces after it, run on those rows alone. Radiance is carried with the
+rows and written back to its chunk row as rows drop out, so each lane
+adds its contributions in the order it always did: the image is the one
+every row would give. A bounce with no live lane keeps its rows, so
+every bounce makes its launches (the card takes no launch of no rays).
+COMPACTIONS counts the bounces that compacted. With a debug output the
+rows stay whole (the output is read at the first hit of every row).
+
 Spans (utils.spans) name the host's phases of a sample: `pt.chunk` each
 _trace_rays call, `pt.k1` each traverse_wide call with its argument
 preparation and hit decode, `pt.alpha_read` each hop loop's blocking read,
@@ -36,7 +48,7 @@ each bounce's environment and punctual-light sampling, BSDF evaluation
 and MIS (the light's unmerged shadow rays outside it), `pt.bsdf_sample`
 each bounce's BSDF sample, its weight and Russian roulette. While a frame
 record is open, `spans.count_lanes` counts each bounce's lanes alive when
-its shading starts against the chunk's rows it shades.
+its shading starts against the rows it shades.
 """
 
 from __future__ import annotations
@@ -105,6 +117,7 @@ MAX_SHADOW_HOPS = 16  # closest hits an alpha shadow ray passes through
 ALPHA_RETRY_HOPS = 0   # hops run by the masked-retry loops
 ALPHA_SHADOW_HOPS = 0  # hops run by the alpha-shadow loops
 RAY_CHUNKS = 0         # _trace_rays calls made by trace_chunked
+COMPACTIONS = 0        # bounces whose rows _trace_rays compacted to the live lanes
 
 
 class PTScene(NamedTuple):
@@ -900,15 +913,31 @@ def trace_chunked(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
     return (color, stats) if with_stats else color
 
 
+def _live_lanes(alive):
+    """The rows of a bounce's live lanes, read to the host (the bounce's one
+    blocking read), where the bounce compacts: some lane has died and some
+    is left. None where it keeps its rows: all alive, or none (so every
+    bounce makes its launches; the card takes no launch of no rays)."""
+    keep = torch.nonzero(alive).squeeze(1)
+    return keep if 0 < keep.shape[0] < alive.shape[0] else None
+
+
 def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                 params: S.PathTracerParams, clip_to_world, full_resolution, seed, px, py,
                 valid=None):
     """Trace a flat batch of pixel rays -> ((R, 3) color, [ray_count, nan_count]).
     With a debug output, the (R, 3) debug value at the first hit, raw (no
-    scrub, no clamp), and [ray_count, 0]."""
+    scrub, no clamp), and [ray_count, 0].
+
+    The bounces compact their rows to the live lanes (module docstring):
+    `row` maps the rows carried to the batch's rows (None while they are
+    all of them), and `out` holds the radiance of rows that dropped out."""
+    global COMPACTIONS
     n_rays = px.shape[0]
     dev = px.device
     counter = 0
+    compact = settings.debug_output == S.DEBUG_NONE
+    row = out = None
 
     def rand4():
         nonlocal counter
@@ -917,7 +946,7 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
         return r
 
     def full(value):
-        return torch.full((n_rays,), value, dtype=torch.float32, device=dev)
+        return torch.full((px.shape[0],), value, dtype=torch.float32, device=dev)
 
     jitter = rand4()[..., 0:2] - 0.5
     origin, direction_raw = generate_camera_rays(
@@ -964,7 +993,23 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
             env_col = env_col * mis_w.unsqueeze(-1)
         radiance = radiance + torch.where(miss.unsqueeze(-1), prefix * env_col, zero3)
         alive = alive & (~miss)
+        keep = _live_lanes(alive) if compact else None
+        if keep is not None:
+            COMPACTIONS += 1
+            if row is None:
+                out, row = radiance, keep
+            else:
+                out.index_copy_(0, row, radiance)
+                row = row[keep]
+            hit = Hit(*(x[keep] for x in hit))
+            (radiance, prefix, rr_state, origin, direction, prev_pdf, prev_mis, px,
+             py) = (x[keep] for x in (radiance, prefix, rr_state, origin, direction,
+                                      prev_pdf, prev_mis, px, py))
+            if isinstance(seed, torch.Tensor) and seed.dim():
+                seed = seed[keep]
+            alive = alive[keep]
         spans.count_lanes(alive)
+        rows = px.shape[0]
 
         with spans.span("pt.shade"):
             attrs = fetch_hit_attributes(scene.world, hit.tri, hit.u, hit.v, direction)
@@ -1069,7 +1114,7 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                     weight = weight / torch.where(cont, continue_prob,
                                                   torch.ones_like(continue_prob)).unsqueeze(-1)
                 else:
-                    cont = torch.ones(n_rays, dtype=torch.bool, device=dev)
+                    cont = torch.ones(rows, dtype=torch.bool, device=dev)
                 alive = alive & cont & torch.any(throughput > 0.0, -1)
                 prefix = prefix * weight
                 rr_state = throughput * weight  # quirk kept: affects only RR (:995-1003)
@@ -1091,17 +1136,20 @@ def _trace_rays(scene: PTScene, meta: PTMeta, settings: S.PathTracerSettings,
                     s_tmin, torch.cat([s_tmax1] * len(sets)),
                     cull_sign=bounce_cull, trace_bounce=trace_bounce)
                 if light_pending is not None:
-                    l_trans = shadow[n_rays * (len(sets) - 1):]
+                    l_trans = shadow[rows * (len(sets) - 1):]
                     radiance = radiance + light_pending[2] * l_trans.unsqueeze(-1)
                 if nee_pending is not None:
-                    radiance = radiance + nee_pending[2] * shadow[:n_rays].unsqueeze(-1)
+                    radiance = radiance + nee_pending[2] * shadow[:rows].unsqueeze(-1)
                     ray_count = ray_count + torch.sum(nee_pending[3].to(torch.float32))
             elif trace_bounce:
                 hit = trace_closest(scene, meta, origin, direction, eff_tmin, t_max,
                                     cull_sign=bounce_cull)
             else:
-                hit = Hit(t=t_max, tri=torch.full((n_rays,), -1, dtype=torch.int64, device=dev),
+                hit = Hit(t=t_max, tri=torch.full((rows,), -1, dtype=torch.int64, device=dev),
                           u=full(0.0), v=full(0.0))
+
+    if row is not None:
+        radiance = out.index_copy_(0, row, radiance)
 
     # NaN/INF scrub + luminance clamp (RayGeneration:760-774).
     nan_mask = torch.any(torch.isnan(radiance), -1)

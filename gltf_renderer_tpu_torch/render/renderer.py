@@ -27,10 +27,11 @@ spans (utils.spans), each summed over the frame: the passes
 that ran. `stats["counts"]` holds the frame's `k1_launches`, `alpha_hops`
 (retry and alpha-shadow), `alpha_reads` (the alpha hop loops' blocking
 reads of a device mask, one a `pt.alpha_read` span; not the frame's other
-syncs), `chunks` (the path tracer's `_trace_rays` calls), `live_lanes`
-(the lanes alive when each bounce's shading starts, summed on the device
-and read once after the u8 copy) and `lanes_shaded` (the rows each bounce
-shades, summed on the host).
+syncs), `chunks` (the path tracer's `_trace_rays` calls), `compactions`
+(the bounces whose rows the path tracer compacted to the live lanes),
+`live_lanes` (the lanes alive when each bounce's shading starts, summed on
+the device and read once after the u8 copy) and `lanes_shaded` (the rows
+each bounce shades, summed on the host).
 Under a torch profiler the same spans, inside a `draw_frame` range, name
 the frame's phases on the profiler's clock, with `profile` on or off.
 
@@ -90,9 +91,10 @@ def post_step(hdr, tonemap_settings: S.ToneMapSettings, bloom_settings, frame):
 
 
 def _counts():
-    """(K1 launches, alpha-loop hops, path-tracer chunks) so far, from the
-    module counters."""
-    return traverse.KERNEL_LAUNCHES, pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS, pt.RAY_CHUNKS
+    """(K1 launches, alpha-loop hops, path-tracer chunks, compacted
+    bounces) so far, from the module counters."""
+    return (traverse.KERNEL_LAUNCHES, pt.ALPHA_RETRY_HOPS + pt.ALPHA_SHADOW_HOPS,
+            pt.RAY_CHUNKS, pt.COMPACTIONS)
 
 
 def _host_bytes(*tables) -> int:
@@ -355,12 +357,13 @@ class Renderer:
         }
         if record is not None:
             self.stats["pass_ms"] = {k: round(v, 3) for k, v in record.ms.items()}
-            k1, hops, chunks = (b - a for a, b in zip(counts_0, _counts()))
+            k1, hops, chunks, compactions = (b - a for a, b in zip(counts_0, _counts()))
             # The u8 copy has waited for the frame: this read waits for nothing.
             live = 0 if record.live_lanes is None else int(record.live_lanes)
             self.stats["counts"] = {"k1_launches": k1, "alpha_hops": hops,
                                     "alpha_reads": record.alpha_reads, "chunks": chunks,
-                                    "live_lanes": live, "lanes_shaded": record.lanes_shaded}
+                                    "compactions": compactions, "live_lanes": live,
+                                    "lanes_shaded": record.lanes_shaded}
         if self.mesh is not None:
             self.stats["collective_ms"] = round(self.mesh.collective_ms(), 3)
         self.history.append({

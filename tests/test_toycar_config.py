@@ -16,10 +16,12 @@ at a tiny size: 40x24, 16^2 maps, the tessellation cut by 4, a 32x64 sky,
   Sheen_E table.
 - The scene's GLB reaches the port's loader with its five materials, the
   extension factors, the sheen map's texture transform and two lights.
-- Tracing: with `profile` on a frame holds the `pt.bsdf_sample` span and
-  0 < live_lanes <= lanes_shaded; with it off, no counts, and the ops a
-  path-tracer chunk issues on the helmet and the courtyard are those the
-  parent commit issued (tools/count_ops.py's counts, recorded here).
+- Tracing: with `profile` on a frame holds the `pt.bsdf_sample` span,
+  lanes_shaded is the rows the bounces shaded (the path tracer compacts
+  them to the live lanes), 0 < live_lanes <= lanes_shaded and some bounce
+  compacted; with it off, no counts, and the ops a path-tracer chunk
+  issues on the helmet and the courtyard are the recorded
+  tools/count_ops.py counts, which hold no span or counter op.
 - The two metric readers this configuration added.
 """
 
@@ -49,10 +51,14 @@ torch.set_num_threads(2)
 W, H = 40, 24
 HERE = os.path.join(spec.ROOT, "perfbench")
 CONFIG = json.load(open(os.path.join(HERE, "configs", "toycar.json")))
-# tools/count_ops.py's counts on the parent commit (ATen ops of one
-# trace_chunked call at spp 4, 2 bounces, 32x18; a traversal counted as one).
-PARENT_OPS = {"helmet": {"ops": 5936, "traversals": 3, "chunks": 1},
-              "courtyard": {"ops": 7156, "traversals": 6, "chunks": 1}}
+# tools/count_ops.py's counts with profile off (ATen ops of one
+# trace_chunked call at spp 4, 2 bounces, 32x18; a traversal counted as
+# one). Before the path tracer compacted its rows to the live lanes they
+# were 5936 and 7156: each bounce's count read and each compaction's
+# gathers add 39 ops on the helmet (2 compactions) and 56 on the courtyard
+# (3).
+PARENT_OPS = {"helmet": {"ops": 5975, "traversals": 3, "chunks": 1},
+              "courtyard": {"ops": 7212, "traversals": 6, "chunks": 1}}
 
 
 @functools.lru_cache(maxsize=1)
@@ -257,7 +263,15 @@ def test_full_size_configuration():
     assert cell["chips"] == 1 and cell["traffic"] == "still"
 
 
-def test_profile_on_counts_lanes_and_times_the_bsdf_sample(renderer):
+def test_profile_on_counts_lanes_and_times_the_bsdf_sample(monkeypatch, renderer):
+    shaded = []
+    fetch = pt.fetch_hit_attributes
+
+    def counted(world, tri, *a, **kw):
+        shaded.append(tri.shape[0])
+        return fetch(world, tri, *a, **kw)
+
+    monkeypatch.setattr(pt, "fetch_hit_attributes", counted)
     renderer.profile = True
     try:
         renderer.draw_frame(seed=5)
@@ -266,8 +280,9 @@ def test_profile_on_counts_lanes_and_times_the_bsdf_sample(renderer):
     ms, counts = renderer.stats["pass_ms"], renderer.stats["counts"]
     assert ms["pt.bsdf_sample"] >= 0.0 and "pt.shade" in ms
     rows = pt._tile_order(W, H, torch.device("cpu"))[0].shape[0]
-    assert counts["lanes_shaded"] == rows * (CONFIG["pt"]["max_bounces"] + 1)
+    assert counts["lanes_shaded"] == sum(shaded) < rows * len(shaded)
     assert 0 < counts["live_lanes"] <= counts["lanes_shaded"]
+    assert counts["compactions"] > 0
     renderer.draw_frame(seed=6)
     assert "counts" not in renderer.stats and "pass_ms" not in renderer.stats
 
